@@ -30,7 +30,8 @@ setup(
     version="2.0.0",
     description="TPU-native Paillier cryptosystem framework (JAX/Pallas)",
     packages=find_packages(include=["pailliercryptolib_python_tpu*"]),
-    package_data={"pailliercryptolib_python_tpu.native": ["*.c"]},
+    package_data={"pailliercryptolib_python_tpu.native": ["*.c"],
+                  "pailliercryptolib_python_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "pailliercryptolib_python_tpu.native._paillier_native",
