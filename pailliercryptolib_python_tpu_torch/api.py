@@ -1,13 +1,13 @@
 """Public HE API: PaillierKeypair / PublicKey / PrivateKey /
 EncryptedNumber, on the port's contexts.
 
-Counterpart of ``pailliercryptolib_python_tpu/api.py`` for the main path:
-encrypt / raw_encrypt, decrypt / raw_decrypt, ciphertext ``+`` (with
-exponent alignment through ct*pt by powers of two), ``sum``, indexing,
-ct*pt by non-negative plaintexts, and pickling with the same state
-tuples.  Operators outside this slice -- ``*`` by a negative plaintext,
-``dot``, ``@``, ``mean`` and ``apply_obfuscator`` -- raise
-NotImplementedError; ROADMAP.md lists them as still to be ported.
+Counterpart of ``pailliercryptolib_python_tpu/api.py``: encrypt /
+raw_encrypt, decrypt / raw_decrypt, re-randomization, ciphertext ``+``
+and ``-`` (with exponent alignment through ct*pt by powers of two),
+ct*pt by any plaintext (a negative one through the batched inversion),
+``/``, ``sum``, ``mean``, ``dot``, ``@`` / ``@=`` against plaintext
+matrices, indexing and iteration, and pickling with the same state
+tuples.
 """
 
 from __future__ import annotations
@@ -15,17 +15,15 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from .fixedpoint import FixedPointNumber, encode_vector, decode_limbs_vector
 from .bindings.containers import (
     BigNumber, ipclBigNumber, ipclKeypair, ipclPublicKey, ipclPrivateKey,
     ipclCipherText)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not in the port yet (see ROADMAP.md, queue of kernels "
-        f"and modules still to be ported)")
+from .models.paillier import pad_batch
+from .ops import montgomery as mg
+from .utils import config as _config
 
 
 class BNUtils:
@@ -103,7 +101,9 @@ class PaillierPublicKey:
         return hash(self.pubkey)
 
     def apply_obfuscator(self, x):
-        raise _not_ported("apply_obfuscator")
+        if isinstance(x, int):
+            return self.pubkey.apply_obfuscator(BNUtils.int2BN(x))
+        return self.pubkey.apply_obfuscator(x)
 
     def raw_encrypt(self, plaintext) -> "PaillierEncryptedNumber":
         return self.encrypt(plaintext, apply_obfuscator=False)
@@ -237,26 +237,65 @@ class PaillierEncryptedNumber:
         return self.__expos
 
     def apply_obfuscator(self):
-        raise _not_ported("apply_obfuscator")
+        dev = self._ctx().obfuscate(self.__ct.device_array())
+        self.__ct = ipclCipherText(self.public_key.pubkey, _dev=dev,
+                                   _length=self.__length)
 
     def __getitem__(self, key: Union[int, slice]) -> "PaillierEncryptedNumber":
         if isinstance(key, int):
             key = slice(key, key + 1)
+        key = slice(0 if key.start is None else key.start,
+                    len(self) if key.stop is None else key.stop, key.step)
         if not 0 <= key.stop <= len(self) or not 0 <= key.start < len(self):
             raise IndexError("__getitem__: key out of range")
         newCT = self.__ct[key]
         return PaillierEncryptedNumber(self.public_key, newCT,
                                        self.__expos[key], len(newCT))
 
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
     def _ctx(self):
         return self.public_key.pubkey.context
 
     def _scale_by_pow2(self, ct_dev, diffs: np.ndarray):
-        """ct * BASE^diff per element: one batched ct*pt (kernel K4)."""
+        """ct * BASE^diff per element: one batched ct*pt."""
         if not np.any(diffs > 0):
             return ct_dev
         exps = [1 << int(d) if d > 0 else 1 for d in diffs]
         return self._ctx().mul_pt(ct_dev, exps)
+
+    def increase_exponent_to(self, x_ct: ipclCipherText, x_expo,
+                             exponent: int) -> ipclCipherText:
+        """Raise the elements below `exponent` to it (one batched ct*pt by
+        BASE^(exponent - x_expo[i])); the others are left unchanged."""
+        expo_diff = exponent - np.fromiter(x_expo, np.int64)
+        if not np.any(expo_diff > 0):
+            return x_ct
+        dev = self._scale_by_pow2(x_ct.device_array(),
+                                  np.maximum(expo_diff, 0))
+        return ipclCipherText(self.public_key.pubkey, _dev=dev,
+                              _length=len(x_ct))
+
+    def _invert_columns(self, ct_dev, flags: np.ndarray, b: int):
+        """Invert the flagged ciphertext columns mod n^2: gather them,
+        invert by the product tree with a host root (K3 on CUDA), scatter
+        back.  Under fixed_shape_ops the whole batch is inverted and the
+        flagged columns are picked by a mask, so nothing depends on the
+        sign pattern."""
+        ctx = self._ctx()
+        if _config.get_config().fixed_shape_ops:
+            inv = mg.mont_inv_tree_hostroot(ct_dev, ctx.ctx, ctx.nsquare)
+            mask = np.zeros(ct_dev.shape[1], dtype=bool)
+            mask[:len(flags)] = flags
+            return torch.where(torch.from_numpy(mask).to(ct_dev.device)[
+                None, :], inv, ct_dev)
+        idx = np.nonzero(flags)[0]
+        inv = mg.mont_inv_tree_hostroot(ctx.gather_batch(ct_dev, idx),
+                                        ctx.ctx, ctx.nsquare)
+        out = ct_dev.clone()
+        out[:, torch.from_numpy(idx).to(ct_dev.device)] = inv[:, :len(idx)]
+        return out
 
     # -- addition --------------------------------------------------------------
 
@@ -268,6 +307,16 @@ class PaillierEncryptedNumber:
 
     def __radd__(self, other):
         return self + other
+
+    def __sub__(self, other):
+        if isinstance(other, list):
+            other = np.array(other)
+        return self.__raw_add(other * -1.0)
+
+    def __rsub__(self, other):
+        if isinstance(other, PaillierEncryptedNumber):
+            return other - self
+        return (self * (-1.0)).__raw_add(other)
 
     def __raw_add(self, other) -> "PaillierEncryptedNumber":
         if isinstance(other, (np.ndarray, list)):
@@ -302,19 +351,28 @@ class PaillierEncryptedNumber:
         ct = ipclCipherText(self.public_key.pubkey, _dev=res, _length=b)
         return PaillierEncryptedNumber(self.public_key, ct, target, b)
 
-    # -- multiplication --------------------------------------------------------
+    # -- multiplication / division ---------------------------------------------
 
     def __rmul__(self, other):
         return self * other
 
+    def __truediv__(self, other):
+        if isinstance(other, list):
+            other = np.array(other)
+        return self * (1.0 / other)
+
     def __mul__(self, other) -> "PaillierEncryptedNumber":
-        """ct * non-negative plaintext (scalar or vector) by the limb
-        route; a negative plaintext needs the batched inversion, which is
-        not ported yet."""
+        """ct * plaintext (scalar or vector).  A negative plaintext
+        (encoding >= n - max_int) is rewritten: the column is raised to
+        the small n - pt and then inverted."""
         b = self.__length
         n = self.public_key.n
         if np.isscalar(other):
             enc = FixedPointNumber.encode(other, n, self.public_key.max_int)
+            if not 0 <= enc.encoding < n:
+                raise ValueError(
+                    f"PaillierEncryptedNumber.__mul__: Scalar out of"
+                    f"bounds: {enc.encoding}")
             pts = [enc.encoding] * b
             pt_expos = np.full(b, enc.exponent, dtype=np.int64)
         else:
@@ -322,12 +380,15 @@ class PaillierEncryptedNumber:
                 raise ValueError(
                     "PaillierEncryptedNumber.__mul__: Multiply size mismatch")
             pts, pt_expos = encode_vector(other, n, self.public_key.max_int)
-        for pt in pts:
-            if not 0 <= pt < n:
-                raise ValueError(f"Scalar out of bounds: {pt}")
-            if pt >= n - self.public_key.max_int:
-                raise _not_ported("ct * negative plaintext")
-        dev = self._ctx().mul_pt(self.__ct.device_array(), pts)
+            for pt in pts:
+                if not 0 <= pt < n:
+                    raise ValueError(f"Scalar out of bounds: {pt}")
+        cond = n - self.public_key.max_int
+        flags = np.array([pt >= cond for pt in pts], dtype=bool)
+        exps = [int(n - pt) if f else int(pt) for pt, f in zip(pts, flags)]
+        dev = self._ctx().mul_pt(self.__ct.device_array(), exps)
+        if flags.any():
+            dev = self._invert_columns(dev, flags, b)
         ct = ipclCipherText(self.public_key.pubkey, _dev=dev, _length=b)
         return PaillierEncryptedNumber(self.public_key, ct,
                                        self.__expos + pt_expos, b)
@@ -344,17 +405,102 @@ class PaillierEncryptedNumber:
         return PaillierEncryptedNumber(self.public_key, ct,
                                        exponents=[max_expo], length=1)
 
-    def mean(self):
-        raise _not_ported("mean")
+    def mean(self) -> "PaillierEncryptedNumber":
+        return self.sum() / len(self)
 
-    def dot(self, other):
-        raise _not_ported("dot")
+    def dot(self, other) -> "PaillierEncryptedNumber":
+        if len(other) != len(self):
+            raise ValueError(
+                "PaillierEncryptedNumber.dot: input size mismatch with"
+                " ciphertext")
+        return (self * other).sum()
 
-    def __matmul__(self, other):
-        raise _not_ported("@")
+    # -- matmul -------------------------------------------------------------------
 
-    def __rmatmul__(self, other):
-        raise _not_ported("@")
+    def _matmul_impl(self, other: np.ndarray, m: int, n: int, k: int,
+                     rhs: bool = False) -> "PaillierEncryptedNumber":
+        """Product with a plaintext matrix: the (m*n*k)-wide column layout
+        of the reference's index maps, as batched gathers, one ct*pt, the
+        inversion of negative columns, per-group alignment and a segmented
+        tree reduce; processed in chunks of whole reduction groups of at
+        most matmul_chunk_columns columns (one group if it is wider)."""
+        ctx = self._ctx()
+        G = m * k
+        nn = self.public_key.n
+        dev_self = self.__ct.device_array()
+        flat_pt = other.reshape(-1) if other.ndim == 2 else other
+        encs, pt_expos = encode_vector(flat_pt, nn, self.public_key.max_int)
+        for pt in encs:
+            if not 0 <= pt < nn:
+                raise ValueError(f"Scalar out of bounds: {pt}")
+        cond = nn - self.public_key.max_int
+        flags_flat = np.array([pt >= cond for pt in encs], dtype=bool)
+        exps_flat = np.empty(len(encs), dtype=object)
+        exps_flat[:] = [int(nn - pt) if f else int(pt)
+                        for pt, f in zip(encs, flags_flat)]
 
-    def __imatmul__(self, other):
-        raise _not_ported("@=")
+        g_per = max(1, _config.get_config().matmul_chunk_columns // n)
+        red_parts, tg_parts = [], []
+        for g0 in range(0, G, g_per):
+            gc = min(G, g0 + g_per) - g0
+            i = np.arange(g0 * n, (g0 + gc) * n)
+            if rhs:
+                idx_self = i % n * k + i // n % k
+                ox, oy = i // (n * k), i % n
+                pidx = ox * n + oy if other.ndim == 2 else oy
+            else:
+                idx_self = i // (n * k) * n + i % n
+                ox, oy = i % n, i // n % k
+                pidx = ox * k + oy if other.ndim == 2 else ox
+            temp = ctx.mul_pt(ctx.gather_batch(dev_self, idx_self),
+                              list(exps_flat[pidx]))
+            flags = flags_flat[pidx]
+            if flags.any():
+                temp = self._invert_columns(temp, flags, len(i))
+            temp_expo = self.__expos[idx_self] + pt_expos[pidx]
+            # align each group of n to its largest exponent, then reduce
+            tg = temp_expo.reshape(gc, n).max(axis=1)
+            diffs = (tg[:, None] - temp_expo.reshape(gc, n)).reshape(-1)
+            temp = self._scale_by_pow2(temp, diffs)
+            red_parts.append(ctx.segment_tree_reduce(temp, gc, n)[:, :gc])
+            tg_parts.append(tg)
+
+        red = torch.cat(red_parts, dim=1)
+        pad = pad_batch(G)
+        if red.shape[1] < pad:
+            red = torch.cat([red, ctx.ctx.one.to(red.dtype).expand(
+                ctx.L, pad - red.shape[1])], dim=1)
+        ct = ipclCipherText(self.public_key.pubkey, _dev=red, _length=G)
+        return PaillierEncryptedNumber(self.public_key, ct,
+                                       np.concatenate(tg_parts), G)
+
+    def __matmul__(self, other) -> "PaillierEncryptedNumber":
+        if len(self) % len(other) != 0:
+            raise ValueError(
+                "PaillierEncryptedNumber.__matmul__: "
+                "matrix multiply size mismatch")
+        other = np.array(other)
+        if other.ndim not in (1, 2):
+            raise NotImplementedError(
+                f"PaillierEncryptedNumber.__matmul__: input ndim {other.ndim}"
+                f"not supported")
+        n = other.shape[0]
+        k = other.shape[1] if other.ndim == 2 else 1
+        return self._matmul_impl(other, len(self) // n, n, k)
+
+    def __rmatmul__(self, other) -> "PaillierEncryptedNumber":
+        other = np.array(other)
+        if other.ndim not in (1, 2):
+            raise NotImplementedError(
+                f"PaillierEncryptedNumber.__rmatmul__: input ndim "
+                f"{other.ndim} not supported")
+        m = other.shape[0] if other.ndim == 2 else 1
+        n = other.shape[1] if other.ndim == 2 else other.shape[0]
+        if len(self) % n != 0:
+            raise ValueError(
+                "PaillierEncryptedNumber.__rmatmul__: matrix multiply"
+                "size mismatch")
+        return self._matmul_impl(other, m, n, len(self) // n, rhs=True)
+
+    def __imatmul__(self, other) -> "PaillierEncryptedNumber":
+        return self @ other

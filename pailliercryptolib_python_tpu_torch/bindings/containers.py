@@ -270,9 +270,14 @@ class ipclPublicKey:
         return self.encrypt(pt, make_secure).getTexts()
 
     def apply_obfuscator(self, ct):
-        raise NotImplementedError(
-            "apply_obfuscator: re-randomization is still to be ported "
-            "(ROADMAP.md)")
+        """Re-randomize: BigNumber -> BigNumber, CipherText -> [BigNumber]."""
+        if isinstance(ct, ipclCipherText):
+            new_dev = self._ctx.obfuscate(ct.device_array())
+            return [BigNumber(v) for v in
+                    self._ctx.export_cts(new_dev, len(ct))]
+        v = ct._v if isinstance(ct, BigNumber) else int(ct)
+        dev = self._ctx.import_cts([v])
+        return BigNumber(self._ctx.export_cts(self._ctx.obfuscate(dev), 1)[0])
 
     def __getstate__(self):
         c = self._ctx

@@ -1,11 +1,16 @@
-// Kernels K3 (mm3_mul) and K4 (mm3_exp): shared-modulus Montgomery
-// arithmetic over 16-bit limbs, for Hopper (sm_90a).
+// Kernels K3 (mm3_mul), K4 (mm3_exp) and K7 (mm3_exp_shared):
+// shared-modulus Montgomery arithmetic over 16-bit limbs, for Hopper
+// (sm_90a).
 //
 // K3 replaces pailliercryptolib_python_tpu/ops/pallas_mont3.py
 //    _mm3_mul_kernel (:239, wrapper mm3_mul_p :247): a*b*R^-1 mod m.
 // K4 replaces pailliercryptolib_python_tpu/ops/pallas_mont3.py
 //    _mm3_exp_kernel (:306, wrapper mm3_exp_p :342): base^e with a
 //    per-element exponent, 4-bit fixed window, 16-entry table.
+// K7 replaces pailliercryptolib_python_tpu/ops/pallas_mont3.py
+//    _mm3_exp_shared_kernel (:391, wrapper mm3_exp_shared_p :430):
+//    base^e with one exponent shared by the batch (the limb CRT
+//    decrypt), w-bit fixed window, 2^w-entry table.
 //
 // Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs; one
 // thread owns one column (one big number) and walks its limbs with
@@ -33,6 +38,17 @@
 // ((16, L, B), coalesced like the operands; 67 MB at L=257, B=4096) and
 // honours win_start directly in the window loop.  The table index is a
 // digit of the plaintext exponent (not of the key).
+//
+// K7 runs the same column routine with a 2^w-entry table in global
+// scratch ((32, 129, B) u32 at w=5: 68 MB at B=4096) and the exponent
+// p-1 (q-1) as one int32 digit vector for the whole batch.  The TPU
+// kernel squared through K8's body; CIOS output is unique, so acc*acc
+// through the product routine gives the same limbs (a dedicated square
+// is K8's work).  The digits are key-derived and every column reads the
+// same entry at the same step, so the table index follows the key, as
+// on the TPU and as in K2 (README threat-model note, ROADMAP C5).  Bound:
+// as K3, per-product latency; (2^w - 2) + n_win (w + 1) products of
+// 2 L^2 16x16-bit limb products each per column.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -84,33 +100,56 @@ __global__ void mm3_mul_kernel(const uint32_t* a, const uint32_t* b,
   mont_mul_col(a + col, B, b + col, B, out + col, B, n, n0, L, t);
 }
 
-__global__ void mm3_exp_kernel(const uint32_t* base, const uint32_t* digits,
+// base^e of one column (column pointers with row stride B): table
+// T[0] = one, T[1] = base, T[d] = T[d-1] * base (2^window entries, entry
+// d at tab + d*L*B), acc = one, then per window from win_start to n_win:
+// `window` squarings and one product by T[digit].  dig points at this
+// column's digit of window 0; dstride is the step between windows (B for
+// per-element digits, 1 for a shared exponent).
+__device__ void exp_col(const uint32_t* bc, const int32_t* dig, int dstride,
+                        const uint32_t* one, uint32_t* outc, uint32_t* tab,
+                        const uint32_t* n, uint32_t n0, int L, int B,
+                        int window, int win_start, int n_win) {
+  uint32_t t[kMaxLimbs + 2];
+  uint32_t acc[kMaxLimbs];
+  const size_t plane = static_cast<size_t>(L) * B;
+  for (int j = 0; j < L; ++j) {
+    tab[j * B] = one[j];
+    tab[plane + j * B] = bc[j * B];
+  }
+  for (int d = 2; d < (1 << window); ++d)    // T[d] = T[d-1] * base
+    mont_mul_col(tab + (d - 1) * plane, B, bc, B, tab + d * plane, B, n, n0,
+                 L, t);
+  for (int j = 0; j < L; ++j) acc[j] = one[j];
+  for (int w = win_start; w < n_win; ++w) {
+    for (int s = 0; s < window; ++s)
+      mont_mul_col(acc, 1, acc, 1, acc, 1, n, n0, L, t);
+    const int d = dig[static_cast<size_t>(w) * dstride];
+    mont_mul_col(acc, 1, tab + d * plane, B, acc, 1, n, n0, L, t);
+  }
+  for (int j = 0; j < L; ++j) outc[j * B] = acc[j];
+}
+
+__global__ void mm3_exp_kernel(const uint32_t* base, const int32_t* digits,
                                const uint32_t* one, uint32_t* out,
                                uint32_t* table, const uint32_t* n,
                                uint32_t n0, int L, int B, int n_win,
                                int win_start) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
-  uint32_t t[kMaxLimbs + 2];
-  uint32_t acc[kMaxLimbs];
-  const size_t plane = static_cast<size_t>(L) * B;
-  uint32_t* tab = table + col;               // entry d: tab + d*plane
-  const uint32_t* bc = base + col;
-  for (int j = 0; j < L; ++j) {
-    tab[j * B] = one[j];
-    tab[plane + j * B] = bc[j * B];
-  }
-  for (int d = 2; d < 16; ++d)               // T[d] = T[d-1] * base
-    mont_mul_col(tab + (d - 1) * plane, B, bc, B, tab + d * plane, B, n, n0,
-                 L, t);
-  for (int j = 0; j < L; ++j) acc[j] = one[j];
-  for (int w = win_start; w < n_win; ++w) {
-    for (int s = 0; s < 4; ++s)
-      mont_mul_col(acc, 1, acc, 1, acc, 1, n, n0, L, t);
-    const uint32_t d = digits[static_cast<size_t>(w) * B + col];
-    mont_mul_col(acc, 1, tab + d * plane, B, acc, 1, n, n0, L, t);
-  }
-  for (int j = 0; j < L; ++j) out[col + j * B] = acc[j];
+  exp_col(base + col, digits + col, B, one, out + col, table + col, n, n0, L,
+          B, 4, win_start, n_win);
+}
+
+__global__ void mm3_exp_shared_kernel(const uint32_t* base,
+                                      const int32_t* digits, int n_win,
+                                      const uint32_t* one, uint32_t* out,
+                                      uint32_t* table, const uint32_t* n,
+                                      uint32_t n0, int L, int B, int window) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= B) return;
+  exp_col(base + col, digits, 1, one, out + col, table + col, n, n0, L, B,
+          window, 0, n_win);
 }
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
@@ -127,7 +166,7 @@ extern "C" int pct_mm3_mul(const uint32_t* a, const uint32_t* b,
   return cudaGetLastError();
 }
 
-extern "C" int pct_mm3_exp(const uint32_t* base, const uint32_t* digits,
+extern "C" int pct_mm3_exp(const uint32_t* base, const int32_t* digits,
                            const uint32_t* one, uint32_t* out,
                            uint32_t* table, const uint32_t* n, unsigned n0,
                            int L, int B, int n_win, int win_start,
@@ -138,5 +177,20 @@ extern "C" int pct_mm3_exp(const uint32_t* base, const uint32_t* digits,
   mm3_exp_kernel<<<blocks_for(B), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       base, digits, one, out, table, n, n0, L, B, n_win, win_start);
+  return cudaGetLastError();
+}
+
+extern "C" int pct_mm3_exp_shared(const uint32_t* base, const int32_t* digits,
+                                  int n_win, const uint32_t* one,
+                                  uint32_t* out, uint32_t* table,
+                                  const uint32_t* n, unsigned n0, int L,
+                                  int B, int window, void* stream) {
+  if (L < 2 || L > kMaxLimbs || B < 1 || n_win < 0 || window < 1
+      || window > 8) {
+    return cudaErrorInvalidValue;
+  }
+  mm3_exp_shared_kernel<<<blocks_for(B), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      base, digits, n_win, one, out, table, n, n0, L, B, window);
   return cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Kernels K1 (rns_mul) and K2 (rns_exp_sched): RNS-Montgomery products
-// over 16-bit prime channels, for Hopper (sm_90a).
+// Kernels K1 (rns_mul), K2 (rns_exp_sched) and K5 (rns_exp_elem):
+// RNS-Montgomery products over 16-bit prime channels, for Hopper (sm_90a).
 //
 // K1 replaces pailliercryptolib_python_tpu/ops/pallas_rns.py
 //    _rns_mul_kernel (:578, wrapper rns_mul_p :612, body _mul_val
@@ -7,6 +7,9 @@
 // K2 replaces pailliercryptolib_python_tpu/ops/pallas_rns.py
 //    _rns_exp_sched_kernel (:416, wrapper rns_exp_sched_p :486): the
 //    whole sliding-window chain c^e * M with a shared exponent.
+// K5 replaces pailliercryptolib_python_tpu/ops/pallas_rns.py
+//    _rns_exp_elem_kernel (:501, wrapper rns_exp_elem_p :624): the
+//    fixed-window chain c^e * M with one exponent per column (ct*pt).
 //
 // One product, per column (see ops/rns.py rns_mont_mul, its plain twin):
 //   S   = cmul(X, Y)                       all CH channels
@@ -35,9 +38,13 @@
 // What bounds it on the H100.  At CH=521 each E stack is 1044 x 272 B =
 // 284 KB, more than the 227 KB of shared memory a block may use, so E is
 // read through L1/L2 (50 MB L2 holds both stacks) instead of being
-// staged.  A product is ~4(k+1)k int8 MACs per column (68k dp4a at
-// k=260); with one thread per column a 4096-wide batch fills only 128
-// warps on 132 SMs, so the kernel is latency-bound.  Later work: the
+// staged.  A product is two base extensions of 4(k+1)k int8 MACs each
+// per column (2 x 71k dp4a at k=260, KP=272); the bound in chip_smoke.py
+// counts those MACs at 2 int8 operations each against the bytes of the
+// states read and written once.  With one thread per column a 4096-wide
+// batch fills only 128 warps on 132 SMs, so the kernel is bound by
+// instruction latency, 2-3 orders of magnitude above that bound.  Later
+// work: the
 // extensions as int8 tensor-core (mma/wgmma) products over a column
 // tile, with E tiled over k through shared memory.
 //
@@ -48,6 +55,18 @@
 // entry at the same step, so the access pattern follows the key, as on
 // the TPU.  The port's README records this; a constant-access select is
 // later work.
+//
+// K5 keeps its 2^w-entry table [one, X, X^2, ..., X^(2^w-1)] ((16, CH, B)
+// at w=4: 137 MB at CH=521, B=4096) in global scratch the wrapper
+// allocates, built by successive products with X in the TPU kernel's
+// order, so every state equals the plain twin's.  The accumulator lives
+// in the output column.  The digits are the plaintext's, so the entry
+// is chosen as on the TPU (:530-534) by a constant-access one-hot
+// select: all 2^w entries of every channel are read and masked, and the
+// digit never forms an address.  A zero digit multiplies by `one`.
+// Bound: the same per-product latency as K1 ((2^w - 2) + n_win (w + 1)
+// products per column; ops model 2 extensions x 4(k+1)k int8 MACs per
+// product and column), plus 2^w x CH table reads per window.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -197,15 +216,12 @@ __device__ __forceinline__ int pack_digits(const uint32_t* st, int s, int r0,
   return sum;
 }
 
-// One RNS-Montgomery product of a column: o = x*y*M^-1.  x, y, o are
-// column pointers with row stride s; o may alias x and/or y (each
-// channel of x, y is read once, before o's channel is written).
-__device__ void rns_mul_col(const uint32_t* x, const uint32_t* y, uint32_t* o,
-                            int s, const Ops& op, uint32_t* xs, int tid,
-                            int nt) {
-  const int k = op.k, CH = op.CH, ob = k + 1;
-  for (int c = 0; c < CH; ++c)
-    o[c * s] = cmul(x[c * s], y[c * s], V(op, c, 0), V(op, c, 1));
+// The rest of one RNS-Montgomery product of a column, once o (row
+// stride s) holds S = cmul(x, y) on all CH channels: the two base
+// extensions and the Shenoy-Kumaresan correction, in place.
+__device__ void rns_mul_finish(uint32_t* o, int s, const Ops& op,
+                               uint32_t* xs, int tid, int nt) {
+  const int k = op.k, ob = k + 1;
   // first extension: B -> B' and m_r, then r' on those channels
   int corr = 128 * pack_digits(o, s, 0, op, xs, tid, nt);
   for (int j = 0; j <= k; ++j) {
@@ -237,6 +253,17 @@ __device__ void rns_mul_col(const uint32_t* x, const uint32_t* y, uint32_t* o,
   for (int i = 0; i < k; ++i)
     o[i * s] = cmul2(o[i * s], V(op, i, 7), delta, V(op, i, 6), V(op, i, 0),
                      V(op, i, 1));
+}
+
+// One RNS-Montgomery product of a column: o = x*y*M^-1.  x, y, o are
+// column pointers with row stride s; o may alias x and/or y (each
+// channel of x, y is read once, before o's channel is written).
+__device__ void rns_mul_col(const uint32_t* x, const uint32_t* y, uint32_t* o,
+                            int s, const Ops& op, uint32_t* xs, int tid,
+                            int nt) {
+  for (int c = 0; c < op.CH; ++c)
+    o[c * s] = cmul(x[c * s], y[c * s], V(op, c, 0), V(op, c, 1));
+  rns_mul_finish(o, s, op, xs, tid, nt);
 }
 
 __global__ void rns_mul_kernel(const uint32_t* x, const uint32_t* y,
@@ -272,6 +299,44 @@ __global__ void rns_exp_sched_kernel(const uint32_t* x, const int32_t* sched,
     const int d = sched[j];                  // 0: square; t: times T[t-1]
     const uint32_t* operand = d == 0 ? acc : tb + (d - 1) * plane;
     rns_mul_col(acc, operand, acc, B, op, xs, tid, nt);
+  }
+}
+
+__global__ void rns_exp_elem_kernel(const uint32_t* x, const int32_t* digits,
+                                    int n_win, uint32_t* out, uint32_t* tab,
+                                    Ops op, int window, int B) {
+  extern __shared__ uint32_t xs[];
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= B) return;
+  const int tid = threadIdx.x, nt = blockDim.x, CH = op.CH;
+  const size_t plane = static_cast<size_t>(CH) * B;
+  const uint32_t* xc = x + col;
+  uint32_t* tb = tab + col;
+  uint32_t* acc = out + col;
+  const int tsize = 1 << window;
+  for (int c = 0; c < CH; ++c) {
+    tb[c * B] = V(op, c, 9);                              // T[0] = one
+    tb[plane + c * B] = xc[c * B];                        // T[1] = X
+  }
+  for (int t = 2; t < tsize; ++t)                         // T[t] = T[t-1] X
+    rns_mul_col(tb + (t - 1) * plane, xc, tb + t * plane, B, op, xs, tid,
+                nt);
+  for (int c = 0; c < CH; ++c) acc[c * B] = V(op, c, 9);
+  for (int j = 0; j < n_win; ++j) {
+    for (int r = 0; r < window; ++r)
+      rns_mul_col(acc, acc, acc, B, op, xs, tid, nt);
+    const int d = digits[static_cast<size_t>(j) * B + col];
+    // acc * T[d]: every entry is read; the digit only builds masks
+    for (int c = 0; c < CH; ++c) {
+      uint32_t sel = tb[c * B];
+      for (int t = 1; t < tsize; ++t) {
+        const uint32_t v = tb[t * plane + c * B];
+        const uint32_t mask = 0u - static_cast<uint32_t>(d == t);
+        sel = (v & mask) | (sel & ~mask);
+      }
+      acc[c * B] = cmul(acc[c * B], sel, V(op, c, 0), V(op, c, 1));
+    }
+    rns_mul_finish(acc, B, op, xs, tid, nt);
   }
 }
 
@@ -312,5 +377,22 @@ extern "C" int pct_rns_exp_sched(const uint32_t* x, const int32_t* sched,
                          shared_bytes(KP),
                          static_cast<cudaStream_t>(stream)>>>(
       x, sched, n_ops, out, tab, c2, op, window, B);
+  return cudaGetLastError();
+}
+
+extern "C" int pct_rns_exp_elem(const uint32_t* x, const int32_t* digits,
+                                int n_win, uint32_t* out, uint32_t* tab,
+                                const uint32_t* vec, const uint32_t* skc,
+                                const int8_t* E1, const int8_t* E2, int k,
+                                int CH, int KP, int nlev, int window, int B,
+                                void* stream) {
+  if (bad_shape(k, CH, KP, B) || window < 1 || window > 8 || n_win < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const Ops op{vec, skc, E1, E2, k, CH, KP, nlev};
+  rns_exp_elem_kernel<<<(B + kThreads - 1) / kThreads, kThreads,
+                        shared_bytes(KP),
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, digits, n_win, out, tab, op, window, B);
   return cudaGetLastError();
 }

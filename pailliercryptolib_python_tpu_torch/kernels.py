@@ -1,11 +1,13 @@
 """Build, bind and count the hand-written CUDA kernels.
 
-The sources in ``csrc/*.cu`` are compiled at first use with
+The sources in ``csrc/*.cu`` are compiled at first use, one nvcc per
+source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/libpct_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o build/<name>.o csrc/<name>.cu
 
-into this package's git-ignored ``build/`` directory and loaded with
+then linked with ``nvcc -shared -o build/libpct_kernels.so build/*.o``
+in this package's git-ignored ``build/`` directory, and loaded with
 ctypes.  Each C entry point launches one kernel on the stream it is
 given and returns ``cudaGetLastError()``; ``launch`` raises on any
 nonzero code.  There is no fallback: a tensor that is not on a CUDA
@@ -26,6 +28,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -33,9 +36,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpct_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-COUNTS = {"rns_mul": 0, "rns_exp_sched": 0, "mm3_mul": 0, "mm3_exp": 0}
+COUNTS = {"rns_mul": 0, "rns_exp_sched": 0, "rns_exp_elem": 0,
+          "mm3_mul": 0, "mm3_exp": 0, "mm3_exp_shared": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +52,9 @@ _SIGS = {
     "rns_mul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rns_exp_sched": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
+    "rns_exp_elem": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _P],
+    "mm3_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _U, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -72,7 +79,8 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH (atomic rename) unless it is newer
-    than every source; return the path."""
+    than every source; return the path.  The sources compile in
+    parallel, one nvcc process each, into a private temporary directory."""
     global build_log, build_seconds
     srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     newest = max(os.path.getmtime(s) for s in
@@ -80,17 +88,28 @@ def build() -> str:
     if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True, timeout=900)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, LIB_PATH)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(s)[:-3] + ".o")
+                for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            logs.append(link.stdout + link.stderr)
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        os.replace(tmp, LIB_PATH)
     return LIB_PATH
 
 
@@ -115,6 +134,23 @@ def require_cuda(*tensors: torch.Tensor) -> None:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"kernel operands must share one CUDA device; "
                              f"got {[str(x.device) for x in tensors]}")
+
+
+def digit_tensor(digits, window: int, device) -> torch.Tensor:
+    """Exponent digits, made on the host (numpy or a CPU tensor), checked
+    there to lie in [0, 2^window), as a contiguous int32 tensor on
+    `device`.  Digits already on a device raise: checking them would cost
+    a copy back and a synchronize."""
+    if isinstance(digits, torch.Tensor):
+        if digits.device.type != "cpu":
+            raise ValueError("exponent digits must be given on the host "
+                             f"(got a tensor on {digits.device})")
+        digits = digits.numpy()
+    d = np.asarray(digits).astype(np.int64)
+    if d.size and (d.min() < 0 or d.max() >= (1 << window)):
+        raise ValueError(f"exponent digit outside [0, 2^{window})")
+    return torch.from_numpy(np.ascontiguousarray(d.astype(np.int32))).to(
+        device)
 
 
 def launch(name: str, *args) -> None:

@@ -1,14 +1,17 @@
 """Paillier / DJN scheme layer: host keygen, the public context (encrypt,
-HE add, sum, ct*pt by the limb route) and the private context (CRT
+re-randomization, HE add, sum, ct*pt) and the private context (CRT
 decrypt), on torch tensors.
 
-Counterpart of ``pailliercryptolib_python_tpu/models/paillier.py``, main
-path only.  Encryption always takes the RNS route: (1 + m*n) enters RNS
+Counterpart of ``pailliercryptolib_python_tpu/models/paillier.py``.  DJN
+encryption and re-randomization take the RNS route: the input enters RNS
 and is multiplied by the per-key comb table's entries (kernel K1 per
-window on CUDA).  Decryption reduces into the p^2/q^2 domains (stage 1),
-runs the sliding-window chain per CRT half (kernel K2 on CUDA, stage 2)
-and recombines (stage 3).  Every shared-modulus product is kernel K3 and
-the exponent alignment of ``+``/``sum`` is kernel K4.
+window on CUDA); a plain-Paillier key multiplies by r^n (kernel K4).
+ct*pt runs the per-element RNS chain (kernel K5) for exponents of 8 or
+more 4-bit windows, the limb modexp (kernel K4) below.  Decryption
+reduces into the p^2/q^2 domains (stage 1), exponentiates per CRT half
+(stage 2: the RNS sliding-window chain, kernel K2, or with
+``decrypt_engine="limb"`` the shared-exponent limb modexp, kernel K7) and
+recombines (stage 3).  Every shared-modulus product is kernel K3.
 
 Ciphertexts are (L, B) int32 limb tensors in the Montgomery domain mod
 n^2, on the context's device.
@@ -27,6 +30,7 @@ from ..device import resolve
 from ..ops.limb import (LIMB_BITS, LIMB_DTYPE, big_mul, cond_sub,
                         int_to_limbs, ints_to_limbs, limbs_for_bits,
                         limbs_to_ints, normalize, sub_mod_base, to_device)
+from ..ops import mont3 as _m3
 from ..ops import montgomery as mg
 from ..ops import rns as _rns
 from ..ops import rns_kernels as _rk
@@ -233,7 +237,9 @@ class PublicContext:
                                  self.device)
         self.n_win_ct = -(-self.bits // WINDOW)
         self._rns = None            # lazy (base, key) of n^2
+        self._rns_mul = None        # lazy ct*pt RNS plan (False: none)
         self._comb_rns = None       # lazy (n_win, CH, 2^w) comb states
+        self._n_digits = None       # lazy digits of n (plain r^n)
         if self.enable_DJN:
             # shrink the window until the RNS comb fits half the budget
             CH = self.rns_plan()[0].CH
@@ -245,13 +251,31 @@ class PublicContext:
 
     def rns_plan(self):
         """(RnsBase, RnsModulus) of n^2 for the encrypt engine."""
+        _config.require_rns("encrypt_engine")
+        return self._rns_base_key()
+
+    def _rns_base_key(self):
         if self._rns is None:
-            _config.require_rns("encrypt_engine")
             mbits = _rns_mbits(2 * self.bits + 2)
             base = _rns.RnsBase.for_bits(mbits, self.device)
             self._rns = (base, _rns.RnsModulus.build(base, self.nsquare,
                                                      self.L))
         return self._rns
+
+    def _rns_mul_plan(self):
+        """(base, key, window) of the ct*pt RNS engine, or None.  On when
+        either engine knob allows RNS and n^2 is within the RNS bound;
+        window 4, the JAX package's choice off the TPU, so both packages
+        take the same digits."""
+        if self._rns_mul is None:
+            cfg = _config.get_config()
+            ok = (cfg.decrypt_engine in ("auto", "rns")
+                  or cfg.encrypt_engine in ("auto", "rns"))
+            mbits = -(-(2 * self.bits + 2) // 16) * 16
+            self._rns_mul = False
+            if ok and mbits <= RNS_MAX_MBITS:
+                self._rns_mul = (*self._rns_base_key(), WINDOW)
+        return self._rns_mul or None
 
     @property
     def comb_rns(self) -> torch.Tensor:
@@ -266,6 +290,15 @@ class PublicContext:
                 n_win=-(-self.randbits // self.comb_window),
                 randbits=self.randbits)
         return self._comb_rns
+
+    @property
+    def n_exp_digits(self) -> torch.Tensor:
+        """(n_win_ct,) MSB-first 4-bit digits of n (plain r^n)."""
+        if self._n_digits is None:
+            self._n_digits = torch.from_numpy(mg.exponent_digits(
+                [self.n], self.n_win_ct, WINDOW)[:, 0].astype(np.int32)
+            ).to(self.device)
+        return self._n_digits
 
     def _host_pow2_ladder(self) -> np.ndarray:
         """(L, randbits) limbs of hs^(2^t) * R mod n^2 (host bigints: a
@@ -283,7 +316,10 @@ class PublicContext:
 
     def transfer_limbs(self, maxbits: int) -> int:
         """Limb rows packed for a batch whose widest encoding has
-        `maxbits` bits (power-of-two bucketed)."""
+        `maxbits` bits (power-of-two bucketed; the full Ln under
+        fixed_shape_ops)."""
+        if _config.get_config().fixed_shape_ops:
+            return self.Ln
         Lmin = max(1, limbs_for_bits(maxbits))
         if Lmin <= self.Ln // 2:
             return min(self.Ln, 1 << (Lmin - 1).bit_length())
@@ -332,35 +368,75 @@ class PublicContext:
         return mg.to_mont(_encrypt_raw_canonical(m_limbs, self.n_limbs,
                                                  self.L), self.ctx)
 
+    def _fresh_digits(self, b: int) -> torch.Tensor:
+        return torch.from_numpy(self.sample_obfuscator_digits(b).astype(
+            np.int32)).to(self.device)
+
+    def obfuscate(self, ct_mont: torch.Tensor) -> torch.Tensor:
+        """Multiply in a fresh obfuscator (re-randomization).  DJN: the
+        RNS comb chain with fresh digits (K1); plain Paillier: r^n with
+        r uniform in [1, n) per column (K4), then one product (K3)."""
+        B = ct_mont.shape[1]
+        if self.enable_DJN:
+            base, key = self.rns_plan()
+            return _rns.rns_comb_product(ct_mont, self.comb_rns,
+                                         self._fresh_digits(B), base, key,
+                                         self.ctx, self.L, mont_input=True)
+        rs = [secrets.randbelow(self.n - 1) + 1 for _ in range(B)]
+        r_m = mg.to_mont(to_device(ints_to_limbs(rs, self.L), self.device),
+                         self.ctx)
+        obf = mg.mont_exp(r_m, self.n_exp_digits[:, None].expand(
+            self.n_win_ct, B), self.ctx, window=WINDOW)
+        return mg.mont_mul(ct_mont, obf, self.ctx)
+
     def encrypt(self, encodings: list, apply_obfuscator: bool = True,
                 pad_to: int | None = None) -> torch.Tensor:
         """Encodings (ints mod n) -> Montgomery ciphertexts (L, B_pad).
-        DJN obfuscation takes the RNS comb route."""
+        DJN obfuscation takes the RNS comb route; a plain-Paillier key
+        encrypts raw and then obfuscates with r^n."""
         m = self.encodings_to_device(encodings, pad_to)
-        if not apply_obfuscator:
-            return self.encrypt_raw(m)
-        if not self.enable_DJN:
-            raise NotImplementedError(
-                "encrypt: the plain-Paillier obfuscator r^n is still to be "
-                "ported (ROADMAP.md); use a DJN key")
-        digits = torch.from_numpy(self.sample_obfuscator_digits(
-            m.shape[1]).astype(np.int32)).to(self.device)
-        base, key = self.rns_plan()
-        raw = _encrypt_raw_canonical(m, self.n_limbs, self.L)
-        return _rns.rns_comb_product(raw, self.comb_rns, digits, base, key,
-                                     self.ctx, self.L)
+        if apply_obfuscator and self.enable_DJN:
+            base, key = self.rns_plan()
+            raw = _encrypt_raw_canonical(m, self.n_limbs, self.L)
+            return _rns.rns_comb_product(raw, self.comb_rns,
+                                         self._fresh_digits(m.shape[1]),
+                                         base, key, self.ctx, self.L)
+        ct = self.encrypt_raw(m)
+        if apply_obfuscator:
+            ct = self.obfuscate(ct)
+        return ct
 
     def add_ct(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """HE addition: ciphertext product mod n^2 (kernel K3)."""
         return mg.mont_mul(a, b, self.ctx)
 
     def mul_pt(self, ct: torch.Tensor, exponents: list) -> torch.Tensor:
-        """HE ct*pt by the limb route: ct^e per column with 4-bit windows
-        (kernel K4); leading all-zero windows are skipped."""
+        """HE ct*pt: ct^e per column, exponents >= 0.
+
+        RNS route (kernel K5) when the plan is on and the widest exponent
+        needs 8 or more 4-bit windows: the window count is bucketed to
+        max(4, next power of two), capped at ceil(bits/4).  Limb route
+        (kernel K4) otherwise, with the leading all-zero windows skipped.
+        Under fixed_shape_ops both run the full mod-n window count and
+        every exponent takes the RNS route when the plan is on."""
         B = ct.shape[1]
         exps = list(exponents) + [0] * (B - len(exponents))
+        fixed = _config.get_config().fixed_shape_ops
         maxbits = max((int(e).bit_length() for e in exps), default=1)
-        n_win_needed = max(1, -(-maxbits // WINDOW))
+        rplan = self._rns_mul_plan()
+        if rplan is not None and not fixed and -(-maxbits // WINDOW) < 8:
+            rplan = None
+        if rplan is not None:
+            base, key, w = rplan
+            nw_full = -(-self.bits // w)
+            needed = max(1, -(-maxbits // w))
+            nw = nw_full if fixed else min(
+                nw_full, max(4, 1 << max(0, needed - 1).bit_length()))
+            digits = mg.exponent_digits(exps, nw, w)
+            return _rns.rns_pow_elem(ct, digits, base, key, self.ctx, w,
+                                     self.L)
+        n_win_needed = (self.n_win_ct if fixed
+                        else max(1, -(-maxbits // WINDOW)))
         n_win_total = max(self.n_win_ct, n_win_needed)
         digits = mg.exponent_digits(exps, n_win_total, WINDOW)
         return mg.mont_exp(ct, digits, self.ctx, window=WINDOW,
@@ -374,7 +450,13 @@ class PublicContext:
 
     def tree_reduce(self, ct: torch.Tensor, b: int) -> torch.Tensor:
         """HE sum of the first b ciphertexts, total in column 0."""
-        return _segment_tree_reduce(ct, self.ctx, 1, b, self.L)
+        return self.segment_tree_reduce(ct, 1, b)
+
+    def segment_tree_reduce(self, ct: torch.Tensor, groups: int,
+                            seg: int) -> torch.Tensor:
+        """HE sums of `groups` contiguous segments of length `seg`;
+        returns (L, pad_batch(groups)) with the group sums in order."""
+        return _segment_tree_reduce(ct, self.ctx, groups, seg, self.L)
 
     def export_cts(self, ct_mont: torch.Tensor, b: int) -> list:
         """Montgomery ciphertexts -> canonical Python ints."""
@@ -449,12 +531,14 @@ def _encrypt_raw_canonical(m_limbs, n_limbs, L):
 # ---------------------------------------------------------------------------
 
 class PrivateContext:
-    """CRT decryption for one key, on the public context's device."""
+    """CRT decryption for one key, on the public context's device.  The
+    stage-2 engine is read from ``decrypt_engine`` when the context is
+    built: "auto"/"rns" the RNS chain (K2), anything else the limb
+    shared-exponent modexp (K7)."""
 
     def __init__(self, pub: PublicContext, p: int, q: int):
         if p * q != pub.n:
             raise ValueError("PrivateContext: p*q != n")
-        _config.require_rns("decrypt_engine")
         self.pub = pub
         self.p, self.q = p, q
         dev = pub.device
@@ -479,15 +563,26 @@ class PrivateContext:
         self._sq_q = mg.MontCtx.for_modulus(qsq, min_bits=LIMB_BITS * Lh,
                                             device=dev)
         ebits = max((p - 1).bit_length(), (q - 1).bit_length())
-        self.rns_base = _rns.RnsBase.for_bits(
-            _rns_mbits(max(psq.bit_length(), qsq.bit_length())), dev)
-        self.rns_p = _rns.RnsModulus.build(self.rns_base, psq, Lh)
-        self.rns_q = _rns.RnsModulus.build(self.rns_base, qsq, Lh)
-        self.rns_sched_window = _rk.plan_sched(self.rns_base.CH)
-        self.rsched_p = _rns.sliding_schedule(p - 1, self.rns_sched_window,
-                                              ebits)
-        self.rsched_q = _rns.sliding_schedule(q - 1, self.rns_sched_window,
-                                              ebits)
+        # limb engine: shared-exponent digits of p-1, q-1 at the window of
+        # the JAX package's plan (5 at Lh=129)
+        self.dec_window = (_m3.shared_exp_window(Lh)
+                           if self._sq_p.wmu is not None else 5)
+        digd = mg.exponent_digits([p - 1, q - 1],
+                                  -(-ebits // self.dec_window),
+                                  self.dec_window)
+        self.dig_p = np.ascontiguousarray(digd[:, 0].astype(np.int32))
+        self.dig_q = np.ascontiguousarray(digd[:, 1].astype(np.int32))
+        self.use_rns = _config.get_config().decrypt_engine in ("auto", "rns")
+        if self.use_rns:
+            self.rns_base = _rns.RnsBase.for_bits(
+                _rns_mbits(max(psq.bit_length(), qsq.bit_length())), dev)
+            self.rns_p = _rns.RnsModulus.build(self.rns_base, psq, Lh)
+            self.rns_q = _rns.RnsModulus.build(self.rns_base, qsq, Lh)
+            self.rns_sched_window = _rk.plan_sched(self.rns_base.CH)
+            self.rsched_p = _rns.sliding_schedule(
+                p - 1, self.rns_sched_window, ebits)
+            self.rsched_q = _rns.sliding_schedule(
+                q - 1, self.rns_sched_window, ebits)
         # stage 1: residue planes of 2^(16l) mod p^2 / q^2 and the folded
         # constant F2 = R_h^2 * 2^32 * R_n2^-1
         Rn2 = 1 << (LIMB_BITS * pub.L)
@@ -519,12 +614,25 @@ class PrivateContext:
         (Ln, B) on the device."""
         B = ct_mont.shape[1]
         base_m = _crt_stage_reduce(ct_mont, self)
-        u_p = _rns.rns_crt_exp_sched(base_m[:, :B], self.rsched_p,
-                                     self.rns_base, self.rns_p, self._sq_p,
-                                     self.rns_sched_window, self.Lh)
-        u_q = _rns.rns_crt_exp_sched(base_m[:, B:], self.rsched_q,
-                                     self.rns_base, self.rns_q, self._sq_q,
-                                     self.rns_sched_window, self.Lh)
+        if self.use_rns:
+            u_p = _rns.rns_crt_exp_sched(base_m[:, :B], self.rsched_p,
+                                         self.rns_base, self.rns_p,
+                                         self._sq_p, self.rns_sched_window,
+                                         self.Lh)
+            u_q = _rns.rns_crt_exp_sched(base_m[:, B:], self.rsched_q,
+                                         self.rns_base, self.rns_q,
+                                         self._sq_q, self.rns_sched_window,
+                                         self.Lh)
+        elif self._sq_p.wmu is not None:
+            u_p = _crt_stage_exp_half(base_m[:, :B], self._sq_p, self.dig_p,
+                                      self.dec_window)
+            u_q = _crt_stage_exp_half(base_m[:, B:], self._sq_q, self.dig_q,
+                                      self.dec_window)
+        else:
+            raise NotImplementedError(
+                "decrypt_engine='limb' on a context without mm3 weights "
+                "needs the per-element-moduli modexp (MontCtx.for_moduli, "
+                "kernels K9/K10), still to be ported (ROADMAP.md)")
         return _crt_stage_recombine(torch.cat([u_p, u_q], dim=1), self)
 
 
@@ -541,6 +649,13 @@ def _crt_stage_reduce(ct_mont, s: PrivateContext):
 
     return torch.cat([half(s.Cp_lo, s.Cp_hi, s._sq_p, s.f2_p),
                       half(s.Cq_lo, s.Cq_hi, s._sq_q, s.f2_q)], dim=1)
+
+
+def _crt_stage_exp_half(base_m, sq_ctx, digits, window):
+    """Stage 2 of the limb engine, one prime's half: the shared-exponent
+    modexp (kernel K7 on CUDA) and the Montgomery exit (canonical)."""
+    u = mg.mont_exp_shared(base_m, digits, sq_ctx, window=window)
+    return mg.from_mont(u, sq_ctx)
 
 
 def _crt_stage_recombine(u, s: PrivateContext):
@@ -590,9 +705,11 @@ def from_jax_state(state: dict, device=None):
                       "rns_p", "rns_q": {RnsModulus vectors},
                       "pack_p", "pack_q": pack() bundles,
                       "rsched_p", "rsched_q", "rns_sched_window",
-                      Cp_lo..Cq_hi, f2_p, ..., q_limbs}}
+                      Cp_lo..Cq_hi, f2_p, ..., q_limbs,
+                      "dec_window", "dig_p", "dig_q" (optional)}}
     The port's host builders run first; every array given replaces the
-    one they made."""
+    one they made.  The RNS fields are read when the private context
+    uses the RNS engine."""
     dev = resolve(device)
     pd, vd = state["pub"], state["priv"]
     pub = PublicContext(state["n"], state["bits"], True, state["hs"],
@@ -609,13 +726,19 @@ def from_jax_state(state: dict, device=None):
     priv = PrivateContext(pub, state["p"], state["q"])
     for f in ("sq_p", "sq_q", "p_ctx", "q_ctx"):
         setattr(priv, "_" + f, mont(vd[f]))
-    priv.rns_p = _rns.RnsModulus.from_arrays(priv.p * priv.p, vd["rns_p"],
-                                             dev, packed=vd["pack_p"])
-    priv.rns_q = _rns.RnsModulus.from_arrays(priv.q * priv.q, vd["rns_q"],
-                                             dev, packed=vd["pack_q"])
-    priv.rns_sched_window = int(vd["rns_sched_window"])
-    priv.rsched_p = np.asarray(vd["rsched_p"], dtype=np.int32)
-    priv.rsched_q = np.asarray(vd["rsched_q"], dtype=np.int32)
+    if priv.use_rns:
+        priv.rns_p = _rns.RnsModulus.from_arrays(
+            priv.p * priv.p, vd["rns_p"], dev, packed=vd["pack_p"])
+        priv.rns_q = _rns.RnsModulus.from_arrays(
+            priv.q * priv.q, vd["rns_q"], dev, packed=vd["pack_q"])
+        priv.rns_sched_window = int(vd["rns_sched_window"])
+        priv.rsched_p = np.asarray(vd["rsched_p"], dtype=np.int32)
+        priv.rsched_q = np.asarray(vd["rsched_q"], dtype=np.int32)
+    if vd.get("dec_window") is not None:
+        priv.dec_window = int(vd["dec_window"])
+    for f in ("dig_p", "dig_q"):
+        if vd.get(f) is not None:
+            setattr(priv, f, np.asarray(vd[f], dtype=np.int32).reshape(-1))
     for f in _PRIV_PLANES:
         setattr(priv, f, torch.from_numpy(
             np.asarray(vd[f]).astype(np.int64)).to(dev))

@@ -1,10 +1,9 @@
-"""Host-side C helpers, built from the JAX package's ``sieve.c``.
+"""Host-side C helpers (sieve window, limb pack/unpack, fixed-point
+decode, window extraction).
 
-The C source is read by path from
-``pailliercryptolib_python_tpu/native/sieve.c`` and compiled at first use
-into this package's git-ignored ``build/`` directory.  The port does not
-import ``pailliercryptolib_python_tpu.native``: that would run the JAX
-package's ``__init__`` and import ``jax``.  Every entry point keeps the
+``sieve.c`` beside this file is the package's own copy of the JAX
+package's C source, unchanged; it is compiled at first use into this
+package's git-ignored ``build/`` directory.  Every entry point keeps the
 pure-Python fallback of the original, so the port works without a C
 toolchain.
 """
@@ -21,8 +20,7 @@ import tempfile
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "pailliercryptolib_python_tpu",
-                    "native", "sieve.c")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sieve.c")
 BUILD_DIR = os.path.join(_PKG, "build")
 _MOD_NAME = "pailliercryptolib_python_tpu_torch.native._paillier_native"
 _native = None

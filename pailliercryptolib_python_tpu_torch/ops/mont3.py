@@ -1,4 +1,5 @@
-"""Shared-modulus Montgomery product (K3) and per-element modexp (K4).
+"""Shared-modulus Montgomery product (K3), per-element modexp (K4) and
+shared-exponent modexp (K7).
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
 
@@ -6,6 +7,8 @@ Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
   tensor, ``mm3_mul_plain`` on a CPU tensor.
 * ``mm3_exp(base, digits, ctx, win_start)`` -- kernel K4 on a CUDA
   tensor, ``mm3_exp_plain`` on a CPU tensor.
+* ``mm3_exp_shared(base, digits, ctx, window)`` -- kernel K7 on a CUDA
+  tensor, ``mm3_exp_shared_plain`` on a CPU tensor.
 
 The plain twins keep the TPU kernel's algorithm: the schoolbook product,
 then the Montgomery reduction as two signed-byte Toeplitz matrix products
@@ -24,6 +27,24 @@ from .limb import (LIMB_BITS, LIMB_DTYPE, big_mul, idot, int_to_limbs,
 from .. import kernels
 
 BIAS = 1 << 26          # per-limb slot bias: |signed slot| < 2^26
+
+# Window of the shared-exponent modexp.  The JAX package picks it from
+# its 16 MB scoped-VMEM tile model; the same rule here makes both
+# packages pick the same window (5 at L=129, the 2048-bit key's p^2/q^2
+# limbs), hence the same digits.  The model sets nothing inside the CUDA
+# kernel, whose table lives in global memory.
+_VMEM_BUDGET = 13_500_000
+_ROWS_PER_L = 40
+
+
+def shared_exp_window(L: int) -> int:
+    """Window of the shared-exponent modexp at L limbs: the widest of
+    5, 4, 3 whose table fits the reference's smallest (128-wide) tile."""
+    stride = -(-L // 8) * 8                  # the TPU table's 8-aligned rows
+    for w in (5, 4, 3):
+        if 4 * 128 * ((1 << w) * stride + _ROWS_PER_L * L) <= _VMEM_BUDGET:
+            return w
+    return 2
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +156,16 @@ def mm3_exp_plain(base, digits, wmu, wm, off1, off2, one,
     return fixed_window_exp(base, digits, one, mul, 4, win_start)
 
 
+def mm3_exp_shared_plain(base, digits, wmu, wm, off1, off2, one,
+                         window: int) -> torch.Tensor:
+    """Plain twin of K7: one exponent for the batch, digits (n_win,)
+    MSB-first base-2^window; table T[d] = T[d-1]*base of 2^window
+    entries, then per window `window` squarings and one product by T[d]."""
+    from .montgomery import fixed_window_exp
+    mul = lambda x, y: mm3_mul_plain(x, y, wmu, wm, off1, off2)
+    return fixed_window_exp(base, digits.reshape(-1, 1), one, mul, window)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: CPU tensor -> plain twin; CUDA tensor -> kernel, else raise.
 # ---------------------------------------------------------------------------
@@ -185,4 +216,29 @@ def _mm3_exp_cuda(base, digits, ctx, win_start) -> torch.Tensor:
     table = torch.empty((16, L, B), dtype=LIMB_DTYPE, device=base.device)
     kernels.launch("mm3_exp", base, digits, one, out, table, ctx.n_limbs,
                    ctx.n0inv, L, B, n_win, int(win_start))
+    return out
+
+
+def mm3_exp_shared(base: torch.Tensor, digits, ctx,
+                   window: int) -> torch.Tensor:
+    """base^e (Montgomery form) with one exponent for the batch: digits
+    (n_win,) MSB-first base-2^window, on the host (numpy or a CPU
+    tensor)."""
+    digits = kernels.digit_tensor(digits, window, base.device).reshape(-1)
+    if base.device.type == "cpu":
+        return mm3_exp_shared_plain(base, digits, ctx.wmu, ctx.wm, ctx.off1,
+                                    ctx.off2, ctx.one, window)
+    return _mm3_exp_shared_cuda(base, digits, ctx, window)
+
+
+def _mm3_exp_shared_cuda(base, digits, ctx, window) -> torch.Tensor:
+    kernels.require_cuda(base, digits, ctx.n_limbs)
+    L, B = base.shape
+    base = _cols(base, L, B)
+    one = ctx.one.contiguous()
+    out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
+    table = torch.empty((1 << window, L, B), dtype=LIMB_DTYPE,
+                        device=base.device)
+    kernels.launch("mm3_exp_shared", base, digits, digits.shape[0], one,
+                   out, table, ctx.n_limbs, ctx.n0inv, L, B, window)
     return out

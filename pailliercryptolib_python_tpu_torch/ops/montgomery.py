@@ -1,9 +1,10 @@
 """Batched Montgomery arithmetic over 16-bit-limb tensors.
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/montgomery.py`` (the
-shared-modulus subset the main path runs).  Values live in the
-Montgomery domain below 2m (Walter's bound: R = 2^(16L) > 4m keeps
-product chains closed without conditional subtracts).
+shared-modulus subset: products, per-element and shared-exponent modexp,
+batched inversion).  Values live in the Montgomery domain below 2m
+(Walter's bound: R = 2^(16L) > 4m keeps product chains closed without
+conditional subtracts).
 
 Dispatch mirrors the JAX package: a context that carries the mm3 byte
 weights (always the case on CUDA) routes every product through
@@ -20,8 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, cond_sub, int_to_limbs,
-                   limbs_for_bits, normalize, to_device)
+from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, compare_ge, cond_sub,
+                   int_to_limbs, limbs_for_bits, limbs_to_ints, normalize,
+                   sub_mod_base, to_device)
 from ..device import resolve
 
 
@@ -206,6 +208,140 @@ def mont_exp(base: torch.Tensor, digits, ctx: MontCtx, window: int = 4,
     return fixed_window_exp(base, digits, ctx.one,
                             lambda x, y: mont_mul_plain(x, y, ctx),
                             window, int(win_start))
+
+
+def mont_exp_shared(base: torch.Tensor, digits, ctx: MontCtx,
+                    window: int = 4) -> torch.Tensor:
+    """Shared-exponent modexp dispatcher: digits (n_win,) MSB-first
+    base-2^window, one exponent for the batch.  An mm3 context runs
+    kernel K7 (``mont3.mm3_exp_shared``); otherwise the plain CIOS chain."""
+    if _uses_mm3(base, ctx):
+        from . import mont3
+        return mont3.mm3_exp_shared(base, digits, ctx, window)
+    if base.is_cuda:
+        raise ValueError("mont_exp_shared: no CUDA kernel without mm3 "
+                         "weights (per-element moduli: K9/K10)")
+    return _mont_exp_shared_plain(base, digits, ctx, window)
+
+
+def _mont_exp_shared_plain(base, digits, ctx: MontCtx,
+                           window: int = 4) -> torch.Tensor:
+    """Fixed-window modexp with a shared exponent over the plain CIOS
+    product (port of ``_mont_exp_shared_jnp``)."""
+    digits = torch.as_tensor(np.asarray(digits, dtype=np.int64)).reshape(
+        -1, 1).to(base.device)
+    return fixed_window_exp(base, digits, ctx.one,
+                            lambda x, y: mont_mul_plain(x, y, ctx), window)
+
+
+# ---------------------------------------------------------------------------
+# Batched modular inverse (the negative-plaintext ct*pt rewrite).
+# ---------------------------------------------------------------------------
+
+def _shr1(w: torch.Tensor) -> torch.Tensor:
+    """Whole-number right shift by one bit on canonical limbs."""
+    hi = torch.cat([w[1:] & 1, torch.zeros_like(w[:1])], dim=0)
+    return (w >> 1) | (hi << (LIMB_BITS - 1))
+
+
+def mont_inv(x_mont: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
+    """Batched inverse of Montgomery residues: a binary extended GCD of a
+    fixed 2*16*L + 4 iterations with per-column branch selection
+    (invariants a = u*X, b = v*X mod m, X = x*R), then two products by R^2
+    back to Montgomery form.  Requires gcd(x, m) == 1."""
+    L = ctx.num_limbs
+    B = max(x_mont.shape[1], ctx.n_limbs.shape[1])
+    dev = x_mont.device
+    m = ctx.n_limbs.to(LIMB_DTYPE).expand(L, B)
+    a = cond_sub(x_mont.to(LIMB_DTYPE).expand(L, B), m)          # < m
+    b = m
+    u = torch.zeros((L, B), dtype=LIMB_DTYPE, device=dev)
+    u[0] = 1
+    v = torch.zeros((L, B), dtype=LIMB_DTYPE, device=dev)
+
+    def half_mod(w):
+        """w/2 mod m for w < m: even -> w>>1, odd -> (w+m)>>1."""
+        odd = (w[0:1] & 1) == 1
+        wm = normalize(w.to(torch.int64) + m)
+        return _shr1(torch.where(odd, wm, w))
+
+    def sub_mod_m(p, q):
+        """(p - q) mod m for p, q < m: p + (m - q), one conditional subtract."""
+        t = normalize(p.to(torch.int64) + sub_mod_base(m, q))
+        return cond_sub(t, m)
+
+    for _ in range(2 * LIMB_BITS * L + 4):
+        a_odd = (a[0:1] & 1) == 1
+        lt = torch.logical_not(compare_ge(a, b))[None, :]        # a < b
+        na, nb = torch.where(lt, b, a), torch.where(lt, a, b)
+        nu, nv = torch.where(lt, v, u), torch.where(lt, u, v)
+        a_n = torch.where(a_odd, _shr1(sub_mod_base(na, nb)), _shr1(a))
+        u_n = torch.where(a_odd, half_mod(sub_mod_m(nu, nv)), half_mod(u))
+        b_n = torch.where(a_odd, nb, b)
+        v_n = torch.where(a_odd, nv, v)
+        done = (a == 0).all(dim=0)[None, :]      # b holds gcd, v the inverse
+        a = torch.where(done, a, a_n)
+        b = torch.where(done, b, b_n)
+        u = torch.where(done, u, u_n)
+        v = torch.where(done, v, v_n)
+    inv_plain = mont_mul(v, ctx.r2, ctx)       # v = x^-1 R^-1 -> x^-1
+    return mont_mul(inv_plain, ctx.r2, ctx)    # -> x^-1 R
+
+
+def _inv_tree_up(x_mont: torch.Tensor, ctx: MontCtx) -> list:
+    """Pairwise Montgomery product tree (up-sweep); all levels."""
+    levels = [x_mont]
+    cur = x_mont
+    while cur.shape[1] > 1:
+        cur = mont_mul(cur[:, 0::2], cur[:, 1::2], ctx)
+        levels.append(cur)
+    return levels
+
+
+def _inv_tree_down(levels: list, inv_root: torch.Tensor,
+                   ctx: MontCtx) -> torch.Tensor:
+    """Down-sweep: inv(left) = inv(parent)*right and vice versa."""
+    inv = inv_root
+    for lvl in levels[-2::-1]:
+        L = lvl.shape[0]
+        left, right = lvl[:, 0::2], lvl[:, 1::2]
+        inv_left = mont_mul(inv, right, ctx)
+        inv_right = mont_mul(inv, left, ctx)
+        inv = torch.stack([inv_left, inv_right], dim=2).reshape(
+            L, lvl.shape[1])
+    return inv
+
+
+def _pad_pow2(x_mont: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
+    """Pad the batch to a power of two with the Montgomery one."""
+    L, B = x_mont.shape
+    P2 = 1 << max(0, (B - 1).bit_length())
+    if P2 == B:
+        return x_mont
+    return torch.cat([x_mont, ctx.one.to(x_mont.dtype).expand(L, P2 - B)],
+                     dim=1)
+
+
+def mont_inv_tree_hostroot(x_mont: torch.Tensor, ctx: MontCtx,
+                           m_int: int) -> torch.Tensor:
+    """Batched inverse by Montgomery's product tree, with the root
+    inverted on the host by ``pow(r, -1, m)``; every product is kernel K3
+    on CUDA.  Every column must be a unit mod m."""
+    L, B = x_mont.shape
+    levels = _inv_tree_up(_pad_pow2(x_mont, ctx), ctx)
+    r = limbs_to_ints(levels[-1][:, :1])[0] % m_int     # rep of P: P*R
+    R = 1 << (LIMB_BITS * L)
+    inv_rep = pow(r, -1, m_int) * (R * R % m_int) % m_int   # P^-1 * R
+    inv0 = to_device(int_to_limbs(inv_rep, L)[:, None], x_mont.device)
+    return _inv_tree_down(levels, inv0, ctx)[:, :B]
+
+
+def mont_inv_tree(x_mont: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
+    """Batched inverse by Montgomery's product tree with the root
+    inverted on the device by ``mont_inv``."""
+    B = x_mont.shape[1]
+    levels = _inv_tree_up(_pad_pow2(x_mont, ctx), ctx)
+    return _inv_tree_down(levels, mont_inv(levels[-1], ctx), ctx)[:, :B]
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,9 @@ exact float64 matmuls of the uncentred byte planes: every sum is below
 code (``_plane_dots`` asserts the bound).  torch refuses integer matmul
 on CUDA.
 
-On a CUDA tensor every RNS product goes through kernel K1 and the decrypt
-chain through K2 (``ops/rns_kernels.py``); the chain functions below call
-those wrappers.
+On a CUDA tensor every RNS product goes through kernel K1, the decrypt
+chain through K2 and the per-element ct*pt chain through K5
+(``ops/rns_kernels.py``); the chain functions below call those wrappers.
 """
 
 from __future__ import annotations
@@ -638,15 +638,53 @@ def rns_crt_exp_sched(v_limbs, sched, base: RnsBase, key: RnsModulus,
     return rns_exit(Z, base, key, sq_ctx, L)
 
 
-def rns_comb_product(ct_raw, comb_rns, digits, base: RnsBase,
-                     key: RnsModulus, sq_ctx, L: int):
-    """The DJN comb chain on the RNS engine (the encrypt path).
+def rns_exp_elem(X, digits, base: RnsBase, key: RnsModulus, window: int):
+    """Plain twin of kernel K5, the per-element-exponent chain (ct*pt):
+    X the entered state (value c*M), digits (n_win, B) tensor of
+    MSB-first base-2^window digits, one exponent per column.  Table [one, X, X^2,
+    ...] built by successive products with X; each window squares
+    `window` times, then multiplies by T[digit] (digit 0 by `one`).
+    Returns the state of c^e * M."""
+    B = X.shape[1]
+    mul = lambda a, b: rns_mont_mul(a, b, base, key)
+    entries = [rns_one_state(base, key, B), X.to(LIMB_DTYPE)]
+    for _ in range((1 << window) - 2):
+        entries.append(mul(entries[-1], X))
+    table = torch.stack(entries, dim=0)                 # (2^w, CH, B)
+    digits = digits.to(I64)
+    acc = entries[0]
+    for j in range(digits.shape[0]):
+        for _ in range(window):
+            acc = mul(acc, acc)
+        idx = digits[j][None, None, :].expand(1, base.CH, B)
+        acc = mul(acc, torch.gather(table, 0, idx)[0])
+    return acc
 
-    ct_raw: canonical (1+mn) limbs (L, B); comb_rns: (n_win, CH, 2^w)
-    states of the comb entries; digits: (n_win, B) LSB-window-first
-    obfuscator digits.  Enter, one K1 product per window with the
-    gathered factor, then the SK exit folded by |R^4 M^-1|.  Returns
-    Montgomery-limb ciphertexts (L, B) < 2m."""
+
+def rns_pow_elem(v_limbs, digits, base: RnsBase, key: RnsModulus, sq_ctx,
+                 window: int, L: int):
+    """Per-element modexp mod m (the HE ct*pt contract): Montgomery-limb
+    bases (L, B), per-column digits -> Montgomery-limb c^e.  Enter, the
+    K5 chain, exit, then one K3 product by R^2 back to Montgomery form."""
+    from . import rns_kernels
+    X = rns_enter(v_limbs, base, key)
+    Z = rns_kernels.rns_exp_elem_p(X, digits, base, key, window)
+    out = rns_exit(Z, base, key, sq_ctx, L)             # canonical c^e
+    return mg.mont_mul(out, sq_ctx.r2, sq_ctx)
+
+
+def rns_comb_product(ct_raw, comb_rns, digits, base: RnsBase,
+                     key: RnsModulus, sq_ctx, L: int,
+                     mont_input: bool = False):
+    """The DJN comb chain on the RNS engine.
+
+    ct_raw: (L, B) limbs; comb_rns: (n_win, CH, 2^w) states of the comb
+    entries; digits: (n_win, B) LSB-window-first obfuscator digits.
+    Enter, one K1 product per window with the gathered factor, then the
+    SK exit and one fold.  mont_input=False: ct_raw is canonical (1+mn),
+    the encrypt chain, folded by |R^4 M^-1|; mont_input=True: ct_raw is
+    a Montgomery-limb ciphertext, re-randomization, folded by
+    |R^3 M^-1|.  Returns Montgomery-limb ciphertexts (L, B) < 2m."""
     from . import rns_kernels
     acc = rns_enter(ct_raw, base, key)
     digits = digits.to(I64)
@@ -655,4 +693,5 @@ def rns_comb_product(ct_raw, comb_rns, digits, base: RnsBase,
         acc = rns_kernels.rns_mul(acc, fac, base, key)
     z_limbs = _exit_limbs(acc, base)
     t = mg.mont_reduce_wide(z_limbs, sq_ctx, iters=exit_redc_iters(base, L))
-    return mg.mont_mul(t, key.k5_limbs.to(LIMB_DTYPE), sq_ctx)
+    fold = key.k4_limbs if mont_input else key.k5_limbs
+    return mg.mont_mul(t, fold.to(LIMB_DTYPE), sq_ctx)

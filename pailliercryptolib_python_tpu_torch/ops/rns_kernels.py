@@ -1,5 +1,5 @@
-"""Wrappers of the RNS kernels K1 (``rns_mul``) and K2 (``rns_exp_sched_p``)
-and the packing of their operands.
+"""Wrappers of the RNS kernels K1 (``rns_mul``), K2 (``rns_exp_sched_p``)
+and K5 (``rns_exp_elem_p``) and the packing of their operands.
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_rns.py``.  The
 packing is ported from the code, not from its comments (which misstate
@@ -208,4 +208,32 @@ def _rns_exp_sched_cuda(X, sched, base, key, window) -> torch.Tensor:
     kernels.launch("rns_exp_sched", x, sched, sched.shape[0], out, tab, c2,
                    p["vec"], p["skc"], p["E1"], p["E2"], base.k, CH,
                    p["KP"], rns.combine_levels(base.mbits), window, B)
+    return out
+
+
+def rns_exp_elem_p(X: torch.Tensor, digits, base: rns.RnsBase,
+                   key: rns.RnsModulus, window: int) -> torch.Tensor:
+    """The per-element-exponent chain (K5 on CUDA): X (CH, B) entered
+    state, digits (n_win, B) MSB-first base-2^window digits on the host
+    (numpy or a CPU tensor).  Returns the state of c^e * M.  Raises on a
+    digit outside [0, 2^window)."""
+    digits = kernels.digit_tensor(digits, window, X.device)
+    if X.device.type == "cpu":
+        return rns.rns_exp_elem(X, digits, base, key, window)
+    return _rns_exp_elem_cuda(X, digits, base, key, window)
+
+
+def _rns_exp_elem_cuda(X, digits, base, key, window) -> torch.Tensor:
+    kernels.require_cuda(X, digits)
+    CH, B = base.CH, X.shape[1]
+    n_win = digits.shape[0]
+    x = _state(X, CH, B)
+    digits = digits.expand(n_win, B).contiguous()
+    p = kernel_operands(base, key, x.device)
+    out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
+    tab = torch.empty((1 << window, CH, B), dtype=LIMB_DTYPE,
+                      device=x.device)
+    kernels.launch("rns_exp_elem", x, digits, n_win, out, tab, p["vec"],
+                   p["skc"], p["E1"], p["E2"], base.k, CH, p["KP"],
+                   rns.combine_levels(base.mbits), window, B)
     return out

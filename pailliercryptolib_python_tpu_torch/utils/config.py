@@ -7,9 +7,20 @@ config.py``).  Only the knobs the port reads are here.
         accelerator value and applies to CUDA contexts.
   * comb_hbm_budget_bytes              (PAILLIER_COMB_HBM_BUDGET)
         device-memory budget the per-key comb table must fit half of.
-  * decrypt_engine / encrypt_engine    (PAILLIER_DECRYPT_ENGINE /
-        PAILLIER_ENCRYPT_ENGINE): "auto" or "rns".  The port runs only
-        the RNS engines; "limb" raises NotImplementedError.
+  * decrypt_engine                     (PAILLIER_DECRYPT_ENGINE)
+        "auto" / "rns": the RNS chain (kernel K2); "limb": the shared-
+        exponent limb modexp (kernel K7).
+  * encrypt_engine                     (PAILLIER_ENCRYPT_ENGINE)
+        "auto" or "rns"; the limb comb is still to be ported, so "limb"
+        raises NotImplementedError.  ct*pt takes its RNS route (kernel
+        K5) when either engine knob allows RNS.
+  * matmul_chunk_columns               (PAILLIER_MATMUL_CHUNK)
+        most ciphertext columns ``@`` materializes per chunk; one
+        reduction group is the indivisible unit, so a group wider than
+        this is still processed whole.
+  * fixed_shape_ops                    (PAILLIER_FIXED_SHAPE=1)
+        ct*pt runs the full mod-n window count and inverts the whole
+        batch, so device time does not depend on plaintext size or sign.
   * keygen_parallel                    (PAILLIER_KEYGEN_PARALLEL)
         concurrent p/q prime searches in a 2-process pool: "auto"
         (>= 3072-bit keys), "1" always, "0" serial.
@@ -32,8 +43,10 @@ class Config:
     comb_window_cpu: int = _env_int("PAILLIER_COMB_WINDOW", 8)
     comb_hbm_budget_bytes: int = _env_int(
         "PAILLIER_COMB_HBM_BUDGET", 4 * 1024**3)
+    matmul_chunk_columns: int = _env_int("PAILLIER_MATMUL_CHUNK", 1 << 15)
     decrypt_engine: str = os.environ.get("PAILLIER_DECRYPT_ENGINE", "auto")
     encrypt_engine: str = os.environ.get("PAILLIER_ENCRYPT_ENGINE", "auto")
+    fixed_shape_ops: bool = os.environ.get("PAILLIER_FIXED_SHAPE") == "1"
     keygen_parallel: str = os.environ.get("PAILLIER_KEYGEN_PARALLEL",
                                           "auto")
 
@@ -55,12 +68,12 @@ def set_config(**kwargs) -> Config:
 
 
 def require_rns(knob: str) -> None:
-    """The port has only the RNS engines."""
+    """The encrypt engine is RNS only: the limb comb is not ported."""
     v = getattr(_config, knob)
     if v not in ("auto", "rns"):
         raise NotImplementedError(
-            f"{knob}={v!r}: the port runs only the RNS engine (the limb "
-            f"engines are still to be ported, see ROADMAP.md)")
+            f"{knob}={v!r}: the port runs only the RNS engine here (the "
+            f"limb comb is still to be ported, see ROADMAP.md)")
 
 
 def comb_table_bytes(randbits: int, L: int, window: int) -> int:

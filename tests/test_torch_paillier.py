@@ -138,14 +138,62 @@ def test_add_sum_decrypt_floats(monkeypatch):
     np.testing.assert_allclose(tsk.decrypt(tx[4]), x[4], rtol=1e-12)
 
 
-def test_out_of_slice_operators_raise():
-    _, _, tpk, _ = _keys()
+def test_out_of_slice_operators_raise(monkeypatch):
+    """What the port still lacks raises NotImplementedError: the limb
+    encrypt engine (the limb comb) and, on a context without mm3 weights,
+    the limb decrypt's per-element-moduli branch (kernels K9/K10)."""
+    from pailliercryptolib_python_tpu_torch.utils import config as tcfg
+    _, _, tpk, tsk = _keys()
     ct = tpk.encrypt(np.array([1.5, 2.0]))
-    for op in (lambda: ct.mean(), lambda: ct.dot([1, 2]),
-               lambda: ct @ np.array([1, 2]), lambda: ct.apply_obfuscator(),
-               lambda: tpk.apply_obfuscator(3), lambda: ct * -2):
-        with pytest.raises(NotImplementedError):
-            op()
+    monkeypatch.setattr(tcfg.get_config(), "encrypt_engine", "limb")
+    with pytest.raises(NotImplementedError, match="encrypt_engine"):
+        tpk.encrypt(np.array([1.0]))
+    with pytest.raises(NotImplementedError, match="encrypt_engine"):
+        tsch.PublicContext(KD["n"], KD["bits"], True, KD["hs"],
+                           KD["randbits"], device=CPU)
+    monkeypatch.setattr(tcfg.get_config(), "encrypt_engine", "auto")
+    monkeypatch.setattr(tcfg.get_config(), "decrypt_engine", "limb")
+    priv = tsch.PrivateContext(tpk.pubkey.context, KD["p"], KD["q"])
+    assert priv._sq_p.wmu is None and not priv.use_rns
+    with pytest.raises(NotImplementedError, match="K9/K10"):
+        priv.decrypt_to_ints(ct.ciphertext().device_array(), 2)
+    np.testing.assert_allclose(tsk.decrypt(ct), [1.5, 2.0])  # RNS still
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """Outside docstrings and comments, no source of the port names the
+    JAX package: it neither imports it nor builds a file of it (the
+    native helpers build the port's own copy of sieve.c)."""
+    import ast
+    import re
+    from pailliercryptolib_python_tpu_torch import native
+    pkg = os.path.join(ROOT, "pailliercryptolib_python_tpu_torch")
+    jax_pkg = re.compile(r"pailliercryptolib_python_tpu(?!_torch)")
+    assert os.path.dirname(native._SRC) == os.path.join(pkg, "native")
+    assert os.path.exists(native._SRC)
+    offenders = []
+    for dirpath, _, files in os.walk(pkg):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            tree = ast.parse(open(path).read())
+            docs = {id(n.body[0].value) for n in ast.walk(tree)
+                    if isinstance(n, (ast.Module, ast.ClassDef,
+                                      ast.FunctionDef))
+                    and n.body and isinstance(n.body[0], ast.Expr)
+                    and isinstance(n.body[0].value, ast.Constant)}
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Constant) and isinstance(
+                        node.value, str) and id(node) not in docs:
+                    names = [node.value]
+                elif isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                offenders += [(path, v) for v in names if jax_pkg.search(v)]
+    assert offenders == []
 
 
 def _mont(ctx):

@@ -1,7 +1,8 @@
 """The port's whole main path at a 2048-bit key on the CPU (plain twins of
-the four kernels): the frozen 2048-bit KAT vector through the RNS comb
-and CRT decrypt, and float encrypt -> ``+`` -> ``sum`` -> decrypt through
-the public API against numpy.  Marked slow (run with ``-m slow``)."""
+the kernels): the frozen 2048-bit KAT vector through the RNS comb and CRT
+decrypt, float encrypt -> ``+`` -> ``sum`` -> decrypt through the public
+API against numpy, and ct*pt by mixed-sign weights (the RNS route and the
+inversion) with ``dot``.  Marked slow (run with ``-m slow``)."""
 
 import json
 import os
@@ -53,3 +54,17 @@ def test_slice_2048_kat_and_api():
     cx, cy = pk.encrypt(x), pk.encrypt(y)
     np.testing.assert_allclose(sk.decrypt(cx + cy), x + y, rtol=1e-12)
     np.testing.assert_allclose(sk.decrypt(cx.sum()), x.sum(), rtol=1e-12)
+
+
+@pytest.mark.slow
+def test_slice_2048_ctpt_and_dot():
+    kd = fixed_key_ints(2048)
+    pk = tpt.PaillierPublicKey(tpt.ipclPublicKey(
+        kd["n"], kd["bits"], True, kd["hs"], kd["randbits"], device=CPU))
+    sk = tpt.PaillierPrivateKey(pk, kd["p"], kd["q"])
+    rng = np.random.default_rng(2049)
+    x, w = rng.uniform(-1e3, 1e3, 4), rng.uniform(-1.0, 1.0, 4)
+    w[0], w[1] = -abs(w[0]), abs(w[1])
+    cx = pk.encrypt(x)
+    np.testing.assert_allclose(sk.decrypt(cx * w), x * w, rtol=1e-12)
+    np.testing.assert_allclose(sk.decrypt(cx.dot(w)), x @ w, rtol=1e-9)
