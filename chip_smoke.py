@@ -8,12 +8,13 @@ the repository root).  Imports nothing of JAX.  Phases, each raising on
 failure (so any failure exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build the six CUDA kernels from ``pailliercryptolib_python_tpu_torch/
+2. build the eight CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
    git-ignored ``build/``);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
-   kernel's bound;
+   kernel's bound (K9 and K10 at the fused CRT decrypt's shape, K10's
+   eager twin alone ~32 s; K9 on a weightless n^2 also against K3);
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
@@ -27,9 +28,17 @@ failure (so any failure exits non-zero):
    obfuscator), every result decrypted and checked against numpy; then
    the ct*pt engines K4 and K5 on the same exponents (equal ciphertexts)
    and the decrypt engines K7 and K2 on the same ciphertexts (equal
-   plaintexts), each timed.
+   plaintexts), each timed;
+7. the third slice at 2048 bits: keygen with the device-batched base-2
+   Miller-Rabin (``keygen_device="1"``: K10, K9) whose key round-trips
+   4096 floats, and a host keygen; ``device_mr_base2`` against the host
+   oracle on one sieve window's survivors; the limb encrypt engine (its
+   comb build, ciphertexts equal to the RNS engine's under the same
+   digits, ``apply_obfuscator``, decrypt); the fused per-element CRT
+   decrypt stage (K10) against K7's two halves and K2; a weightless n^2
+   context (K9 against K3, K10 against K4 on phase 6's exponents).
 
-Phases 4 and 6 each set the launch counters to 0 just before and read
+Phases 4, 6 and 7 each set the launch counters to 0 just before and read
 them just after.  The second-to-last lines are the kernels' JSON record
 and the card line; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -62,8 +71,14 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "mm3_exp_shared": ("pailliercryptolib_python_tpu_torch/csrc/mont3.cu",
                        "pailliercryptolib_python_tpu/ops/pallas_mont3.py"
                        ":391"),
+    "mont_mul": ("pailliercryptolib_python_tpu_torch/csrc/mont.cu",
+                 "pailliercryptolib_python_tpu/ops/pallas_mont.py:111"),
+    "mont_exp": ("pailliercryptolib_python_tpu_torch/csrc/mont.cu",
+                 "pailliercryptolib_python_tpu/ops/pallas_mont.py:155"),
 }
 FIRST_SLICE = ("rns_mul", "rns_exp_sched", "mm3_mul", "mm3_exp")
+SECOND_SLICE = FIRST_SLICE + ("rns_exp_elem", "mm3_exp_shared")
+THIRD_SLICE = ("mont_mul", "mont_exp")
 
 # Bounds (published NVIDIA H100 SXM peaks): bytes over the memory rate,
 # int8 operations over the int8 tensor-core rate, the larger of the two.
@@ -161,12 +176,13 @@ def count_ops(fn) -> int:
     return Count.n
 
 
-def random_limbs(rng, m: int, L: int, B: int, dev):
-    """(L, B) limbs of B random values below 2m (Montgomery-range input)."""
+def random_cols(rng, ms: list, L: int, dev):
+    """(L, B) limbs of one random value below 2m per modulus m of ms
+    (Montgomery-range input)."""
     from pailliercryptolib_python_tpu_torch.ops.limb import (ints_to_limbs,
                                                              to_device)
     vals = [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
-            for _ in range(B)]
+            for m in ms]
     return to_device(ints_to_limbs(vals, L), dev)
 
 
@@ -183,7 +199,7 @@ def check_kernels(dev, kd) -> dict:
     at the main path's shape (its headline record); K2, K5 and K7 also at
     a short chain."""
     import torch
-    from pailliercryptolib_python_tpu_torch.ops import (mont3, rns,
+    from pailliercryptolib_python_tpu_torch.ops import (mont, mont3, rns,
                                                         rns_kernels as rk,
                                                         montgomery as mg)
     rng = np.random.default_rng(SEED)
@@ -211,8 +227,8 @@ def check_kernels(dev, kd) -> dict:
     for m in (n * n, p * p, p):
         ctx = mg.MontCtx.for_modulus(m, device=dev)
         L = ctx.num_limbs
-        a = random_limbs(rng, m, L, BATCH, dev)
-        b = random_limbs(rng, m, L, BATCH, dev)
+        a = random_cols(rng, [m] * BATCH, L, dev)
+        b = random_cols(rng, [m] * BATCH, L, dev)
         got = mont3.mm3_mul(a, b, ctx)
         want = mont3.mm3_mul_plain(a, b, ctx.wmu, ctx.wm, ctx.off1, ctx.off2)
         record("mm3_mul", got, want, f"L={L} B={BATCH}",
@@ -223,20 +239,36 @@ def check_kernels(dev, kd) -> dict:
                headline=m == n * n)
         if m == n * n:
             # K4: short exponents (the exponent-alignment shape), win_start>0
+            # (host digits, as mul_pt passes them)
             exps = [int(e) for e in rng.integers(1, 1 << 20, size=BATCH)]
-            digits = torch.from_numpy(mg.exponent_digits(exps, 8, 4).astype(
-                np.int32)).to(dev)
+            digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
+            dig_dev = torch.from_numpy(digits).to(dev)
             ws = 3
             got = mont3.mm3_exp(a, digits, ctx, ws)
-            want = mont3.mm3_exp_plain(a, digits, ctx.wmu, ctx.wm, ctx.off1,
+            want = mont3.mm3_exp_plain(a, dig_dev, ctx.wmu, ctx.wm, ctx.off1,
                                        ctx.off2, ctx.one, ws)
             record("mm3_exp", got, want, f"L={L} B={BATCH} win 3..8",
                    ms_of(lambda: mont3.mm3_exp(a, digits, ctx, ws), 2),
                    ms_of(lambda: mont3.mm3_exp_plain(
-                       a, digits, ctx.wmu, ctx.wm, ctx.off1, ctx.off2,
+                       a, dig_dev, ctx.wmu, ctx.wm, ctx.off1, ctx.off2,
                        ctx.one, ws), 1),
-                   nbytes(a, digits, got, ctx.one, ctx.n_limbs),
+                   nbytes(a, dig_dev, got, ctx.one, ctx.n_limbs),
                    limb_ops(L, 14 + (8 - ws) * 5, BATCH), headline=True)
+            # K9 on the weightless n^2 context: its twin, and K3's output
+            c0 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
+            got = mont.mont_mul_p(a, b, c0.n_limbs, c0.n0inv)
+            want = mg.cios_mul(a, b, c0.n_limbs, c0.n0inv)
+            record("mont_mul", got, want, f"L={L} B={BATCH} shared n^2",
+                   ms_of(lambda: mont.mont_mul_p(a, b, c0.n_limbs,
+                                                 c0.n0inv), 5),
+                   ms_of(lambda: mg.cios_mul(a, b, c0.n_limbs, c0.n0inv), 1),
+                   nbytes(a, b, got, c0.n_limbs) + 4,
+                   limb_ops(L, 1, BATCH))
+            k3 = mont3.mm3_mul(a, b, ctx)
+            if not torch.equal(got, k3):
+                raise AssertionError("K9 differs from K3 on a shared n^2")
+            print("  mont_mul       equals mm3_mul on the weightless n^2 "
+                  "context", flush=True)
         if m == p * p:
             # K7: the limb decrypt's shared exponent p-1, window 5 at
             # L=129: its first 4 windows, then all of them as the decrypt
@@ -323,7 +355,72 @@ def check_kernels(dev, kd) -> dict:
            ms_of(lambda: rk.rns_exp_sched_p(Xf, sched, base, key, window), 1),
            plain_ms, nbytes(Xf, got) + 4 * len(sched) + const_bytes,
            rns_ops(base.k, tbl + len(sched), BATCH), headline=True)
+    check_per_element(dev, kd, rng, record)
     return res
+
+
+def check_per_element(dev, kd, rng, record) -> None:
+    """Phase 3, K9 and K10 with a modulus per column: the fused CRT
+    decrypt's shape ([p^2]*4096 ++ [q^2]*4096, L=129, B=8192; K10 over
+    all 256 windows of p-1 | q-1, the headline), and the keygen shape
+    (1024-bit odd moduli, L=65, B=256: all 256 windows, then win_start=3
+    on 8)."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import mont
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    p, q = kd["p"], kd["q"]
+    B2 = 2 * BATCH
+    ms = [p * p] * BATCH + [q * q] * BATCH
+    L = (max(m.bit_length() for m in ms) + 2 + 15) // 16
+    ctx = mg.MontCtx.for_moduli(ms, L, dev)
+    ctx_bytes = nbytes(ctx.n_limbs, ctx.n0inv)
+    a = random_cols(rng, ms, L, dev)
+    b = random_cols(rng, ms, L, dev)
+    got = mont.mont_mul_p(a, b, ctx.n_limbs, ctx.n0inv)
+    want = mg.cios_mul(a, b, ctx.n_limbs, ctx.n0inv)
+    record("mont_mul", got, want, f"L={L} B={B2} per-element",
+           ms_of(lambda: mont.mont_mul_p(a, b, ctx.n_limbs, ctx.n0inv), 5),
+           ms_of(lambda: mg.cios_mul(a, b, ctx.n_limbs, ctx.n0inv), 1),
+           nbytes(a, b, got) + ctx_bytes, limb_ops(L, 1, B2),
+           headline=True)
+    # the headline: the eager twin runs ~1,294 products of L CIOS steps
+    # (~32 s on an H100)
+    nw = 256
+    e = mg.exponent_digits([p - 1, q - 1], nw, 4).astype(np.int32)
+    dig = np.ascontiguousarray(np.concatenate(
+        [np.broadcast_to(e[:, :1], (nw, BATCH)),
+         np.broadcast_to(e[:, 1:], (nw, BATCH))], axis=1))
+    dig_dev = torch.from_numpy(dig).to(dev)
+    got = mont.mont_exp_p(a, dig, ctx.n_limbs, ctx.n0inv, ctx.one)
+    want, plain_ms = timed(lambda: mont.mont_exp_plain(
+        a, dig_dev, ctx.n_limbs, ctx.n0inv, ctx.one))
+    record("mont_exp", got, want, f"L={L} B={B2} per-element {nw} windows",
+           ms_of(lambda: mont.mont_exp_p(a, dig, ctx.n_limbs, ctx.n0inv,
+                                         ctx.one), 1),
+           plain_ms, nbytes(a, dig_dev, got, ctx.one) + ctx_bytes,
+           limb_ops(L, 14 + nw * 5, B2), headline=True)
+    # the keygen shape: 1024-bit odd moduli, digits of (c-1) >> tz
+    import random
+    r = random.Random(SEED)
+    cands = [r.getrandbits(1024) | (1 << 1023) | 1 for _ in range(256)]
+    Lk = (1024 + 2 + 15) // 16
+    ck = mg.MontCtx.for_moduli(cands, Lk, dev)
+    ak = random_cols(rng, cands, Lk, dev)
+    ds = [(c - 1) >> (((c - 1) & -(c - 1)).bit_length() - 1) for c in cands]
+    for nwk, ws in ((256, 0), (8, 3)):
+        dk = mg.exponent_digits([d >> (4 * (256 - nwk)) for d in ds], nwk,
+                                4).astype(np.int32)
+        dk_dev = torch.from_numpy(dk).to(dev)
+        got = mont.mont_exp_p(ak, dk, ck.n_limbs, ck.n0inv, ck.one, ws)
+        want, plain_ms = timed(lambda: mont.mont_exp_plain(
+            ak, dk_dev, ck.n_limbs, ck.n0inv, ck.one, ws))
+        record("mont_exp", got, want,
+               f"L={Lk} B=256 per-element windows {ws}..{nwk}",
+               ms_of(lambda: mont.mont_exp_p(ak, dk, ck.n_limbs, ck.n0inv,
+                                             ck.one, ws), 1),
+               plain_ms, nbytes(ak, dk_dev, got, ck.one, ck.n_limbs,
+                                ck.n0inv),
+               limb_ops(Lk, 14 + (nwk - ws) * 5, 256))
 
 
 def main_path(dev, kd, tag: str) -> dict:
@@ -511,6 +608,166 @@ def second_slice(dev, kd, tag: str) -> dict:
     for k, t in times.items():
         print(f"  {k:24s} {t:10.4f} s   ({tag})", flush=True)
     print(f"  kernel launches over phase 6: {counts}", flush=True)
+    return dict(times=times, counts=counts, exps=exps)
+
+
+def third_slice(dev, kd, tag: str, exps: list) -> dict:
+    """Phase 7: device-MR keygen, the limb encrypt engine, the fused
+    per-element CRT decrypt and a weightless n^2 context at the fixture
+    key's size (2048 bits), B=4096.  `exps` are phase 6's 53-bit ct*pt
+    exponents."""
+    import random
+    import torch
+    import pailliercryptolib_python_tpu_torch as pt
+    from pailliercryptolib_python_tpu_torch import kernels, native
+    from pailliercryptolib_python_tpu_torch.fixedpoint import encode_vector
+    from pailliercryptolib_python_tpu_torch.models import paillier as sch
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    from pailliercryptolib_python_tpu_torch.ops import rns
+    from pailliercryptolib_python_tpu_torch.ops.limb import limbs_to_ints
+
+    rng = np.random.default_rng(SEED + 3)
+    x = rng.uniform(-1000.0, 1000.0, BATCH)
+    bits = 2 * kd["p"].bit_length()         # keygen's size: 2048
+    times = {}
+    kernels.reset_counts()
+
+    # keygen: the base-2 round device-batched (K10, K9), then host only
+    pt.set_config(keygen_device="1")
+    try:
+        (pk, sk), times["keygen_device_s"] = wall(
+            lambda: pt.PaillierKeypair.generate_keypair(bits, True,
+                                                        device=dev))
+    finally:
+        pt.set_config(keygen_device="0")
+    kp, kq = sk.prikey.context.p, sk.prikey.context.q
+    if not (sch.is_probable_prime(kp) and sch.is_probable_prime(kq)
+            and kp * kq == pk.n and pk.n.bit_length() == bits):
+        raise AssertionError("device-MR keygen: p, q or n is wrong")
+    got, times["keygen_key_roundtrip_s"] = wall(
+        lambda: sk.decrypt(pk.encrypt(x)))
+    if not np.allclose(got, x):
+        raise AssertionError("device-MR key: decrypt(encrypt(x)) != x")
+    _, times["keygen_host_s"] = wall(
+        lambda: pt.PaillierKeypair.generate_keypair(bits, True, device=dev))
+
+    # device_mr_base2 against the host oracle: one sieve window's
+    # survivors at bits/2 (1024), and the fixture's primes
+    r = random.Random(SEED)
+    half = bits // 2
+    base = r.getrandbits(half) | (1 << (half - 1)) | 1
+    mask = native.sieve_window(base, 2048, sch._SMALL_PRIMES)
+    cands = [base + 2 * j for j in range(len(mask))
+             if mask[j] and (base + 2 * j).bit_length() == half]
+    cands += [kd["p"], kd["q"]]
+    ok, times["device_mr_window_s"] = wall(
+        lambda: sch.device_mr_base2(cands, dev))
+
+    def oracle(c):
+        d, t = c - 1, 0
+        while d % 2 == 0:
+            d, t = d // 2, t + 1
+        return sch._mr_round(c, d, t, 2)
+    want = [oracle(c) for c in cands]
+    if list(ok) != want:
+        raise AssertionError("device_mr_base2 differs from the host oracle")
+    print(f"  device_mr_base2: {len(cands)} candidates, {sum(want)} pass "
+          f"base 2, equal to the host oracle", flush=True)
+
+    # the limb encrypt engine against the RNS engine, same digits
+    ctx_args = (kd["n"], kd["bits"], True, kd["hs"], kd["randbits"])
+    msgs, _ = encode_vector(x, kd["n"], kd["n"] // 3 - 1)
+    pt.set_config(encrypt_engine="limb")
+    try:
+        limb = sch.PublicContext(*ctx_args, device=dev)
+        _, times["limb_comb_build_s"] = wall(lambda: limb.comb_table)
+        digs = limb.sample_obfuscator_digits(BATCH)
+        limb.sample_obfuscator_digits = lambda b: digs
+        ct_l, times["limb_encrypt_s"] = wall(lambda: limb.encrypt(msgs))
+    finally:
+        pt.set_config(encrypt_engine="auto")
+    rctx = sch.PublicContext(*ctx_args, device=dev)
+    if rctx.comb_window != limb.comb_window:
+        raise AssertionError("limb and RNS engines chose other windows")
+    _, times["rns_comb_build_s"] = wall(lambda: rctx.comb_rns)
+    rctx.sample_obfuscator_digits = lambda b: digs
+    ct_r, times["rns_encrypt_s"] = wall(lambda: rctx.encrypt(msgs))
+    if limb.export_cts(ct_l, BATCH) != rctx.export_cts(ct_r, BATCH):
+        raise AssertionError("the limb and RNS encrypt engines differ")
+    del limb.sample_obfuscator_digits          # fresh digits from here
+    pt.set_config(encrypt_engine="limb")
+    try:
+        lpk = pt.PaillierPublicKey(pt.ipclPublicKey(None, _context=limb))
+        lsk = pt.PaillierPrivateKey(lpk, kd["p"], kd["q"])
+        ct_x, times["limb_encrypt_api_s"] = wall(lambda: lpk.encrypt(x))
+        before = ct_x.ciphertext().host_ints()
+        plain = lsk.raw_decrypt(ct_x)
+        _, times["limb_apply_obfuscator_s"] = wall(ct_x.apply_obfuscator)
+    finally:
+        pt.set_config(encrypt_engine="auto")
+    after = ct_x.ciphertext().host_ints()
+    if any(a == b for a, b in zip(before, after)):
+        raise AssertionError("limb apply_obfuscator left a ciphertext")
+    if lsk.raw_decrypt(ct_x) != plain:
+        raise AssertionError("limb apply_obfuscator changed a plaintext")
+    if not np.allclose(lsk.decrypt(ct_x), x):
+        raise AssertionError("limb engine: decrypt(encrypt(x)) != x")
+
+    # stage 2 of the CRT decrypt on the same stage-1 output: the fused
+    # per-element chain (K10), K7's two halves, K2's two halves
+    priv = lsk.prikey.context
+    ct_dev = ct_x.ciphertext().device_array()
+    B = ct_dev.shape[1]
+    base_m = sch._crt_stage_reduce(ct_dev, priv)
+    sq = priv._sq_ctx(B)
+    u10, times["stage2_K10_s"] = wall(lambda: sch._crt_stage_exp(
+        base_m, sq, priv.exp_digits_pq, priv.n_win_dec))
+    u7, times["stage2_K7_s"] = wall(lambda: torch.cat([
+        sch._crt_stage_exp_half(base_m[:, :B], priv._sq_p, priv.dig_p,
+                                priv.dec_window),
+        sch._crt_stage_exp_half(base_m[:, B:], priv._sq_q, priv.dig_q,
+                                priv.dec_window)], dim=1))
+    u2, times["stage2_K2_s"] = wall(lambda: torch.cat([
+        rns.rns_crt_exp_sched(base_m[:, :B], priv.rsched_p, priv.rns_base,
+                              priv.rns_p, priv._sq_p, priv.rns_sched_window,
+                              priv.Lh),
+        rns.rns_crt_exp_sched(base_m[:, B:], priv.rsched_q, priv.rns_base,
+                              priv.rns_q, priv._sq_q, priv.rns_sched_window,
+                              priv.Lh)], dim=1))
+    if not torch.equal(u10, u7):
+        raise AssertionError("fused stage 2 (K10) differs from K7's halves")
+    ints10 = limbs_to_ints(sch._crt_stage_recombine(u10, priv))
+    if ints10 != limbs_to_ints(sch._crt_stage_recombine(u2, priv)):
+        raise AssertionError("fused stage 2 (K10) differs from K2's")
+    print("  stage 2: K10 equals K7's halves limb for limb; plaintexts "
+          "equal K2's", flush=True)
+
+    # a weightless n^2 context: K9 against K3, K10 against K4
+    wctx = limb.ctx
+    c0 = mg.MontCtx.for_modulus(kd["n"] ** 2, mxu=False, device=dev)
+    ct_y = ct_r
+    m9, times["weightless_K9_mul_s"] = wall(lambda: mg.mont_mul(ct_dev, ct_y,
+                                                                c0))
+    m3, times["weightless_K3_mul_s"] = wall(lambda: mg.mont_mul(ct_dev, ct_y,
+                                                                wctx))
+    if not torch.equal(m9, m3):
+        raise AssertionError("weightless n^2: K9 differs from K3")
+    need = max(1, -(-max(int(e).bit_length() for e in exps) // 4))
+    total = max(limb.n_win_ct, need)
+    digits = mg.exponent_digits(exps, total, 4)
+    e10, times["weightless_K10_ctpt_s"] = wall(
+        lambda: mg.mont_exp(ct_dev, digits, c0, 4, total - need))
+    e4, times["weightless_K4_ctpt_s"] = wall(
+        lambda: mg.mont_exp(ct_dev, digits, wctx, 4, total - need))
+    if not torch.equal(e10, e4):
+        raise AssertionError("weightless n^2: K10 differs from K4")
+    print(f"  weightless n^2: K9 equals K3, K10 equals K4 ({need} windows)",
+          flush=True)
+
+    counts = dict(kernels.COUNTS)
+    for k, t in times.items():
+        print(f"  {k:24s} {t:10.4f} s   ({tag})", flush=True)
+    print(f"  kernel launches over phase 7: {counts}", flush=True)
     return dict(times=times, counts=counts)
 
 
@@ -556,14 +813,21 @@ def main() -> int:
     s2 = second_slice(dev, kd, card)
     print(f"    phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"[7] third slice: 2048-bit key, B={BATCH} ({card})", flush=True)
+    t0 = time.perf_counter()
+    s3 = third_slice(dev, kd, card, s2["exps"])
+    print(f"    phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
     missing = ([k for k in FIRST_SLICE if mp["counts"][k] <= 0]
-               + [k for k in KERNELS if s2["counts"][k] <= 0])
+               + [k for k in SECOND_SLICE if s2["counts"][k] <= 0]
+               + [k for k in THIRD_SLICE if s3["counts"][k] <= 0])
     if missing:
         raise AssertionError(f"a phase never launched {missing}")
-    launches = {k: mp["counts"][k] + s2["counts"][k] for k in KERNELS}
+    launches = {k: mp["counts"][k] + s2["counts"][k] + s3["counts"][k]
+                for k in KERNELS}
     print(f"[5] every kernel launched: phase 4 {mp['counts']}, phase 6 "
-          f"{s2['counts']}", flush=True)
-    print(f"    phases 3-6: {time.perf_counter() - t_all:.1f} s; library "
+          f"{s2['counts']}, phase 7 {s3['counts']}", flush=True)
+    print(f"    phases 3-7: {time.perf_counter() - t_all:.1f} s; library "
           f"call: none (no single PyTorch call computes an RNS product or "
           f"a modular exponentiation)", flush=True)
 

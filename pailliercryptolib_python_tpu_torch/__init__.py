@@ -7,8 +7,8 @@ and never ``jax``.  Main path: keygen -> DJN encrypt (RNS comb) ->
 ciphertext ``+`` / ``sum`` -> CRT decrypt, on the default device
 ``cuda`` (``set_device`` changes it; the CPU is used only when asked).
 
-On a CUDA tensor each of the four kernels (``kernels.COUNTS``) launches
-or raises; on a CPU tensor its plain PyTorch twin runs.
+On a CUDA tensor each of the eight kernels (``kernels.COUNTS``)
+launches or raises; on a CPU tensor its plain PyTorch twin runs.
 """
 
 from .api import (

@@ -491,7 +491,7 @@ class ipclKeypair:
     @staticmethod
     def generate_keypair(n_length: int = 1024, enable_DJN: bool = True,
                          device=None):
-        kd = _scheme.generate_key_ints(n_length, enable_DJN)
+        kd = _scheme.generate_key_ints(n_length, enable_DJN, device)
         pub_ctx = _scheme.PublicContext(kd["n"], kd["bits"], enable_DJN,
                                         kd.get("hs"), kd.get("randbits"),
                                         device=device)

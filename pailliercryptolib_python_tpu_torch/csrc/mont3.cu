@@ -36,8 +36,14 @@
 //
 // K4 keeps its 16-entry table in a global scratch the wrapper allocates
 // ((16, L, B), coalesced like the operands; 67 MB at L=257, B=4096) and
-// honours win_start directly in the window loop.  The table index is a
-// digit of the plaintext exponent (not of the key).
+// honours win_start directly in the window loop.  Its digits are
+// plaintext exponents, so each window reads all 16 entries and keeps the
+// one whose index equals the digit by mask (cios::OneHot16, the TPU
+// kernel's one-hot select, pallas_mont3.py:329-336); the per-element
+// path of the shared column routine does this for K4 and K10 alike.
+//
+// The column routines (CIOS product, fixed-window chain) live in
+// cios.cuh, shared with K9/K10 (csrc/mont.cu).
 //
 // K7 runs the same column routine with a 2^w-entry table in global
 // scratch ((32, 129, B) u32 at w=5: 68 MB at B=4096) and the exponent
@@ -53,43 +59,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cios.cuh"
+
 namespace {
 
 constexpr int kMaxLimbs = 520;      // MontCtx.MXU_MAX_LIMBS
 constexpr int kThreads = 32;        // one warp: spreads a batch over more SMs
-
-// out = a*b*R^-1 mod n for one column, CIOS over 16-bit digits.
-// a, b, out are read/written at stride sa, sb, so (L words each); they
-// may alias: out is written only after the last read.  n: (L,) limbs,
-// n0 = -n^-1 mod 2^16, t: scratch of L+2 words.
-__device__ __forceinline__ void mont_mul_col(
-    const uint32_t* a, int sa, const uint32_t* b, int sb, uint32_t* out,
-    int so, const uint32_t* n, uint32_t n0, int L, uint32_t* t) {
-  for (int j = 0; j < L + 2; ++j) t[j] = 0u;
-  for (int i = 0; i < L; ++i) {
-    const uint32_t ai = a[i * sa];
-    uint32_t c = 0u;
-    for (int j = 0; j < L; ++j) {            // t += a_i * b
-      const uint32_t s = t[j] + ai * b[j * sb] + c;   // <= 2^32 - 1
-      t[j] = s & 0xFFFFu;
-      c = s >> 16;
-    }
-    uint32_t s = t[L] + c;
-    t[L] = s & 0xFFFFu;
-    t[L + 1] = s >> 16;
-    const uint32_t m = (t[0] * n0) & 0xFFFFu;  // t + m*n = 0 mod 2^16
-    c = (t[0] + m * n[0]) >> 16;
-    for (int j = 1; j < L; ++j) {            // (t + m*n) / 2^16
-      const uint32_t s2 = t[j] + m * n[j] + c;
-      t[j - 1] = s2 & 0xFFFFu;
-      c = s2 >> 16;
-    }
-    s = t[L] + c;
-    t[L - 1] = s & 0xFFFFu;
-    t[L] = t[L + 1] + (s >> 16);
-  }
-  for (int j = 0; j < L; ++j) out[j * so] = t[j];   // < 2m < R: t[L] == 0
-}
 
 __global__ void mm3_mul_kernel(const uint32_t* a, const uint32_t* b,
                                uint32_t* out, const uint32_t* n, uint32_t n0,
@@ -97,37 +72,8 @@ __global__ void mm3_mul_kernel(const uint32_t* a, const uint32_t* b,
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
   uint32_t t[kMaxLimbs + 2];
-  mont_mul_col(a + col, B, b + col, B, out + col, B, n, n0, L, t);
-}
-
-// base^e of one column (column pointers with row stride B): table
-// T[0] = one, T[1] = base, T[d] = T[d-1] * base (2^window entries, entry
-// d at tab + d*L*B), acc = one, then per window from win_start to n_win:
-// `window` squarings and one product by T[digit].  dig points at this
-// column's digit of window 0; dstride is the step between windows (B for
-// per-element digits, 1 for a shared exponent).
-__device__ void exp_col(const uint32_t* bc, const int32_t* dig, int dstride,
-                        const uint32_t* one, uint32_t* outc, uint32_t* tab,
-                        const uint32_t* n, uint32_t n0, int L, int B,
-                        int window, int win_start, int n_win) {
-  uint32_t t[kMaxLimbs + 2];
-  uint32_t acc[kMaxLimbs];
-  const size_t plane = static_cast<size_t>(L) * B;
-  for (int j = 0; j < L; ++j) {
-    tab[j * B] = one[j];
-    tab[plane + j * B] = bc[j * B];
-  }
-  for (int d = 2; d < (1 << window); ++d)    // T[d] = T[d-1] * base
-    mont_mul_col(tab + (d - 1) * plane, B, bc, B, tab + d * plane, B, n, n0,
-                 L, t);
-  for (int j = 0; j < L; ++j) acc[j] = one[j];
-  for (int w = win_start; w < n_win; ++w) {
-    for (int s = 0; s < window; ++s)
-      mont_mul_col(acc, 1, acc, 1, acc, 1, n, n0, L, t);
-    const int d = dig[static_cast<size_t>(w) * dstride];
-    mont_mul_col(acc, 1, tab + d * plane, B, acc, 1, n, n0, L, t);
-  }
-  for (int j = 0; j < L; ++j) outc[j * B] = acc[j];
+  cios::mont_mul_col(cios::Strided{a + col, B}, b + col, B, out + col, B, n,
+                     1, n0, L, t);
 }
 
 __global__ void mm3_exp_kernel(const uint32_t* base, const int32_t* digits,
@@ -137,8 +83,9 @@ __global__ void mm3_exp_kernel(const uint32_t* base, const int32_t* digits,
                                int win_start) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
-  exp_col(base + col, digits + col, B, one, out + col, table + col, n, n0, L,
-          B, 4, win_start, n_win);
+  cios::exp_col<kMaxLimbs, true>(base + col, digits + col, B, one, out + col,
+                                 table + col, n, 1, n0, L, B, 4, win_start,
+                                 n_win);
 }
 
 __global__ void mm3_exp_shared_kernel(const uint32_t* base,
@@ -148,8 +95,9 @@ __global__ void mm3_exp_shared_kernel(const uint32_t* base,
                                       uint32_t n0, int L, int B, int window) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
-  exp_col(base + col, digits, 1, one, out + col, table + col, n, n0, L, B,
-          window, 0, n_win);
+  cios::exp_col<kMaxLimbs, false>(base + col, digits, 1, one, out + col,
+                                  table + col, n, 1, n0, L, B, window, 0,
+                                  n_win);
 }
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }

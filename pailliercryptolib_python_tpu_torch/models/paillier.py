@@ -1,17 +1,22 @@
-"""Paillier / DJN scheme layer: host keygen, the public context (encrypt,
+"""Paillier / DJN scheme layer: keygen, the public context (encrypt,
 re-randomization, HE add, sum, ct*pt) and the private context (CRT
 decrypt), on torch tensors.
 
-Counterpart of ``pailliercryptolib_python_tpu/models/paillier.py``.  DJN
-encryption and re-randomization take the RNS route: the input enters RNS
-and is multiplied by the per-key comb table's entries (kernel K1 per
-window on CUDA); a plain-Paillier key multiplies by r^n (kernel K4).
-ct*pt runs the per-element RNS chain (kernel K5) for exponents of 8 or
-more 4-bit windows, the limb modexp (kernel K4) below.  Decryption
-reduces into the p^2/q^2 domains (stage 1), exponentiates per CRT half
-(stage 2: the RNS sliding-window chain, kernel K2, or with
-``decrypt_engine="limb"`` the shared-exponent limb modexp, kernel K7) and
-recombines (stage 3).  Every shared-modulus product is kernel K3.
+Counterpart of ``pailliercryptolib_python_tpu/models/paillier.py``.
+Keygen sieves on the host; the base-2 Miller-Rabin round runs on the
+host or, with ``keygen_device``, over all survivors of a window at once
+on the device (``device_mr_base2``: kernels K10 and K9).  DJN encryption
+and re-randomization take the RNS comb (kernel K1 per window on CUDA) or
+the limb comb (``encrypt_engine="limb"``, and every key past the RNS
+bound: one K3 or K9 product per window); a plain-Paillier key multiplies
+by r^n (K4, or K10 without mm3 weights).  ct*pt runs the per-element RNS
+chain (K5) for exponents of 8 or more 4-bit windows, the limb modexp (K4
+or K10) below.  Decryption reduces into the p^2/q^2 domains (stage 1),
+exponentiates (stage 2: per CRT half the RNS sliding-window chain K2 or,
+with ``decrypt_engine="limb"``, the shared-exponent limb modexp K7; on
+contexts without mm3 weights the fused per-element chain over
+[p^2]*B ++ [q^2]*B, K10) and recombines (stage 3).  Every shared-modulus
+product is K3 (K9 without weights).
 
 Ciphertexts are (L, B) int32 limb tensors in the Montgomery domain mod
 n^2, on the context's device.
@@ -49,21 +54,16 @@ def pad_batch(b: int) -> int:
     return -(-b // step) * step
 
 
-def _rns_mbits(bits: int) -> int:
+def _rns_mbits(bits: int) -> int | None:
     """RNS base size for a modulus of `bits` bits (rounded to 16 so keys
-    share cached bases); raises past the engine's channel-count bound
-    instead of changing engine."""
+    share cached bases), or None past the engine's channel-count bound."""
     mbits = -(-bits // 16) * 16
-    if mbits > RNS_MAX_MBITS:
-        raise NotImplementedError(
-            f"{bits}-bit modulus exceeds the RNS engine's bound "
-            f"({RNS_MAX_MBITS} bits); the limb engines that serve such "
-            f"keys are still to be ported (ROADMAP.md)")
-    return mbits
+    return mbits if mbits <= RNS_MAX_MBITS else None
 
 
 # ---------------------------------------------------------------------------
-# Host keygen: OS entropy, native trial-division sieve, Miller-Rabin.
+# Keygen: OS entropy, native trial-division sieve, Miller-Rabin (host, or
+# the base-2 round device-batched).
 # ---------------------------------------------------------------------------
 
 def _small_primes(limit: int = 8192):
@@ -108,21 +108,78 @@ def is_probable_prime(n: int, rounds: int = 8) -> bool:
     return True
 
 
-def generate_prime(bits: int) -> int:
-    """Random `bits`-bit prime: windowed sieve + Miller-Rabin."""
+def device_mr_base2(cands: list, device=None) -> np.ndarray:
+    """One base-2 Miller-Rabin round for a batch of odd candidates on the
+    device: bool[len(cands)], True iff 2^d == +-1 or a square of it
+    reaches c-1 (d = (c-1)/2^tz).  Each candidate is its own modulus
+    (``MontCtx.for_moduli``): one per-element modexp chain (K10) for
+    every 2^d, then the squaring ladder (K9) with per-column masks.
+    Padding columns repeat the last candidate and are dropped."""
+    dev = resolve(device)
+    B = len(cands)
+    bits = max(int(c).bit_length() for c in cands)
+    Bp = pad_batch(B)
+    cands_p = list(cands) + [cands[-1]] * (Bp - B)
+    L = limbs_for_bits(bits + 2)
+    ctx = mg.MontCtx.for_moduli(cands_p, L, dev)
+    tz = np.array([((c - 1) & -(c - 1)).bit_length() - 1
+                   for c in cands_p], dtype=np.int32)
+    ds = [(c - 1) >> int(t) for c, t in zip(cands_p, tz)]
+    digits = mg.exponent_digits(ds, max(1, -(-bits // WINDOW)), WINDOW)
+    limbs = lambda vals: to_device(ints_to_limbs(vals, L), dev)
+    x = mg.mont_exp(mg.to_mont(limbs([2] * Bp), ctx), digits, ctx,
+                    window=WINDOW)
+    one = limbs([1] * Bp)
+    nm1 = limbs([c - 1 for c in cands_p])
+    tz_dev = torch.from_numpy(tz).to(dev)
+    eq = lambda a, b: (a == b).all(dim=0)
+    xc = mg.from_mont(x, ctx)
+    ok = eq(xc, one) | eq(xc, nm1)
+    for i in range(1, int(tz.max())):
+        x = mg.mont_mul(x, x, ctx)
+        ok = ok | (eq(mg.from_mont(x, ctx), nm1) & (i < tz_dev))
+    return ok.cpu().numpy()[:B]
+
+
+def _primes_from_window(base: int, mask, bits: int, bulk: bool,
+                        device=None) -> int | None:
+    """First prime among the sieve survivors of one window, or None.
+    bulk: the base-2 round for all survivors at once (device_mr_base2),
+    then the host rounds for those that pass."""
+    cands = []
+    for j in range(len(mask)):
+        if not mask[j]:
+            continue
+        cand = base + 2 * j
+        if cand.bit_length() != bits:
+            break
+        cands.append(cand)
+    if not cands:
+        return None
+    if bulk:
+        passed = device_mr_base2(cands, device)
+        cands = [c for c, ok in zip(cands, passed) if ok]
+    for c in cands:
+        if is_probable_prime(c):
+            return c
+    return None
+
+
+def generate_prime(bits: int, device=None) -> int:
+    """Random `bits`-bit prime: windowed sieve + Miller-Rabin.  The
+    base-2 round runs device-batched (device_mr_base2 on `device`) when
+    keygen_device is "1", or "auto" on a CUDA device at >= 1024 bits."""
     from .. import native
+    cfg = _config.get_config().keygen_device
+    bulk = cfg == "1" or (cfg == "auto" and resolve(device).type == "cuda"
+                          and bits >= 1024)
     window = 2048
     while True:
         base = secrets.randbits(bits) | (1 << (bits - 1)) | 1
         mask = native.sieve_window(base, window, _SMALL_PRIMES)
-        for j in range(len(mask)):
-            if not mask[j]:
-                continue
-            cand = base + 2 * j
-            if cand.bit_length() != bits:
-                break
-            if is_probable_prime(cand):
-                return cand
+        got = _primes_from_window(base, mask, bits, bulk, device)
+        if got is not None:
+            return got
 
 
 _PRIME_POOL = None
@@ -139,14 +196,22 @@ def _pool_usable() -> bool:
     return main is None or hasattr(main, "__file__")
 
 
+def _prime_worker_init() -> None:
+    """Pool workers never open the card: the port's default device is
+    the CPU there, so a worker's bulk base-2 round runs the plain twins."""
+    from ..device import set_device
+    set_device("cpu")
+
+
 def _prime_pool():
     """Persistent 2-worker spawn pool for concurrent p/q searches
-    (CPython's bigint pow holds the GIL).  Workers run host code only."""
+    (CPython's bigint pow holds the GIL).  Workers run on the CPU only."""
     global _PRIME_POOL
     if _PRIME_POOL is None:
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
-        pool = ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"))
+        pool = ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"),
+                                   initializer=_prime_worker_init)
         atexit.register(pool.shutdown)
         pkg_root = os.path.dirname(os.path.dirname(
             os.path.dirname(os.path.abspath(__file__))))
@@ -164,10 +229,13 @@ def _prime_pool():
     return _PRIME_POOL
 
 
-def generate_key_ints(n_length: int = 1024, enable_DJN: bool = True) -> dict:
+def generate_key_ints(n_length: int = 1024, enable_DJN: bool = True,
+                      device=None) -> dict:
     """Raw key material as Python ints: p, q of n_length/2 bits with
     n = p*q of exactly n_length bits; DJN adds hs = h^n mod n^2 with
-    h = -x^2 mod n and randbits = n_length // 2."""
+    h = -x^2 mod n and randbits = n_length // 2.  A serial search runs
+    its device-batched base-2 round (keygen_device) on `device`; pool
+    workers run theirs on the CPU."""
     global _POOL_BROKEN
     half = n_length // 2
     cfgp = _config.get_config().keygen_parallel
@@ -185,8 +253,8 @@ def generate_key_ints(n_length: int = 1024, enable_DJN: bool = True) -> dict:
                 _POOL_BROKEN = True
                 continue
         else:
-            p = generate_prime(half)
-            q = generate_prime(half)
+            p = generate_prime(half, device)
+            q = generate_prime(half, device)
         if p == q:
             continue
         n = p * q
@@ -213,7 +281,15 @@ def generate_key_ints(n_length: int = 1024, enable_DJN: bool = True) -> dict:
 
 class PublicContext:
     """Device state for one public key: the Montgomery context mod n^2,
-    the RNS base/key of n^2, and the lazily built RNS comb table."""
+    the RNS base/key of n^2, and the lazily built comb tables of the two
+    encrypt engines (the RNS comb, the limb comb).
+
+    The engine is chosen per call (``_rns_enc_plan``): RNS unless
+    ``encrypt_engine="limb"``, n^2 is past the RNS bound, or the RNS comb
+    exceeds half of ``comb_hbm_budget_bytes``.  One deliberate difference
+    from the JAX package: its "auto" takes the limb comb on its CPU
+    backend (a host-speed heuristic); here "auto" is RNS on every device,
+    so CPU and CUDA runs take the same route."""
 
     def __init__(self, n: int, bits: int | None = None,
                  enable_DJN: bool = True, hs: int | None = None,
@@ -239,9 +315,12 @@ class PublicContext:
         self._rns = None            # lazy (base, key) of n^2
         self._rns_mul = None        # lazy ct*pt RNS plan (False: none)
         self._comb_rns = None       # lazy (n_win, CH, 2^w) comb states
+        self._comb = None           # lazy (n_win, L, 2^w) limb comb
         self._n_digits = None       # lazy digits of n (plain r^n)
-        if self.enable_DJN:
-            # shrink the window until the RNS comb fits half the budget
+        if (self.enable_DJN and cfg.encrypt_engine != "limb"
+                and self.rns_plan() is not None):
+            # the RNS engine carries this key: shrink the window until
+            # the RNS comb fits half the budget
             CH = self.rns_plan()[0].CH
             cap = cfg.comb_hbm_budget_bytes // 2
             w = self.comb_window
@@ -250,9 +329,26 @@ class PublicContext:
             self.comb_window = w
 
     def rns_plan(self):
-        """(RnsBase, RnsModulus) of n^2 for the encrypt engine."""
-        _config.require_rns("encrypt_engine")
+        """(RnsBase, RnsModulus) of n^2, or None past the RNS bound."""
+        if _rns_mbits(2 * self.bits + 2) is None:
+            return None
         return self._rns_base_key()
+
+    def _rns_enc_plan(self):
+        """(base, key) of the RNS encrypt engine, or None for the limb
+        comb: encrypt_engine="limb", n^2 past the RNS bound (no ct*pt
+        plan), or an RNS comb over half of comb_hbm_budget_bytes."""
+        cfg = _config.get_config()
+        if cfg.encrypt_engine == "limb":
+            return None
+        plan = self._rns_mul_plan()
+        if plan is None:
+            return None
+        n_win = -(-self.randbits // self.comb_window)
+        if n_win * plan[0].CH * (1 << self.comb_window) * 4 \
+                > cfg.comb_hbm_budget_bytes // 2:
+            return None
+        return plan[0], plan[1]
 
     def _rns_base_key(self):
         if self._rns is None:
@@ -271,9 +367,8 @@ class PublicContext:
             cfg = _config.get_config()
             ok = (cfg.decrypt_engine in ("auto", "rns")
                   or cfg.encrypt_engine in ("auto", "rns"))
-            mbits = -(-(2 * self.bits + 2) // 16) * 16
             self._rns_mul = False
-            if ok and mbits <= RNS_MAX_MBITS:
+            if ok and self.rns_plan() is not None:
                 self._rns_mul = (*self._rns_base_key(), WINDOW)
         return self._rns_mul or None
 
@@ -283,6 +378,8 @@ class PublicContext:
         if self._comb_rns is None:
             if not self.enable_DJN:
                 raise ValueError("comb_rns: DJN disabled for this key")
+            if self.rns_plan() is None:
+                raise ValueError("comb_rns: n^2 is past the RNS bound")
             base, key = self.rns_plan()
             lad = to_device(self._host_pow2_ladder(), self.device)
             self._comb_rns = _build_comb_rns(
@@ -292,12 +389,30 @@ class PublicContext:
         return self._comb_rns
 
     @property
-    def n_exp_digits(self) -> torch.Tensor:
-        """(n_win_ct,) MSB-first 4-bit digits of n (plain r^n)."""
+    def comb_table(self) -> torch.Tensor:
+        """(n_win, L, 2^w) limb comb of the limb encrypt engine:
+        T[j][d] = hs^(d * 2^(w*j)) * R mod n^2, built on the device from
+        the host pow2 ladder (products K3, or K9 without weights)."""
+        if self._comb is None:
+            if not self.enable_DJN:
+                raise ValueError("comb_table: DJN disabled for this key")
+            lad = to_device(self._host_pow2_ladder().T[:, :, None],
+                            self.device)            # (randbits, L, 1)
+            self._comb = mg.build_comb_table(lad, self.ctx,
+                                             self.comb_window)
+        return self._comb
+
+    def _drop_comb(self) -> None:
+        """Free both comb tables (rebuilt at next use)."""
+        self._comb = None
+        self._comb_rns = None
+
+    @property
+    def n_exp_digits(self) -> np.ndarray:
+        """(n_win_ct,) MSB-first 4-bit digits of n (plain r^n), host."""
         if self._n_digits is None:
-            self._n_digits = torch.from_numpy(mg.exponent_digits(
-                [self.n], self.n_win_ct, WINDOW)[:, 0].astype(np.int32)
-            ).to(self.device)
+            self._n_digits = np.ascontiguousarray(mg.exponent_digits(
+                [self.n], self.n_win_ct, WINDOW)[:, 0].astype(np.int32))
         return self._n_digits
 
     def _host_pow2_ladder(self) -> np.ndarray:
@@ -368,39 +483,50 @@ class PublicContext:
         return mg.to_mont(_encrypt_raw_canonical(m_limbs, self.n_limbs,
                                                  self.L), self.ctx)
 
-    def _fresh_digits(self, b: int) -> torch.Tensor:
-        return torch.from_numpy(self.sample_obfuscator_digits(b).astype(
-            np.int32)).to(self.device)
+    def _dev_digits(self, digits: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(digits.astype(np.int32)).to(self.device)
 
     def obfuscate(self, ct_mont: torch.Tensor) -> torch.Tensor:
         """Multiply in a fresh obfuscator (re-randomization).  DJN: the
-        RNS comb chain with fresh digits (K1); plain Paillier: r^n with
-        r uniform in [1, n) per column (K4), then one product (K3)."""
+        comb chain with fresh digits (RNS: K1; limb: K3/K9); plain
+        Paillier: r^n with r uniform in [1, n) per column (K4/K10), then
+        one product."""
         B = ct_mont.shape[1]
         if self.enable_DJN:
-            base, key = self.rns_plan()
-            return _rns.rns_comb_product(ct_mont, self.comb_rns,
-                                         self._fresh_digits(B), base, key,
-                                         self.ctx, self.L, mont_input=True)
+            digits = self.sample_obfuscator_digits(B)
+            plan = self._rns_enc_plan()
+            if plan is not None:
+                base, key = plan
+                return _rns.rns_comb_product(
+                    ct_mont, self.comb_rns, self._dev_digits(digits), base,
+                    key, self.ctx, self.L, mont_input=True)
+            return _obfuscate_djn(ct_mont, digits, self.comb_table, self.ctx)
         rs = [secrets.randbelow(self.n - 1) + 1 for _ in range(B)]
         r_m = mg.to_mont(to_device(ints_to_limbs(rs, self.L), self.device),
                          self.ctx)
-        obf = mg.mont_exp(r_m, self.n_exp_digits[:, None].expand(
-            self.n_win_ct, B), self.ctx, window=WINDOW)
+        obf = mg.mont_exp(r_m, np.broadcast_to(self.n_exp_digits[:, None],
+                                               (self.n_win_ct, B)),
+                          self.ctx, window=WINDOW)
         return mg.mont_mul(ct_mont, obf, self.ctx)
 
     def encrypt(self, encodings: list, apply_obfuscator: bool = True,
                 pad_to: int | None = None) -> torch.Tensor:
         """Encodings (ints mod n) -> Montgomery ciphertexts (L, B_pad).
-        DJN obfuscation takes the RNS comb route; a plain-Paillier key
-        encrypts raw and then obfuscates with r^n."""
+        DJN obfuscation takes the RNS comb or the limb comb
+        (``_rns_enc_plan``); a plain-Paillier key encrypts raw and then
+        obfuscates with r^n."""
         m = self.encodings_to_device(encodings, pad_to)
         if apply_obfuscator and self.enable_DJN:
-            base, key = self.rns_plan()
-            raw = _encrypt_raw_canonical(m, self.n_limbs, self.L)
-            return _rns.rns_comb_product(raw, self.comb_rns,
-                                         self._fresh_digits(m.shape[1]),
-                                         base, key, self.ctx, self.L)
+            digits = self.sample_obfuscator_digits(m.shape[1])
+            plan = self._rns_enc_plan()
+            if plan is not None:
+                base, key = plan
+                raw = _encrypt_raw_canonical(m, self.n_limbs, self.L)
+                return _rns.rns_comb_product(raw, self.comb_rns,
+                                             self._dev_digits(digits),
+                                             base, key, self.ctx, self.L)
+            return _encrypt_djn(m, digits, self.comb_table, self.n_limbs,
+                                self.ctx, self.L)
         ct = self.encrypt_raw(m)
         if apply_obfuscator:
             ct = self.obfuscate(ct)
@@ -526,6 +652,19 @@ def _encrypt_raw_canonical(m_limbs, n_limbs, L):
     return normalize(mn)
 
 
+def _obfuscate_djn(ct_mont, digits, comb, ctx):
+    """ct * hs^r through the limb comb: one gather and one product per
+    window, no squarings (``mont_exp_fixed_base`` with acc0 = ct)."""
+    return mg.mont_exp_fixed_base(comb, digits, ctx, acc0=ct_mont)
+
+
+def _encrypt_djn(m_limbs, digits, comb, n_limbs, ctx, L):
+    """The limb encrypt: (1 + m*n) into the Montgomery domain, then the
+    comb obfuscator."""
+    ct = mg.to_mont(_encrypt_raw_canonical(m_limbs, n_limbs, L), ctx)
+    return _obfuscate_djn(ct, digits, comb, ctx)
+
+
 # ---------------------------------------------------------------------------
 # Private (decryption) context: CRT decrypt.
 # ---------------------------------------------------------------------------
@@ -534,7 +673,9 @@ class PrivateContext:
     """CRT decryption for one key, on the public context's device.  The
     stage-2 engine is read from ``decrypt_engine`` when the context is
     built: "auto"/"rns" the RNS chain (K2), anything else the limb
-    shared-exponent modexp (K7)."""
+    engine: the shared-exponent modexp per CRT half (K7) on p^2/q^2
+    contexts with mm3 weights, else one fused per-element chain over
+    [p^2]*B ++ [q^2]*B (``_crt_stage_exp``, K10)."""
 
     def __init__(self, pub: PublicContext, p: int, q: int):
         if p * q != pub.n:
@@ -563,6 +704,11 @@ class PrivateContext:
         self._sq_q = mg.MontCtx.for_modulus(qsq, min_bits=LIMB_BITS * Lh,
                                             device=dev)
         ebits = max((p - 1).bit_length(), (q - 1).bit_length())
+        # fused per-element engine: (n_win, 2) host digits of p-1 | q-1
+        self.n_win_dec = -(-ebits // WINDOW)
+        self.exp_digits_pq = np.ascontiguousarray(mg.exponent_digits(
+            [p - 1, q - 1], self.n_win_dec, WINDOW).astype(np.int32))
+        self._sq_ctx_cache = {}
         # limb engine: shared-exponent digits of p-1, q-1 at the window of
         # the JAX package's plan (5 at Lh=129)
         self.dec_window = (_m3.shared_exp_window(Lh)
@@ -574,8 +720,13 @@ class PrivateContext:
         self.dig_q = np.ascontiguousarray(digd[:, 1].astype(np.int32))
         self.use_rns = _config.get_config().decrypt_engine in ("auto", "rns")
         if self.use_rns:
-            self.rns_base = _rns.RnsBase.for_bits(
-                _rns_mbits(max(psq.bit_length(), qsq.bit_length())), dev)
+            mbits = _rns_mbits(max(psq.bit_length(), qsq.bit_length()))
+            if mbits is None:
+                raise NotImplementedError(
+                    f"p^2 of {max(psq.bit_length(), qsq.bit_length())} "
+                    f"bits exceeds the RNS engine's bound ({RNS_MAX_MBITS} "
+                    f"bits): use decrypt_engine='limb'")
+            self.rns_base = _rns.RnsBase.for_bits(mbits, dev)
             self.rns_p = _rns.RnsModulus.build(self.rns_base, psq, Lh)
             self.rns_q = _rns.RnsModulus.build(self.rns_base, qsq, Lh)
             self.rns_sched_window = _rk.plan_sched(self.rns_base.CH)
@@ -605,6 +756,14 @@ class PrivateContext:
         self.p_limbs = col(p, Lq)
         self.q_limbs = col(q, Lq)
 
+    def _sq_ctx(self, B: int) -> mg.MontCtx:
+        """Per-element context over [p^2]*B ++ [q^2]*B (cached by B)."""
+        if B not in self._sq_ctx_cache:
+            self._sq_ctx_cache[B] = mg.MontCtx.for_moduli(
+                [self.p * self.p] * B + [self.q * self.q] * B, self.Lh,
+                self.pub.device)
+        return self._sq_ctx_cache[B]
+
     def decrypt_to_ints(self, ct_mont: torch.Tensor, b: int) -> list:
         """Montgomery ciphertexts mod n^2 -> plaintext ints."""
         return limbs_to_ints(self.decrypt_device(ct_mont))[:b]
@@ -623,17 +782,17 @@ class PrivateContext:
                                          self.rns_base, self.rns_q,
                                          self._sq_q, self.rns_sched_window,
                                          self.Lh)
+            u = torch.cat([u_p, u_q], dim=1)
         elif self._sq_p.wmu is not None:
             u_p = _crt_stage_exp_half(base_m[:, :B], self._sq_p, self.dig_p,
                                       self.dec_window)
             u_q = _crt_stage_exp_half(base_m[:, B:], self._sq_q, self.dig_q,
                                       self.dec_window)
+            u = torch.cat([u_p, u_q], dim=1)
         else:
-            raise NotImplementedError(
-                "decrypt_engine='limb' on a context without mm3 weights "
-                "needs the per-element-moduli modexp (MontCtx.for_moduli, "
-                "kernels K9/K10), still to be ported (ROADMAP.md)")
-        return _crt_stage_recombine(torch.cat([u_p, u_q], dim=1), self)
+            u = _crt_stage_exp(base_m, self._sq_ctx(B), self.exp_digits_pq,
+                               self.n_win_dec)
+        return _crt_stage_recombine(u, self)
 
 
 def _crt_stage_reduce(ct_mont, s: PrivateContext):
@@ -655,6 +814,19 @@ def _crt_stage_exp_half(base_m, sq_ctx, digits, window):
     """Stage 2 of the limb engine, one prime's half: the shared-exponent
     modexp (kernel K7 on CUDA) and the Montgomery exit (canonical)."""
     u = mg.mont_exp_shared(base_m, digits, sq_ctx, window=window)
+    return mg.from_mont(u, sq_ctx)
+
+
+def _crt_stage_exp(base_m, sq_ctx, exp_digits_pq, n_win_dec):
+    """Stage 2 fused: one 2B-wide per-element modexp (kernel K10 on CUDA)
+    over [p^2]*B ++ [q^2]*B with the exponents p-1 | q-1 (host digits
+    (n_win_dec, 2)), and the Montgomery exit (canonical)."""
+    B = base_m.shape[1] // 2
+    e = np.asarray(exp_digits_pq)
+    digits = np.concatenate([np.broadcast_to(e[:, 0:1], (n_win_dec, B)),
+                             np.broadcast_to(e[:, 1:2], (n_win_dec, B))],
+                            axis=1)
+    u = mg.mont_exp(base_m, digits, sq_ctx, window=WINDOW)
     return mg.from_mont(u, sq_ctx)
 
 
@@ -700,13 +872,14 @@ def from_jax_state(state: dict, device=None):
     state = {"n", "p", "q", "hs", "randbits", "bits": ints,
              "pub": {"ctx": {MontCtx leaves}, "rns_key": {RnsModulus
                      vectors}, "rns_pack": pack() bundle, "comb_window",
-                     "comb_rns" (optional)},
+                     "comb_rns", "comb" (optional)},
              "priv": {"sq_p", "sq_q", "p_ctx", "q_ctx": {MontCtx leaves},
                       "rns_p", "rns_q": {RnsModulus vectors},
                       "pack_p", "pack_q": pack() bundles,
                       "rsched_p", "rsched_q", "rns_sched_window",
                       Cp_lo..Cq_hi, f2_p, ..., q_limbs,
-                      "dec_window", "dig_p", "dig_q" (optional)}}
+                      "dec_window", "dig_p", "dig_q",
+                      "exp_digits_pq" (optional)}}
     The port's host builders run first; every array given replaces the
     one they made.  The RNS fields are read when the private context
     uses the RNS engine."""
@@ -718,11 +891,14 @@ def from_jax_state(state: dict, device=None):
         {f: d.get(f) for f in _MONT_FIELDS}, dev)
     pub.ctx = mont(pd["ctx"])
     pub.comb_window = int(pd["comb_window"])
-    base, _ = pub.rns_plan()
-    pub._rns = (base, _rns.RnsModulus.from_arrays(
-        pub.nsquare, pd["rns_key"], dev, packed=pd["rns_pack"]))
+    if pub.rns_plan() is not None:
+        base, _ = pub.rns_plan()
+        pub._rns = (base, _rns.RnsModulus.from_arrays(
+            pub.nsquare, pd["rns_key"], dev, packed=pd["rns_pack"]))
     if pd.get("comb_rns") is not None:
         pub._comb_rns = to_device(pd["comb_rns"], dev)
+    if pd.get("comb") is not None:
+        pub._comb = to_device(pd["comb"], dev)
     priv = PrivateContext(pub, state["p"], state["q"])
     for f in ("sq_p", "sq_q", "p_ctx", "q_ctx"):
         setattr(priv, "_" + f, mont(vd[f]))
@@ -739,6 +915,10 @@ def from_jax_state(state: dict, device=None):
     for f in ("dig_p", "dig_q"):
         if vd.get(f) is not None:
             setattr(priv, f, np.asarray(vd[f], dtype=np.int32).reshape(-1))
+    if vd.get("exp_digits_pq") is not None:
+        priv.exp_digits_pq = np.ascontiguousarray(
+            np.asarray(vd["exp_digits_pq"], dtype=np.int32))
+        priv.n_win_dec = priv.exp_digits_pq.shape[0]
     for f in _PRIV_PLANES:
         setattr(priv, f, torch.from_numpy(
             np.asarray(vd[f]).astype(np.int64)).to(dev))

@@ -192,10 +192,12 @@ def _mm3_mul_cuda(a, b, ctx) -> torch.Tensor:
     return out
 
 
-def mm3_exp(base: torch.Tensor, digits: torch.Tensor, ctx,
+def mm3_exp(base: torch.Tensor, digits, ctx,
             win_start: int = 0) -> torch.Tensor:
     """base^e (Montgomery form) with per-element 4-bit MSB-first digits
-    (n_win, B); windows before win_start are skipped inside the loop."""
+    (n_win, B|1) on the host (numpy or a CPU tensor); windows before
+    win_start are skipped inside the loop."""
+    digits = kernels.digit_tensor(digits, 4, base.device)
     if base.device.type == "cpu":
         return mm3_exp_plain(base, digits, ctx.wmu, ctx.wm, ctx.off1,
                              ctx.off2, ctx.one, win_start)
@@ -208,9 +210,7 @@ def _mm3_exp_cuda(base, digits, ctx, win_start) -> torch.Tensor:
     n_win = digits.shape[0]
     B = max(base.shape[1], digits.shape[1])
     base = _cols(base, L, B)
-    digits = digits.to(torch.int32).expand(n_win, B).contiguous()
-    if int(digits.max()) > 15 or int(digits.min()) < 0:
-        raise ValueError("mm3_exp: digits must be 4-bit")
+    digits = digits.expand(n_win, B).contiguous()
     one = ctx.one.contiguous()
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
     table = torch.empty((16, L, B), dtype=LIMB_DTYPE, device=base.device)

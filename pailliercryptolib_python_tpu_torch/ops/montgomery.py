@@ -1,17 +1,20 @@
 """Batched Montgomery arithmetic over 16-bit-limb tensors.
 
-Counterpart of ``pailliercryptolib_python_tpu/ops/montgomery.py`` (the
-shared-modulus subset: products, per-element and shared-exponent modexp,
-batched inversion).  Values live in the Montgomery domain below 2m
+Counterpart of ``pailliercryptolib_python_tpu/ops/montgomery.py``:
+shared-modulus and per-element-moduli contexts, products, per-element and
+shared-exponent modexp, batched inversion, and the fixed-base comb (the
+limb encrypt engine).  Values live in the Montgomery domain below 2m
 (Walter's bound: R = 2^(16L) > 4m keeps product chains closed without
 conditional subtracts).
 
 Dispatch mirrors the JAX package: a context that carries the mm3 byte
-weights (always the case on CUDA) routes every product through
-``ops/mont3.py`` -- kernel K3 on a CUDA tensor, its plain twin on a CPU
-tensor -- and a weightless CPU context runs the plain CIOS product.
-Every variant returns the same limbs: the output (a*b + q*m)/R with
-q = -a*b*m^-1 mod R is unique.
+weights (a shared modulus of 16..520 limbs on CUDA) routes products
+through ``ops/mont3.py`` (kernels K3/K4/K7); a context without them
+(``for_moduli``, ``mxu=False``, or L > 520) routes them through
+``ops/mont.py`` (kernels K9/K10).  Each wrapper runs its kernel on a
+CUDA tensor and its plain twin on a CPU tensor.  Every variant returns
+the same limbs: the output (a*b + q*m)/R with q = -a*b*m^-1 mod R is
+unique.
 """
 
 from __future__ import annotations
@@ -22,21 +25,22 @@ import numpy as np
 import torch
 
 from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, compare_ge, cond_sub,
-                   int_to_limbs, limbs_for_bits, limbs_to_ints, normalize,
-                   sub_mod_base, to_device)
+                   int_to_limbs, ints_to_limbs, limbs_for_bits,
+                   limbs_to_ints, normalize, sub_mod_base, to_device)
 from ..device import resolve
 
 
 @dataclasses.dataclass(frozen=True)
 class MontCtx:
-    """Shared-modulus Montgomery context.  Limb vectors are (L, 1) int32.
+    """Montgomery context.  Limb vectors are int32, (L, 1) for a modulus
+    shared by the batch or (L, B) for per-element moduli (``for_moduli``).
 
     wmu/wm/off1/off2 are the mm3 signed-byte Toeplitz weights and folded
-    offsets (``ops/mont3.byte_weights``); the plain twin of kernel K3
-    reduces with them."""
+    offsets (``ops/mont3.byte_weights``, shared modulus only); the plain
+    twin of kernel K3 reduces with them."""
 
     n_limbs: torch.Tensor
-    n0inv: int                      # -n^-1 mod 2^16
+    n0inv: int | torch.Tensor       # -n^-1 mod 2^16: an int, or (B,)
     r2: torch.Tensor                # R^2 mod n
     one: torch.Tensor               # R mod n
     wmu: torch.Tensor | None = None
@@ -74,60 +78,79 @@ class MontCtx:
         return cls(col(n), int(n0inv), col(R * R % n), col(R % n), *w)
 
     @classmethod
+    def for_moduli(cls, ns: list, L: int, device=None) -> "MontCtx":
+        """Per-element context over B odd moduli at L limbs: n_limbs, r2
+        and one (L, B), n0inv (B,) int32; no mm3 weights."""
+        dev = resolve(device)
+        R = 1 << (LIMB_BITS * L)
+        if any(4 * n >= R for n in ns):
+            raise ValueError("MontCtx.for_moduli: modulus too large for L")
+        n0 = np.array([(-pow(n, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
+                       for n in ns], dtype=np.int32)
+        cols = lambda vals: to_device(ints_to_limbs(vals, L), dev)
+        return cls(cols(ns), torch.from_numpy(n0).to(dev),
+                   cols([R * R % n for n in ns]), cols([R % n for n in ns]))
+
+    @classmethod
     def from_arrays(cls, arrays: dict, device=None) -> "MontCtx":
         """Context from numpy arrays (e.g. the JAX package's MontCtx
-        leaves): n_limbs, n0inv, r2, one and optionally the weights."""
+        leaves): n_limbs, n0inv, r2, one and optionally the weights.  A
+        one-element n0inv becomes an int; a (B,) one stays whole."""
         dev = resolve(device)
         opt = lambda k, dt: (None if arrays.get(k) is None else
                              torch.from_numpy(np.ascontiguousarray(
                                  np.asarray(arrays[k]).astype(dt))).to(dev))
+        n0 = np.asarray(arrays["n0inv"]).reshape(-1)
         return cls(to_device(arrays["n_limbs"], dev),
-                   int(np.asarray(arrays["n0inv"]).reshape(-1)[0]),
+                   int(n0[0]) if n0.size == 1 else to_device(n0, dev),
                    to_device(arrays["r2"], dev), to_device(arrays["one"], dev),
                    opt("wmu", np.int8), opt("wm", np.int8),
                    opt("off1", np.int32), opt("off2", np.int32))
 
 
-def _uses_mm3(x: torch.Tensor, ctx: MontCtx) -> bool:
-    if x.is_cuda:
-        if ctx.wmu is None:
-            raise ValueError("mont_mul: CUDA context built without mm3 "
-                             "weights (MontCtx.for_modulus(mxu=False))")
-        return True
-    return ctx.wmu is not None
-
-
 def mont_mul(a: torch.Tensor, b: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
     """Montgomery product a*b*R^-1 mod n; inputs and output < 2n,
-    canonical (L, B) int32 limbs.  a, b may be (L, 1) broadcasts."""
-    if _uses_mm3(a, ctx):
+    canonical (L, B) int32 limbs.  a, b may be (L, 1) broadcasts.  K3
+    with mm3 weights, else K9 (plain twins on a CPU tensor)."""
+    if ctx.wmu is not None:
         from . import mont3
         return mont3.mm3_mul(a, b, ctx)
-    return mont_mul_plain(a, b, ctx)
+    from . import mont
+    return mont.mont_mul_p(a, b, ctx.n_limbs, ctx.n0inv)
 
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
                    ctx: MontCtx) -> torch.Tensor:
+    """The plain CIOS product over the context's modulus (or moduli)."""
+    return cios_mul(a, b, ctx.n_limbs, ctx.n0inv)
+
+
+def cios_mul(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor,
+             n0) -> torch.Tensor:
     """CIOS Montgomery product with carry-save accumulators (port of
     ``_mont_mul_jnp``): L steps, each two (L, B) limb products split in
-    halves; carries resolve once at the end.  Accumulators stay < 2^27."""
+    halves; carries resolve once at the end.  Accumulators stay < 2^27.
+    n is (L, 1) or (L, B); n0 an int or a (1,) / (B,) tensor."""
     L = a.shape[0]
-    B = max(a.shape[1], b.shape[1])
+    B = max(a.shape[1], b.shape[1], n.shape[1])
     a = a.to(torch.int64).expand(L, B)
     b = b.to(torch.int64).expand(L, B)
-    n = ctx.n_limbs.to(torch.int64)
+    n = n.to(torch.int64)
     t = torch.zeros((L + 2, B), dtype=torch.int64, device=a.device)
     for i in range(L):
         p = a[i:i + 1] * b
         t[:L] += p & LIMB_MASK
         t[1:L + 1] += p >> LIMB_BITS
-        t = _redc_step(t, n, ctx.n0inv, L)
+        t = _redc_step(t, n, n0, L)
     return normalize(t)[:L]
 
 
-def _redc_step(t: torch.Tensor, n: torch.Tensor, n0: int,
+def _redc_step(t: torch.Tensor, n: torch.Tensor, n0,
                L: int) -> torch.Tensor:
-    """One 16-bit REDC step: add m*n so limb 0 is 0 mod 2^16, shift down."""
+    """One 16-bit REDC step: add m*n so limb 0 is 0 mod 2^16, shift down.
+    n0 is an int or a per-column tensor."""
+    if isinstance(n0, torch.Tensor):
+        n0 = n0.to(torch.int64)
     m = ((t[0] & LIMB_MASK) * n0) & LIMB_MASK
     q = m[None, :] * n
     t[:L] += q & LIMB_MASK
@@ -145,10 +168,11 @@ def mont_reduce_wide(T: torch.Tensor, ctx: MontCtx,
     defaults to L (the full R^-1); a short reduction (iters=j) is valid
     when T < 2n * 2^(16j)."""
     L = ctx.num_limbs
-    K, B = T.shape
+    K = T.shape[0]
+    B = max(T.shape[1], ctx.n_limbs.shape[1])
     n = ctx.n_limbs.to(torch.int64)
     t = torch.zeros((max(K, L + 2), B), dtype=torch.int64, device=T.device)
-    t[:K] = T.to(torch.int64)
+    t[:K] = T.to(torch.int64).expand(K, B)
     for _ in range(L if iters is None else iters):
         t = _redc_step(t, n, ctx.n0inv, L)
     return normalize(t)[:L]
@@ -177,7 +201,7 @@ def fixed_window_exp(base: torch.Tensor, digits: torch.Tensor,
     then per window: w squarings and one product by the gathered entry.
     Returns base^e in Montgomery form."""
     L = base.shape[0]
-    B = max(base.shape[1], digits.shape[1])
+    B = max(base.shape[1], digits.shape[1], one.shape[1])
     base = base.expand(L, B)
     one = one.expand(L, B)
     entries = [one, base]
@@ -196,15 +220,20 @@ def fixed_window_exp(base: torch.Tensor, digits: torch.Tensor,
 
 def mont_exp(base: torch.Tensor, digits, ctx: MontCtx, window: int = 4,
              win_start: int = 0) -> torch.Tensor:
-    """Per-element modexp dispatcher: window 4 on an mm3 context runs
-    kernel K4 (``mont3.mm3_exp``); otherwise the plain CIOS chain."""
-    if isinstance(digits, np.ndarray):
-        digits = torch.from_numpy(digits.astype(np.int32)).to(base.device)
-    if _uses_mm3(base, ctx) and window == 4:
-        from . import mont3
-        return mont3.mm3_exp(base, digits, ctx, win_start=int(win_start))
+    """Per-element modexp dispatcher, digits (n_win, B|1) MSB-first on
+    the host.  Window 4 runs kernel K4 (``mont3.mm3_exp``) on an mm3
+    context and K10 (``mont.mont_exp_p``) otherwise; other windows run
+    the plain CIOS chain on the CPU and raise on CUDA."""
+    if window == 4:
+        if ctx.wmu is not None:
+            from . import mont3
+            return mont3.mm3_exp(base, digits, ctx, win_start=int(win_start))
+        from . import mont
+        return mont.mont_exp_p(base, digits, ctx.n_limbs, ctx.n0inv,
+                               ctx.one, int(win_start))
     if base.is_cuda:
         raise ValueError(f"mont_exp: no CUDA kernel for window {window}")
+    digits = torch.as_tensor(np.asarray(digits, dtype=np.int64))
     return fixed_window_exp(base, digits, ctx.one,
                             lambda x, y: mont_mul_plain(x, y, ctx),
                             window, int(win_start))
@@ -213,14 +242,18 @@ def mont_exp(base: torch.Tensor, digits, ctx: MontCtx, window: int = 4,
 def mont_exp_shared(base: torch.Tensor, digits, ctx: MontCtx,
                     window: int = 4) -> torch.Tensor:
     """Shared-exponent modexp dispatcher: digits (n_win,) MSB-first
-    base-2^window, one exponent for the batch.  An mm3 context runs
-    kernel K7 (``mont3.mm3_exp_shared``); otherwise the plain CIOS chain."""
-    if _uses_mm3(base, ctx):
+    base-2^window on the host, one exponent for the batch.  An mm3
+    context runs kernel K7 (``mont3.mm3_exp_shared``).  Without weights,
+    on CUDA, window 4 becomes the per-element chain (K10) with the digits
+    broadcast, other windows raise; on the CPU the plain CIOS chain."""
+    if ctx.wmu is not None:
         from . import mont3
         return mont3.mm3_exp_shared(base, digits, ctx, window)
     if base.is_cuda:
-        raise ValueError("mont_exp_shared: no CUDA kernel without mm3 "
-                         "weights (per-element moduli: K9/K10)")
+        if window != 4:
+            raise ValueError(f"mont_exp_shared: no CUDA kernel for window "
+                             f"{window} without mm3 weights")
+        return mont_exp(base, digits[:, None], ctx, window=4)
     return _mont_exp_shared_plain(base, digits, ctx, window)
 
 
@@ -342,6 +375,85 @@ def mont_inv_tree(x_mont: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
     B = x_mont.shape[1]
     levels = _inv_tree_up(_pad_pow2(x_mont, ctx), ctx)
     return _inv_tree_down(levels, mont_inv(levels[-1], ctx), ctx)[:, :B]
+
+
+# ---------------------------------------------------------------------------
+# Fixed-base comb exponentiation (the limb encrypt engine): the DJN base
+# hs is fixed per key, so T[j][d] = hs^(d * 2^(w*j)) is built once and an
+# obfuscator hs^r costs one product per window and no squarings.
+# ---------------------------------------------------------------------------
+
+def build_pow2_ladder(base_mont: torch.Tensor, ctx: MontCtx,
+                      nbits: int) -> torch.Tensor:
+    """P[t] = base^(2^t) (Montgomery), t < nbits: (nbits, L, B)."""
+    out = []
+    cur = base_mont
+    for _ in range(nbits):
+        out.append(cur)
+        cur = mont_mul(cur, cur, ctx)
+    return torch.stack(out, dim=0)
+
+
+def _comb_chunk(lad: torch.Tensor, ctx: MontCtx, j_idx: torch.Tensor,
+                d_idx: torch.Tensor, window: int) -> torch.Tensor:
+    """Comb entries (j_idx, d_idx) as `window` batched products over
+    (L, C) columns: entry (j, d) is the product of ladder rows w*j + s
+    over the set bits s of d (rows past the ladder clip to its last)."""
+    nbits, L = lad.shape
+    acc = ctx.one.to(LIMB_DTYPE).expand(L, j_idx.shape[0])
+    for s in range(window):
+        bit_set = ((d_idx >> s) & 1) == 1                  # (C,)
+        src = torch.clamp(window * j_idx + s, 0, nbits - 1)
+        factor = lad[src].T                                # (L, C)
+        acc = torch.where(bit_set[None, :], mont_mul(acc, factor, ctx), acc)
+    return acc
+
+
+# Columns of one comb-build chunk (the JAX package's compile unit; here
+# it bounds the (L, C) working set of one chunk).
+COMB_CHUNK_LANES = 32768
+
+
+def build_comb_table(ladder: torch.Tensor, ctx: MontCtx,
+                     window: int) -> torch.Tensor:
+    """Comb table T[j, d] = base^(d * 2^(window*j)) from the pow2 ladder
+    (nbits, L, 1): (n_win, L, 2^window), entries along the last axis so a
+    per-column selection is one index_select.  Every product is K3 (or
+    K9 without weights) over chunks of COMB_CHUNK_LANES entries."""
+    nbits, L, _ = ladder.shape
+    n_win = -(-nbits // window)
+    tsize = 1 << window
+    dev = ladder.device
+    j_all = torch.arange(n_win, device=dev).repeat_interleave(tsize)
+    d_all = torch.arange(tsize, device=dev).repeat(n_win)
+    lad = ladder[:, :, 0]
+    NE = n_win * tsize
+    acc = torch.cat([_comb_chunk(lad, ctx, j_all[c0:c0 + COMB_CHUNK_LANES],
+                                 d_all[c0:c0 + COMB_CHUNK_LANES], window)
+                     for c0 in range(0, NE, COMB_CHUNK_LANES)], dim=1)
+    return acc.reshape(L, n_win, tsize).permute(1, 0, 2).contiguous()
+
+
+def mont_exp_fixed_base(comb: torch.Tensor, digits, ctx: MontCtx,
+                        acc0: torch.Tensor | None = None) -> torch.Tensor:
+    """prod_j T[j][digits[j]] (times acc0 when given): fixed-base
+    exponentiation with no squarings.  comb (n_win, L, 2^w); digits
+    (n_win, B) LSB-window-first, on the host or the device."""
+    n_win = comb.shape[0]
+    dig = torch.as_tensor(np.asarray(digits, dtype=np.int64)) \
+        if not isinstance(digits, torch.Tensor) else digits.to(torch.int64)
+    dig = dig.to(comb.device)
+
+    def gather(j):
+        return torch.index_select(comb[j], 1, dig[j])     # (L, B)
+
+    start = 0
+    acc = acc0
+    if acc is None:
+        acc, start = gather(0), 1
+    for j in range(start, n_win):
+        acc = mont_mul(acc, gather(j), ctx)
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,18 @@ config.py``).  Only the knobs the port reads are here.
         device-memory budget the per-key comb table must fit half of.
   * decrypt_engine                     (PAILLIER_DECRYPT_ENGINE)
         "auto" / "rns": the RNS chain (kernel K2); "limb": the shared-
-        exponent limb modexp (kernel K7).
+        exponent limb modexp (kernel K7) on p^2/q^2 contexts with mm3
+        weights, else the fused per-element chain over [p^2]*B ++
+        [q^2]*B (kernel K10).
   * encrypt_engine                     (PAILLIER_ENCRYPT_ENGINE)
-        "auto" or "rns"; the limb comb is still to be ported, so "limb"
-        raises NotImplementedError.  ct*pt takes its RNS route (kernel
-        K5) when either engine knob allows RNS.
+        DJN encrypt / re-randomize engine: "auto" / "rns" the RNS comb
+        (kernel K1), "limb" the limb comb (kernel K3, or K9 on a modulus
+        without mm3 weights).  Keys past the RNS bound, or whose RNS comb
+        exceeds half of comb_hbm_budget_bytes, take the limb comb
+        whatever the knob.  Unlike the JAX package, whose "auto" picks
+        the limb comb on its CPU backend, "auto" is RNS on every device.
+        ct*pt takes its RNS route (kernel K5) when either engine knob
+        allows RNS.
   * matmul_chunk_columns               (PAILLIER_MATMUL_CHUNK)
         most ciphertext columns ``@`` materializes per chunk; one
         reduction group is the indivisible unit, so a group wider than
@@ -24,6 +31,11 @@ config.py``).  Only the knobs the port reads are here.
   * keygen_parallel                    (PAILLIER_KEYGEN_PARALLEL)
         concurrent p/q prime searches in a 2-process pool: "auto"
         (>= 3072-bit keys), "1" always, "0" serial.
+  * keygen_device                      (PAILLIER_KEYGEN_DEVICE)
+        the base-2 Miller-Rabin round of keygen over all sieve survivors
+        of a window at once on the device (kernels K10 and K9): "1"
+        always, "auto" on a CUDA device for primes of >= 1024 bits, "0"
+        (default) on the host.  Pool workers run it on the CPU.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ class Config:
     fixed_shape_ops: bool = os.environ.get("PAILLIER_FIXED_SHAPE") == "1"
     keygen_parallel: str = os.environ.get("PAILLIER_KEYGEN_PARALLEL",
                                           "auto")
+    keygen_device: str = os.environ.get("PAILLIER_KEYGEN_DEVICE", "0")
 
 
 _config = Config()
@@ -65,15 +78,6 @@ def set_config(**kwargs) -> Config:
             raise ValueError(f"set_config: unknown knob {k!r}")
         setattr(_config, k, v)
     return _config
-
-
-def require_rns(knob: str) -> None:
-    """The encrypt engine is RNS only: the limb comb is not ported."""
-    v = getattr(_config, knob)
-    if v not in ("auto", "rns"):
-        raise NotImplementedError(
-            f"{knob}={v!r}: the port runs only the RNS engine here (the "
-            f"limb comb is still to be ported, see ROADMAP.md)")
 
 
 def comb_table_bytes(randbits: int, L: int, window: int) -> int:

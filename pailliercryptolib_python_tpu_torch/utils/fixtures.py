@@ -20,16 +20,17 @@ P_128 = 193651076660717054826992068826380876453
 Q_128 = 258036492587696595507938840934117552961
 
 
-def fixed_key_ints(n_length: int = 2048, enable_DJN: bool = True) -> dict:
+def fixed_key_ints(n_length: int = 2048, enable_DJN: bool = True,
+                   device=None) -> dict:
     """Deterministic key material (2048 or 256 bits; other sizes are
-    generated fresh)."""
+    generated fresh, a device-batched base-2 round on `device`)."""
     if n_length == 2048:
         p, q = P_1024, Q_1024
     elif n_length == 256:
         p, q = P_128, Q_128
     else:
         from ..models.paillier import generate_key_ints
-        return generate_key_ints(n_length, enable_DJN)
+        return generate_key_ints(n_length, enable_DJN, device)
     n = p * q
     out = {"n": n, "p": p, "q": q, "enable_DJN": enable_DJN,
            "bits": n.bit_length()}

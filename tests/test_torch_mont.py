@@ -168,5 +168,4 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError):
         tm3.mm3_mul(a, a, tctx)
     with pytest.raises(ValueError):
-        tm3.mm3_exp(a, torch.zeros((3, 2), dtype=torch.int32,
-                                   device="meta"), tctx)
+        tm3.mm3_exp(a, torch.zeros((3, 2), dtype=torch.int32), tctx)

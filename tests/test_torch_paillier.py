@@ -139,25 +139,36 @@ def test_add_sum_decrypt_floats(monkeypatch):
 
 
 def test_out_of_slice_operators_raise(monkeypatch):
-    """What the port still lacks raises NotImplementedError: the limb
-    encrypt engine (the limb comb) and, on a context without mm3 weights,
-    the limb decrypt's per-element-moduli branch (kernels K9/K10)."""
+    """The calls that raised NotImplementedError before the limb engines
+    were ported now run and match the JAX package: the limb encrypt
+    engine (the limb comb) and, on a context without mm3 weights, the
+    limb decrypt's fused per-element-moduli branch (kernel K10 on
+    CUDA)."""
     from pailliercryptolib_python_tpu_torch.utils import config as tcfg
-    _, _, tpk, tsk = _keys()
-    ct = tpk.encrypt(np.array([1.5, 2.0]))
+    jpk, jsk, tpk, tsk = _keys()
+    _inject_digits(monkeypatch, jpk.pubkey.context, tpk.pubkey.context)
+    x = np.array([1.5, 2.0])
+    ct = tpk.encrypt(x)
     monkeypatch.setattr(tcfg.get_config(), "encrypt_engine", "limb")
-    with pytest.raises(NotImplementedError, match="encrypt_engine"):
-        tpk.encrypt(np.array([1.0]))
-    with pytest.raises(NotImplementedError, match="encrypt_engine"):
-        tsch.PublicContext(KD["n"], KD["bits"], True, KD["hs"],
-                           KD["randbits"], device=CPU)
+    jcfg.set_config(encrypt_engine="limb")          # the fixture restores
+    tx, jx = tpk.encrypt(np.array([1.0])), jpk.encrypt(np.array([1.0]))
+    assert _cts(tx) == _cts(jx)
+    pub = tsch.PublicContext(KD["n"], KD["bits"], True, KD["hs"],
+                             KD["randbits"], device=CPU)
+    assert pub._rns_enc_plan() is None
+    np.testing.assert_allclose(tsk.decrypt(tx), [1.0])
     monkeypatch.setattr(tcfg.get_config(), "encrypt_engine", "auto")
     monkeypatch.setattr(tcfg.get_config(), "decrypt_engine", "limb")
+    monkeypatch.setattr(jcfg.get_config(), "decrypt_engine", "limb")
     priv = tsch.PrivateContext(tpk.pubkey.context, KD["p"], KD["q"])
+    jpriv = jsch.PrivateContext(jpk.pubkey.context, KD["p"], KD["q"])
     assert priv._sq_p.wmu is None and not priv.use_rns
-    with pytest.raises(NotImplementedError, match="K9/K10"):
-        priv.decrypt_to_ints(ct.ciphertext().device_array(), 2)
-    np.testing.assert_allclose(tsk.decrypt(ct), [1.5, 2.0])  # RNS still
+    dev = ct.ciphertext().device_array()
+    got = priv.decrypt_to_ints(dev, 2)
+    assert got == jpriv.decrypt_to_ints(
+        jpk.encrypt(x).ciphertext().device_array(), 2)
+    assert got == tsk.raw_decrypt(ct)
+    np.testing.assert_allclose(tsk.decrypt(ct), x)         # RNS still
 
 
 def test_port_reads_no_file_of_the_jax_package():

@@ -3,8 +3,10 @@
 
     python3 tools/torch_profile.py
 
-Runs the API steps of ``chip_smoke.py`` phases 4 and 6 at a 2048-bit key
-(``fixed_key_ints(2048)``) and B=4096.  Each step runs once to warm up,
+Runs the API steps of ``chip_smoke.py`` phases 4, 6 and 7 at a 2048-bit
+key (``fixed_key_ints(2048)``) and B=4096: among them the limb-engine
+encrypt, the decrypt with the fused per-element CRT stage (K10) and one
+sieve window of the device-batched Miller-Rabin (1024-bit candidates).  Each step runs once to warm up,
 once under the host clock (ending in ``torch.cuda.synchronize()``: the
 wall time), and once under ``torch.profiler``.  From the profiled run it
 prints the device kernel time, the share of it in each hand-written
@@ -29,7 +31,8 @@ BATCH = 4096
 SEED = 20261016
 KERNEL_NAMES = (("rns_exp_elem_kernel", "K5"), ("rns_exp_sched_kernel", "K2"),
                 ("rns_mul_kernel", "K1"), ("mm3_exp_shared_kernel", "K7"),
-                ("mm3_exp_kernel", "K4"), ("mm3_mul_kernel", "K3"))
+                ("mm3_exp_kernel", "K4"), ("mm3_mul_kernel", "K3"),
+                ("mont_exp_kernel", "K10"), ("mont_mul_kernel", "K9"))
 
 
 def label(kernel_name: str) -> str:
@@ -74,7 +77,9 @@ def main() -> int:
         print("torch_profile: no CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import random
     import pailliercryptolib_python_tpu_torch as pt
+    from pailliercryptolib_python_tpu_torch import native
     from pailliercryptolib_python_tpu_torch.models import paillier as sch
     from pailliercryptolib_python_tpu_torch.utils.fixtures import \
         fixed_key_ints
@@ -103,6 +108,29 @@ def main() -> int:
     sk_limb = pt.PaillierPrivateKey(pk, kd["p"], kd["q"])
     pt.set_config(decrypt_engine="auto")
     ct_x, ct_y, ct_v = pk.encrypt(x), pk.encrypt(y), pk.encrypt(v)
+    limb_pk = pt.PaillierPublicKey(pt.ipclPublicKey(
+        kd["n"], kd["bits"], True, kd["hs"], kd["randbits"], device=dev))
+    priv = sk.prikey.context
+
+    def limb_encrypt():
+        pt.set_config(encrypt_engine="limb")
+        try:
+            return limb_pk.encrypt(x)
+        finally:
+            pt.set_config(encrypt_engine="auto")
+
+    def fused_decrypt():
+        """decrypt_device with stage 2 the fused per-element chain."""
+        ct = ct_x.ciphertext().device_array()
+        base_m = sch._crt_stage_reduce(ct, priv)
+        u = sch._crt_stage_exp(base_m, priv._sq_ctx(ct.shape[1]),
+                               priv.exp_digits_pq, priv.n_win_dec)
+        return sch._crt_stage_recombine(u, priv)
+
+    r = random.Random(SEED)
+    base = r.getrandbits(1024) | (1 << 1023) | 1
+    mask = native.sieve_window(base, 2048, sch._SMALL_PRIMES)
+    cands = [base + 2 * j for j in range(len(mask)) if mask[j]]
     steps = {
         "comb build": lambda: sch.PublicContext(
             kd["n"], kd["bits"], True, kd["hs"], kd["randbits"],
@@ -117,6 +145,9 @@ def main() -> int:
         "x - y": lambda: ct_x - ct_y,
         "v @ W": lambda: ct_v @ W,
         "apply_obfuscator": lambda: ct_y.apply_obfuscator(),
+        "encrypt 4096 (limb)": limb_encrypt,
+        "decrypt 4096 (K10)": fused_decrypt,
+        "device MR window": lambda: sch.device_mr_base2(cands, dev),
     }
     print(f"card: {card} | torch {torch.__version__}", flush=True)
     rows = {}
