@@ -8,13 +8,17 @@ the repository root).  Imports nothing of JAX.  Phases, each raising on
 failure (so any failure exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build the eight CUDA kernels from ``pailliercryptolib_python_tpu_torch/
+2. build the eleven CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
    git-ignored ``build/``);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
    kernel's bound (K9 and K10 at the fused CRT decrypt's shape, K10's
-   eager twin alone ~32 s; K9 on a weightless n^2 also against K3);
+   eager twin alone ~32 s; K9 on a weightless n^2 also against K3; K4
+   at n^2 and, where it squares through K8's routine, at p^2, there also
+   against K10; K6 at the decrypt chain's shape, K8 at L=257/129/65 also
+   against K3(a, a), K11 at the limb encrypt chain's shape and
+   per-element against a K9 loop);
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
@@ -36,11 +40,21 @@ failure (so any failure exits non-zero):
    comb build, ciphertexts equal to the RNS engine's under the same
    digits, ``apply_obfuscator``, decrypt); the fused per-element CRT
    decrypt stage (K10) against K7's two halves and K2; a weightless n^2
-   context (K9 against K3, K10 against K4 on phase 6's exponents).
+   context (K9 against K3, K10 against K4 on phase 6's exponents);
+8. the fourth slice at 2048 bits, B=4096: the hybrid modes (pipelined
+   encrypt in 1, 2, 4 and 8 chunks), the host/device split after
+   ``context.initializeContext`` (a tenth of the batch, and then 64
+   values, go through Python's ``pow`` on the host thread), the K6
+   decrypt halves against K2's, the limb decrypt (K7, which squares
+   through K8's routine) against the fused K10 stage and K2, the fused
+   encrypt chain (K11)
+   against the streamed one, ``profile_stages`` under
+   ``profiling.timed`` and one ``profiling.trace``, and the comb LRU
+   registry under a budget for two of three keys.
 
-Phases 4, 6 and 7 each set the launch counters to 0 just before and read
-them just after.  The second-to-last lines are the kernels' JSON record
-and the card line; the last line is ``{"ok": true, "device": {...}}``.
+Phases 4, 6, 7 and 8 each set the launch counters to 0 just before and
+read them just after.  The second-to-last lines are the kernels' JSON record and the card line; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,6 +69,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4096
+# Batch of the all-host hybrid mode: Python's pow takes ~70 ms a
+# ciphertext at 2048 bits.
+HOST_BATCH = 64
 SEED = 20261016
 
 KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
@@ -64,6 +81,8 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                       "pailliercryptolib_python_tpu/ops/pallas_rns.py:416"),
     "rns_exp_elem": ("pailliercryptolib_python_tpu_torch/csrc/rns.cu",
                      "pailliercryptolib_python_tpu/ops/pallas_rns.py:501"),
+    "rns_exp_shared": ("pailliercryptolib_python_tpu_torch/csrc/rns.cu",
+                       "pailliercryptolib_python_tpu/ops/pallas_rns.py:349"),
     "mm3_mul": ("pailliercryptolib_python_tpu_torch/csrc/mont3.cu",
                 "pailliercryptolib_python_tpu/ops/pallas_mont3.py:239"),
     "mm3_exp": ("pailliercryptolib_python_tpu_torch/csrc/mont3.cu",
@@ -71,14 +90,21 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "mm3_exp_shared": ("pailliercryptolib_python_tpu_torch/csrc/mont3.cu",
                        "pailliercryptolib_python_tpu/ops/pallas_mont3.py"
                        ":391"),
+    "mm3_sqr": ("pailliercryptolib_python_tpu_torch/csrc/mont3.cu",
+                "pailliercryptolib_python_tpu/ops/pallas_mont3.py:273"),
     "mont_mul": ("pailliercryptolib_python_tpu_torch/csrc/mont.cu",
                  "pailliercryptolib_python_tpu/ops/pallas_mont.py:111"),
     "mont_exp": ("pailliercryptolib_python_tpu_torch/csrc/mont.cu",
                  "pailliercryptolib_python_tpu/ops/pallas_mont.py:155"),
+    "mont_chain": ("pailliercryptolib_python_tpu_torch/csrc/mont.cu",
+                   "pailliercryptolib_python_tpu/ops/pallas_mont.py:233"),
 }
 FIRST_SLICE = ("rns_mul", "rns_exp_sched", "mm3_mul", "mm3_exp")
 SECOND_SLICE = FIRST_SLICE + ("rns_exp_elem", "mm3_exp_shared")
 THIRD_SLICE = ("mont_mul", "mont_exp")
+FOURTH_SLICE = ("rns_exp_shared", "mm3_sqr", "mont_chain", "rns_mul",
+                "rns_exp_sched", "mm3_mul", "mm3_exp_shared", "mont_mul",
+                "mont_exp")
 
 # Bounds (published NVIDIA H100 SXM peaks): bytes over the memory rate,
 # int8 operations over the int8 tensor-core rate, the larger of the two.
@@ -196,8 +222,8 @@ def random_state(rng, base, B: int, dev):
 def check_kernels(dev, kd) -> dict:
     """Phase 3: each kernel against its plain twin, exact, with both times
     and the kernel's bound at the same inputs.  Every kernel is checked
-    at the main path's shape (its headline record); K2, K5 and K7 also at
-    a short chain."""
+    at the main path's shape (its headline record); K2, K5, K6 and K7
+    also at a short chain."""
     import torch
     from pailliercryptolib_python_tpu_torch.ops import (mont, mont3, rns,
                                                         rns_kernels as rk,
@@ -237,9 +263,11 @@ def check_kernels(dev, kd) -> dict:
                                                  ctx.off1, ctx.off2), 1),
                nbytes(a, b, got, ctx.n_limbs), limb_ops(L, 1, BATCH),
                headline=m == n * n)
-        if m == n * n:
+        if m != p:
             # K4: short exponents (the exponent-alignment shape), win_start>0
-            # (host digits, as mul_pt passes them)
+            # (host digits, as mul_pt passes them).  At n^2 (L=257) it
+            # squares through the product, at p^2 (L=129) through K8's
+            # routine: there also against K10 on the weightless context.
             exps = [int(e) for e in rng.integers(1, 1 << 20, size=BATCH)]
             digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
             dig_dev = torch.from_numpy(digits).to(dev)
@@ -253,7 +281,16 @@ def check_kernels(dev, kd) -> dict:
                        a, dig_dev, ctx.wmu, ctx.wm, ctx.off1, ctx.off2,
                        ctx.one, ws), 1),
                    nbytes(a, dig_dev, got, ctx.one, ctx.n_limbs),
-                   limb_ops(L, 14 + (8 - ws) * 5, BATCH), headline=True)
+                   limb_ops(L, 14 + (8 - ws) * 5, BATCH),
+                   headline=m == n * n)
+        if m == p * p:
+            c0 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
+            if not torch.equal(got, mont.mont_exp_p(
+                    a, digits, c0.n_limbs, c0.n0inv, c0.one, ws)):
+                raise AssertionError(f"K4 differs from K10 at L={L}")
+            print(f"  mm3_exp        equals mont_exp at L={L} (K4 squaring "
+                  f"through mont_sqr_col)", flush=True)
+        if m == n * n:
             # K9 on the weightless n^2 context: its twin, and K3's output
             c0 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
             got = mont.mont_mul_p(a, b, c0.n_limbs, c0.n0inv)
@@ -356,15 +393,112 @@ def check_kernels(dev, kd) -> dict:
            plain_ms, nbytes(Xf, got) + 4 * len(sched) + const_bytes,
            rns_ops(base.k, tbl + len(sched), BATCH), headline=True)
     check_per_element(dev, kd, rng, record)
+    check_fourth_slice(dev, kd, rng, record)
     return res
+
+
+def check_fourth_slice(dev, kd, rng, record) -> None:
+    """Phase 3, K6, K8 and K11.  K6: the decrypt half's chain (CH=261,
+    B=4096, window 5, the 205 windows of p-1) and a short one whose first
+    digit is 0 and last 2^w - 1.  K8: L=257, 129, 65 at B=4096, also
+    against K3(a, a).  K11: the limb encrypt chain (86 factors, L=257,
+    B=4096, shared n^2) and a per-element shape against a K9 loop."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import (mont, mont3, rns,
+                                                        rns_kernels as rk,
+                                                        montgomery as mg)
+    n, p, q = kd["n"], kd["p"], kd["q"]
+    # K6
+    m = p * p
+    base = rns.RnsBase.for_bits(-(-m.bit_length() // 16) * 16, dev)
+    key = rns.RnsModulus.build(base, m, (m.bit_length() + 2 + 15) // 16)
+    ops_t = rk.kernel_operands(base, key, dev)
+    const_bytes = nbytes(ops_t["vec"], ops_t["skc"], ops_t["E1"], ops_t["E2"])
+    w = 5
+    e = p - 1
+    dig_all = mg.exponent_digits([e], -(-e.bit_length() // w), w)[:, 0].astype(
+        np.int32)
+    short = np.array([0, 7, 0, (1 << w) - 1], dtype=np.int32)
+    for dig, B in ((short, 256), (dig_all, BATCH)):
+        X = random_state(rng, base, B, dev)
+        nw = len(dig)
+        got = rk.rns_exp_shared_p(X, dig, base, key, w)
+        want, plain_ms = timed(lambda: rns.rns_exp_shared_plain(
+            X, dig, base, key, w))
+        record("rns_exp_shared", got, want,
+               f"CH={base.CH} B={B} w={w} {nw} windows",
+               ms_of(lambda: rk.rns_exp_shared_p(X, dig, base, key, w), 1),
+               plain_ms, nbytes(X, got) + 4 * nw + const_bytes,
+               rns_ops(base.k, (1 << w) - 2 + nw * (w + 1), B),
+               headline=B == BATCH)
+    # K8
+    for m in (n * n, p * p, p):
+        ctx = mg.MontCtx.for_modulus(m, device=dev)
+        L = ctx.num_limbs
+        a = random_cols(rng, [m] * BATCH, L, dev)
+        got = mont3.mm3_sqr(a, ctx)
+        want = mont3.mm3_sqr_plain(a, ctx.wmu, ctx.wm, ctx.off1, ctx.off2)
+        record("mm3_sqr", got, want, f"L={L} B={BATCH}",
+               ms_of(lambda: mont3.mm3_sqr(a, ctx), 5),
+               ms_of(lambda: mont3.mm3_sqr_plain(a, ctx.wmu, ctx.wm,
+                                                 ctx.off1, ctx.off2), 1),
+               nbytes(a, got, ctx.n_limbs), limb_ops(L, 1, BATCH),
+               headline=m == n * n)
+        k3_ms = ms_of(lambda: mont3.mm3_mul(a, a, ctx), 5)
+        if not torch.equal(got, mont3.mm3_mul(a, a, ctx)):
+            raise AssertionError(f"K8 differs from K3(a, a) at L={L}")
+        print(f"  mm3_sqr        equals mm3_mul(a, a) at L={L} (K3 on the "
+              f"same input {k3_ms:.3f} ms)", flush=True)
+    # K11, shared n^2: 86 factors as the limb comb gathers them
+    ctx = mg.MontCtx.for_modulus(n * n, device=dev)
+    L, n_win = ctx.num_limbs, 86
+    fac = torch.stack([random_cols(rng, [n * n] * BATCH, L, dev)
+                       for _ in range(n_win)], dim=0)
+    acc0 = random_cols(rng, [n * n] * BATCH, L, dev)
+    got = mont.mont_chain_p(fac, acc0, ctx.n_limbs, ctx.n0inv)
+    want, plain_ms = timed(lambda: mont.mont_chain_plain(
+        fac, acc0, ctx.n_limbs, ctx.n0inv))
+    record("mont_chain", got, want, f"n_win={n_win} L={L} B={BATCH} shared",
+           ms_of(lambda: mont.mont_chain_p(fac, acc0, ctx.n_limbs,
+                                           ctx.n0inv), 2),
+           plain_ms, nbytes(fac, acc0, got, ctx.n_limbs) + 4,
+           limb_ops(L, n_win, BATCH), headline=True)
+    acc = acc0
+    for j in range(n_win):
+        acc = mont3.mm3_mul(acc, fac[j], ctx)
+    if not torch.equal(got, acc):
+        raise AssertionError("K11 differs from the streamed K3 chain")
+    del fac
+    # K11, a modulus per column, against a K9 loop
+    ms = [p * p] * 128 + [q * q] * 128
+    Lh = (max(v.bit_length() for v in ms) + 2 + 15) // 16
+    pc = mg.MontCtx.for_moduli(ms, Lh, dev)
+    fac = torch.stack([random_cols(rng, ms, Lh, dev) for _ in range(8)],
+                      dim=0)
+    acc0 = random_cols(rng, ms, Lh, dev)
+    got = mont.mont_chain_p(fac, acc0, pc.n_limbs, pc.n0inv)
+    want, plain_ms = timed(lambda: mont.mont_chain_plain(
+        fac, acc0, pc.n_limbs, pc.n0inv))
+    record("mont_chain", got, want, f"n_win=8 L={Lh} B=256 per-element",
+           ms_of(lambda: mont.mont_chain_p(fac, acc0, pc.n_limbs,
+                                           pc.n0inv), 2),
+           plain_ms, nbytes(fac, acc0, got, pc.n_limbs, pc.n0inv),
+           limb_ops(Lh, 8, 256))
+    acc = acc0
+    for j in range(8):
+        acc = mont.mont_mul_p(acc, fac[j], pc.n_limbs, pc.n0inv)
+    if not torch.equal(got, acc):
+        raise AssertionError("K11 differs from a K9 loop, per-element")
+    print("  mont_chain     equals the streamed K3 chain (shared) and a K9 "
+          "loop (per-element)", flush=True)
 
 
 def check_per_element(dev, kd, rng, record) -> None:
     """Phase 3, K9 and K10 with a modulus per column: the fused CRT
     decrypt's shape ([p^2]*4096 ++ [q^2]*4096, L=129, B=8192; K10 over
     all 256 windows of p-1 | q-1, the headline), and the keygen shape
-    (1024-bit odd moduli, L=65, B=256: all 256 windows, then win_start=3
-    on 8)."""
+    (1024-bit odd moduli, L=65, B=256: all 256 windows, the chain
+    device_mr_base2 launches, then win_start=3 on the top 8)."""
     import torch
     from pailliercryptolib_python_tpu_torch.ops import mont
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
@@ -470,7 +604,7 @@ def main_path(dev, kd, tag: str) -> dict:
           f"{ops_dec}", flush=True)
     kat(dev, tag)
     return dict(times=times, counts=counts, ops_encrypt=ops_enc,
-                ops_decrypt=ops_dec)
+                ops_decrypt=ops_dec, pk=pk, sk=sk, x=x, ct_x=ct_x)
 
 
 def kat(dev, tag: str) -> None:
@@ -768,6 +902,263 @@ def third_slice(dev, kd, tag: str, exps: list) -> dict:
     for k, t in times.items():
         print(f"  {k:24s} {t:10.4f} s   ({tag})", flush=True)
     print(f"  kernel launches over phase 7: {counts}", flush=True)
+    return dict(times=times, counts=counts, limb=limb)
+
+
+def fourth_slice(dev, kd, tag: str, mp: dict, limb) -> dict:
+    """Phase 8: the runtime controls, K6 on the decrypt halves, K8's
+    squaring in the limb decrypt, K11 on the encrypt chain, the profiling
+    hooks and the comb LRU registry, at 2048 bits, B=4096.  `mp` is phase
+    4's result (its keys and ciphertexts) and `limb` phase 7's limb
+    encrypt context."""
+    import tempfile
+    import warnings
+    import torch
+    import pailliercryptolib_python_tpu_torch as pt
+    from pailliercryptolib_python_tpu_torch import kernels
+    from pailliercryptolib_python_tpu_torch.fixedpoint import encode_vector
+    from pailliercryptolib_python_tpu_torch.models import paillier as sch
+    from pailliercryptolib_python_tpu_torch.ops import mont3, rns
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    from pailliercryptolib_python_tpu_torch.ops.limb import limbs_to_ints
+    from pailliercryptolib_python_tpu_torch.utils import config as cfgmod
+    from pailliercryptolib_python_tpu_torch.utils import profiling
+    from pailliercryptolib_python_tpu_torch.utils.context import (
+        context, hybridControl, hybridMode)
+
+    times = {}
+    kernels.reset_counts()
+    pk, sk, x, ct_x = mp["pk"], mp["sk"], mp["x"], mp["ct_x"]
+    pctx = pk.pubkey.context
+    priv = sk.prikey.context
+    cfg = pt.get_config()
+    saved = (cfg.encrypt_pipeline_chunks, cfg.encrypt_host_ratio,
+             cfg.comb_hbm_budget_bytes)
+
+    def restore():
+        hybridControl.setHybridMode(hybridMode.UNDEFINED)
+        context.terminateContext()
+        pt.set_config(encrypt_pipeline_chunks=saved[0],
+                      encrypt_host_ratio=saved[1],
+                      comb_hbm_budget_bytes=saved[2])
+
+    # 1. runtime controls, no context initialized: a mode sets the chunk
+    # count and the host share; a host share > 0 turns chunking off (the
+    # split stays off too until initializeContext), so HALF and IPP run
+    # one unchunked path here and chunks 2 and 8 are set directly
+    pk.encrypt(x)                                     # warm the comb
+    want_ints = sk.raw_decrypt(ct_x)
+    try:
+        for mode, want_chunks in ((hybridMode.QAT, 1), (hybridMode.OPTIMAL, 4),
+                                  (hybridMode.HALF, 2), (hybridMode.IPP, 8)):
+            hybridControl.setHybridMode(mode)
+            if (cfg.encrypt_pipeline_chunks != want_chunks
+                    or hybridControl.getHybridMode() != mode):
+                raise AssertionError(f"{mode.name}: chunks "
+                                     f"{cfg.encrypt_pipeline_chunks}")
+            ct, times[f"encrypt_{mode.name}_s"] = wall(lambda: pk.encrypt(x))
+            if len(ct) != BATCH or not np.allclose(sk.decrypt(ct), x):
+                raise AssertionError(f"{mode.name}: encrypt/decrypt differs")
+            lo = BATCH // 4 - 24                  # across the first boundary
+            if mode == hybridMode.OPTIMAL and not np.allclose(
+                    sk.decrypt(ct[lo:lo + 50]), x[lo:lo + 50]):
+                raise AssertionError("a slice across a chunk boundary "
+                                     "decrypts wrong")
+        for chunks in (2, 8):
+            pt.set_config(encrypt_pipeline_chunks=chunks,
+                          encrypt_host_ratio=0.0)
+            ct, times[f"encrypt_{chunks}_chunks_s"] = wall(
+                lambda: pk.encrypt(x))
+            if not np.allclose(sk.decrypt(ct), x):
+                raise AssertionError(f"{chunks} chunks: decrypt differs")
+        # host synchronizations inside one device encrypt call
+        pt.set_config(encrypt_pipeline_chunks=1)
+        encs, _ = encode_vector(x, pctx.n, pk.max_int)
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pctx.encrypt(encs)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message).lower()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pctx.encrypt(encs)
+        times["encrypt_enqueued_after_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        times["encrypt_finished_after_s"] = time.perf_counter() - t0
+        print(f"  host synchronizations inside PublicContext.encrypt: "
+              f"{len(syncs)}; the call returns after "
+              f"{times['encrypt_enqueued_after_s']:.4f} s, the device is "
+              f"done after {times['encrypt_finished_after_s']:.4f} s",
+              flush=True)
+        if syncs:
+            raise AssertionError(f"encrypt synchronizes: {syncs[:3]}")
+
+        # 2. the hybrid split, context initialized
+        calls = []
+        orig = sch.PublicContext.host_encrypt
+
+        def spy(self, encodings, apply_obfuscator=True):
+            calls.append(len(encodings))
+            return orig(self, encodings, apply_obfuscator)
+
+        sch.PublicContext.host_encrypt = spy
+        try:
+            context.initializeContext("QAT")
+            if not context.isQATRunning():
+                raise AssertionError("isQATRunning() false on the card")
+            hybridControl.setHybridMode(hybridMode.PREF_QAT90)
+            ct, times[f"encrypt_split_QAT90_{BATCH}_s"] = wall(
+                lambda: pk.encrypt(x))
+            hybridControl.setHybridMode(hybridMode.IPP)
+            cti, times[f"encrypt_IPP_{HOST_BATCH}_s"] = wall(
+                lambda: pk.encrypt(x[:HOST_BATCH]))
+        finally:
+            sch.PublicContext.host_encrypt = orig
+        if calls != [int(BATCH * 0.1), HOST_BATCH]:
+            raise AssertionError(f"host_encrypt calls {calls}")
+        if (sk.raw_decrypt(ct) != want_ints
+                or sk.raw_decrypt(cti) != want_ints[:HOST_BATCH]):
+            raise AssertionError("split encrypt: plaintexts differ")
+        # the split's first ciphertexts and IPP's both came off the host
+        # thread, of the same values under fresh randomness
+        a, b = (c.ciphertext().host_ints() for c in (ct[:HOST_BATCH], cti))
+        if any(u == v for u, v in zip(a, b)):
+            raise AssertionError("two encryptions of one value are equal")
+        print(f"  hybrid split: host_encrypt sizes {calls}, plaintexts exact",
+              flush=True)
+    finally:
+        restore()
+
+    # 4. K6 on the decrypt path: both halves through the fixed-window
+    # chain (K6) and the sliding-window chain (K2) from one stage 1
+    ct_dev = ct_x.ciphertext().device_array()
+    B = ct_dev.shape[1]
+    base_m = sch._crt_stage_reduce(ct_dev, priv)
+    u6, times["stage2_K6_s"] = wall(lambda: torch.cat([
+        rns.rns_crt_exp_half(base_m[:, :B], priv.rdig_p, priv.rns_base,
+                             priv.rns_p, priv._sq_p, priv.rns_window, priv.Lh),
+        rns.rns_crt_exp_half(base_m[:, B:], priv.rdig_q, priv.rns_base,
+                             priv.rns_q, priv._sq_q, priv.rns_window,
+                             priv.Lh)], dim=1))
+    u2, times["stage2_K2_s"] = wall(lambda: torch.cat(
+        priv._rns_exp_halves(base_m), dim=1))
+    if not torch.equal(u6, u2):
+        raise AssertionError("stage 2: K6's halves differ from K2's")
+    ints6 = limbs_to_ints(sch._crt_stage_recombine(u6, priv))[:BATCH]
+    if ints6 != want_ints:
+        raise AssertionError("K6 decrypt: plaintexts differ")
+    print(f"  stage 2: K6 (window {priv.rns_window}, {len(priv.rdig_p)} "
+          f"windows) equals K2 limb for limb; plaintexts equal", flush=True)
+
+    # 5. K8's squaring inside the limb decrypt (K7 at L=129 squares
+    # through mont_sqr_col), against the fused per-element stage (K10,
+    # which squares through the product) and K2
+    pt.set_config(decrypt_engine="limb")
+    try:
+        lpriv = sch.PrivateContext(pctx, kd["p"], kd["q"])
+    finally:
+        pt.set_config(decrypt_engine="auto")
+    u7, times["stage2_K7_s"] = wall(lambda: torch.cat(
+        lpriv._limb_exp_halves(base_m), dim=1))
+    u10, times["stage2_K10_s"] = wall(lambda: sch._crt_stage_exp(
+        base_m, lpriv._sq_ctx(B), lpriv.exp_digits_pq, lpriv.n_win_dec))
+    if not (torch.equal(u7, u10) and torch.equal(u7, u2)):
+        raise AssertionError("limb stage 2: K7 differs from K10 or K2")
+    a = base_m[:, :B]
+    if not torch.equal(mont3.mm3_sqr(a, lpriv._sq_p),
+                       mg.mont_mul(a, a, lpriv._sq_p)):
+        raise AssertionError("mm3_sqr differs from the product")
+    print("  limb stage 2: K7 (squaring through K8's routine) equals K10 "
+          "and K2 limb for limb", flush=True)
+
+    # 6. K11 on the encrypt chain: gather + one fused chain against the
+    # streamed chain, the same digits
+    comb = limb.comb_table
+    encs, _ = encode_vector(x, limb.n, limb.n // 3 - 1)
+    digs = limb.sample_obfuscator_digits(BATCH)
+    ct0 = limb.encrypt_raw(limb.encodings_to_device(encs))
+    c_s, times["encrypt_chain_streamed_s"] = wall(
+        lambda: mg.mont_exp_fixed_base(comb, digs, limb.ctx, acc0=ct0))
+    c_f, times["encrypt_chain_K11_s"] = wall(
+        lambda: mg.mont_exp_fixed_base_chain(comb, digs, limb.ctx, ct0))
+    if not torch.equal(c_s, c_f):
+        raise AssertionError("K11's chain differs from the streamed chain")
+    if limb.export_cts(c_f, BATCH) != limb.export_cts(c_s, BATCH):
+        raise AssertionError("K11: exported ciphertexts differ")
+    if priv.decrypt_to_ints(c_f, BATCH) != list(encs):
+        raise AssertionError("K11: ciphertexts decrypt wrong")
+    fbytes = comb.shape[0] * comb.shape[1] * BATCH * 4
+    print(f"  encrypt chain: K11 equals the streamed chain limb for limb; "
+          f"factor array {fbytes} bytes", flush=True)
+
+    # 7. profile_stages under profiling.timed, one profiling.trace
+    sink = []
+    stages = priv.profile_stages(ct_dev, BATCH)
+    for name, thunk in stages.items():
+        with profiling.timed(name, sink):
+            out = thunk()
+    if sorted(stages) != ["stage1_reduce", "stage2_rns_p_half",
+                          "stage2_rns_q_half", "stage3_recombine",
+                          "stage4_d2h", "stage5_to_ints"]:
+        raise AssertionError(f"profile_stages: {sorted(stages)}")
+    if stages["stage5_to_ints"]() != ints6:
+        raise AssertionError("profile_stages: plaintexts differ")
+    for name, dt in sink:
+        times[name + "_s"] = dt
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            with profiling.annotate("encrypt"):
+                pk.encrypt(x[:256])
+        files = os.listdir(tmp)
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in files)
+    if not files or size == 0:
+        raise AssertionError("profiling.trace wrote no trace")
+    print(f"  profiling.trace wrote {files} ({size} bytes)", flush=True)
+
+    # 3. the comb registry: a budget for two RNS combs, three keys
+    reg = cfgmod.comb_registry
+    for owner, _ in list(reg._entries.values()):
+        owner.free()
+    del comb, limb, c_s, c_f, ct0
+    comb_bytes = pctx.comb_rns.numel() * 4    # 86 x 521 x 4096 x 4 at 2048
+    try:
+        pt.set_config(comb_hbm_budget_bytes=int(2.5 * comb_bytes))
+        keys = [(pk, sk)] + [pt.PaillierKeypair.generate_keypair(
+            2 * kd["p"].bit_length(), True, device=dev) for _ in range(2)]
+        ctxs = [k[0].pubkey.context for k in keys]
+        mem = []
+        for kpk, _ in keys:
+            kpk.encrypt(x[:256])
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+        print(f"  comb registry: budget {cfg.comb_hbm_budget_bytes}, one RNS "
+              f"comb {comb_bytes}, registered {reg.total_bytes}; "
+              f"memory_allocated after key 1, 2, 3: {mem}", flush=True)
+        if not (ctxs[0]._comb_rns is None and ctxs[1]._comb_rns is not None
+                and ctxs[2]._comb_rns is not None and len(reg) == 2
+                and reg.total_bytes <= cfg.comb_hbm_budget_bytes
+                and mem[2] - mem[1] < comb_bytes // 2
+                and mem[1] - mem[0] > comb_bytes // 2):
+            raise AssertionError("comb registry: key 1 was not evicted")
+        ctxs[1].comb_rns                          # touch key 2
+        ct1 = keys[0][0].encrypt(x[:256])         # rebuilds key 1
+        if not (ctxs[2]._comb_rns is None and ctxs[1]._comb_rns is not None
+                and ctxs[0]._comb_rns is not None and len(reg) == 2):
+            raise AssertionError("comb registry: touch did not keep key 2")
+        if not np.allclose(keys[0][1].decrypt(ct1), x[:256]):
+            raise AssertionError("comb registry: key 1 after its rebuild")
+        for c in ctxs[1:]:
+            c.free()
+    finally:
+        restore()
+
+    counts = dict(kernels.COUNTS)
+    for k, t in times.items():
+        print(f"  {k:26s} {t:10.4f} s   ({tag})", flush=True)
+    print(f"  kernel launches over phase 8: {counts}", flush=True)
     return dict(times=times, counts=counts)
 
 
@@ -818,16 +1209,23 @@ def main() -> int:
     s3 = third_slice(dev, kd, card, s2["exps"])
     print(f"    phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"[8] fourth slice: 2048-bit key, B={BATCH} ({card})", flush=True)
+    t0 = time.perf_counter()
+    s4 = fourth_slice(dev, kd, card, mp, s3["limb"])
+    print(f"    phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
     missing = ([k for k in FIRST_SLICE if mp["counts"][k] <= 0]
                + [k for k in SECOND_SLICE if s2["counts"][k] <= 0]
-               + [k for k in THIRD_SLICE if s3["counts"][k] <= 0])
+               + [k for k in THIRD_SLICE if s3["counts"][k] <= 0]
+               + [k for k in FOURTH_SLICE if s4["counts"][k] <= 0])
     if missing:
         raise AssertionError(f"a phase never launched {missing}")
-    launches = {k: mp["counts"][k] + s2["counts"][k] + s3["counts"][k]
+    launches = {k: sum(s["counts"][k] for s in (mp, s2, s3, s4))
                 for k in KERNELS}
     print(f"[5] every kernel launched: phase 4 {mp['counts']}, phase 6 "
-          f"{s2['counts']}, phase 7 {s3['counts']}", flush=True)
-    print(f"    phases 3-7: {time.perf_counter() - t_all:.1f} s; library "
+          f"{s2['counts']}, phase 7 {s3['counts']}, phase 8 {s4['counts']}",
+          flush=True)
+    print(f"    phases 3-8: {time.perf_counter() - t_all:.1f} s; library "
           f"call: none (no single PyTorch call computes an RNS product or "
           f"a modular exponentiation)", flush=True)
 

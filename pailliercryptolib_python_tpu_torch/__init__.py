@@ -6,8 +6,11 @@ stays in the repository as its reference.  This package imports ``torch``
 and never ``jax``.  Main path: keygen -> DJN encrypt (RNS comb) ->
 ciphertext ``+`` / ``sum`` -> CRT decrypt, on the default device
 ``cuda`` (``set_device`` changes it; the CPU is used only when asked).
+``context`` / ``hybridControl`` / ``hybridMode`` are the runtime controls:
+a mode sets how ``encrypt`` pipelines a batch in chunks and what share of
+it a host thread encrypts.
 
-On a CUDA tensor each of the eight kernels (``kernels.COUNTS``)
+On a CUDA tensor each of the eleven kernels (``kernels.COUNTS``)
 launches or raises; on a CPU tensor its plain PyTorch twin runs.
 """
 
@@ -31,6 +34,7 @@ from .bindings.containers import (
 from .device import get_device, set_device
 from .models.paillier import from_jax_state
 from .utils.config import get_config, set_config
+from .utils.context import context, hybridControl, hybridMode
 
 __version__ = "0.1.0"
 
@@ -54,4 +58,7 @@ __all__ = [
     "set_device",
     "get_config",
     "set_config",
+    "context",
+    "hybridControl",
+    "hybridMode",
 ]

@@ -7,7 +7,10 @@ and ``-`` (with exponent alignment through ct*pt by powers of two),
 ct*pt by any plaintext (a negative one through the batched inversion),
 ``/``, ``sum``, ``mean``, ``dot``, ``@`` / ``@=`` against plaintext
 matrices, indexing and iteration, and pickling with the same state
-tuples.
+tuples.  ``encrypt`` pipelines a large batch in chunks
+(``encrypt_pipeline_chunks``) or splits it between a host thread and the
+device (``encrypt_host_ratio``, after ``context.initializeContext``);
+``utils/context.py`` maps the hybrid modes onto both knobs.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .bindings.containers import (
 from .models.paillier import pad_batch
 from .ops import montgomery as mg
 from .utils import config as _config
+from .utils.context import context as _context
 
 
 class BNUtils:
@@ -59,6 +63,48 @@ class PaillierKeypair:
                          ) -> Tuple["PaillierPublicKey", "PaillierPrivateKey"]:
         pub, pri = ipclKeypair.generate_keypair(n_length, enable_DJN, device)
         return PaillierPublicKey(pub), PaillierPrivateKey(pri)
+
+
+_HOST_ENC_POOL = None
+
+
+def _host_pool():
+    """The one worker thread of the hybrid split's host leg."""
+    global _HOST_ENC_POOL
+    if _HOST_ENC_POOL is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _HOST_ENC_POOL = ThreadPoolExecutor(max_workers=1)
+    return _HOST_ENC_POOL
+
+
+def _hybrid_split_encrypt(pctx, encodings, apply_obfuscator):
+    """Concurrent host/device encrypt split, or None when inactive.
+
+    The last ``encrypt_host_ratio`` of the batch encrypts with Python
+    bigints in a worker thread (``PublicContext.host_encrypt``) while the
+    device encrypts the rest: the device call only enqueues its work, so
+    both legs run at once.  Active only after
+    ``context.initializeContext``, and for a batch of two or more."""
+    ratio = _config.get_config().encrypt_host_ratio
+    B = len(encodings)
+    if ratio <= 0 or not _context._initialized or B < 2:
+        return None
+    nh = B if ratio >= 1 else min(B, max(1, int(B * ratio)))
+    fut = _host_pool().submit(pctx.host_encrypt, encodings[B - nh:],
+                              apply_obfuscator)
+    dev = pctx.encrypt(encodings[:B - nh], apply_obfuscator) \
+        if nh < B else None
+    host_dev = pctx.import_cts(fut.result())
+    if dev is None:
+        cols = host_dev[:, :nh]
+    else:
+        cols = torch.cat([dev[:, :B - nh], host_dev[:, :nh]], dim=1)
+    BP = pad_batch(B)
+    if cols.shape[1] < BP:
+        pad = pctx.ctx.one.to(cols.dtype).expand(cols.shape[0],
+                                                 BP - cols.shape[1])
+        cols = torch.cat([cols, pad], dim=1)
+    return cols
 
 
 class PaillierPublicKey:
@@ -110,7 +156,12 @@ class PaillierPublicKey:
 
     def encrypt(self, values, apply_obfuscator: bool = True
                 ) -> "PaillierEncryptedNumber":
-        """Vectorized encrypt of a scalar or 1-D batch."""
+        """Vectorized encrypt of a scalar or 1-D batch.
+
+        With ``encrypt_pipeline_chunks`` > 1 (and no host share set) a
+        batch of at least 256 per chunk runs chunked: each chunk's host
+        stage (fixed-point encode, limb pack, entropy) overlaps the
+        device work enqueued for the chunk before."""
         if np.isscalar(values):
             values = [values]
         arr = np.asarray(values)
@@ -120,8 +171,30 @@ class PaillierPublicKey:
                 raise ValueError(
                     "PaillierPublicKey.encrypt: input value(s) should be "
                     "integer or float")
+        B = len(values)
+        cfg = _config.get_config()
+        chunks = cfg.encrypt_pipeline_chunks
+        split_active = cfg.encrypt_host_ratio > 0
+        if chunks > 1 and not split_active and B >= 256 * chunks:
+            csize = pad_batch(-(-B // chunks))
+            sliceable = arr if arr.dtype.kind in "fiu" else values
+            devs, expos_parts = [], []
+            for i in range(0, B, csize):
+                encs, exps = encode_vector(sliceable[i:i + csize],
+                                           self.n, self.max_int)
+                devs.append(self.pubkey.context.encrypt(
+                    encs, apply_obfuscator, pad_to=csize))
+                expos_parts.append(exps)
+            ct_dev = torch.cat(devs, dim=1)[:, :pad_batch(B)]
+            ct = ipclCipherText(self.pubkey, _dev=ct_dev, _length=B)
+            return PaillierEncryptedNumber(
+                self, ct, exponents=np.concatenate(expos_parts), length=B)
+
         encodings, expos = encode_vector(values, self.n, self.max_int)
-        ct_dev = self.pubkey.context.encrypt(encodings, apply_obfuscator)
+        ct_dev = _hybrid_split_encrypt(self.pubkey.context, encodings,
+                                       apply_obfuscator)
+        if ct_dev is None:
+            ct_dev = self.pubkey.context.encrypt(encodings, apply_obfuscator)
         ct = ipclCipherText(self.pubkey, _dev=ct_dev, _length=len(encodings))
         return PaillierEncryptedNumber(self, ct, exponents=expos,
                                        length=len(encodings))

@@ -1,6 +1,6 @@
-// Kernels K9 (mont_mul) and K10 (mont_exp): Montgomery arithmetic over
-// 16-bit limbs with a modulus per column (or one shared modulus), for
-// Hopper (sm_90a).
+// Kernels K9 (mont_mul), K10 (mont_exp) and K11 (mont_chain): Montgomery
+// arithmetic over 16-bit limbs with a modulus per column (or one shared
+// modulus), for Hopper (sm_90a).
 //
 // K9 replaces pailliercryptolib_python_tpu/ops/pallas_mont.py
 //    _mont_mul_kernel (:111, wrapper mont_mul_p :125): a*b*R^-1 mod n_col.
@@ -9,8 +9,12 @@
 //    with a per-element exponent, 4-bit fixed window, 16-entry table
 //    built in the kernel, one-hot table select, windows before win_start
 //    skipped.
+// K11 replaces pailliercryptolib_python_tpu/ops/pallas_mont.py
+//    _mont_chain_kernel (:233, wrapper mont_chain_p :245): acc0 times the
+//    product of n_win pre-gathered factors, one Montgomery product per
+//    factor (the fused form of the limb comb encrypt chain).
 //
-// They serve every Montgomery context without the mm3 weights of K3/K4:
+// K9 and K10 serve every Montgomery context without the mm3 weights of K3/K4:
 // the per-element contexts of MontCtx.for_moduli (the device-batched
 // Miller-Rabin of keygen, one prime candidate per column, and the fused
 // CRT decrypt over [p^2]*B ++ [q^2]*B) and moduli whose L exceeds the
@@ -29,6 +33,17 @@
 // product by the entry whose index equals the digit, selected by mask
 // after reading all 16 (cios::OneHot16): the digits include every keygen
 // candidate's (c-1)>>tz, and the secret primes are among the candidates.
+//
+// K11 is one thread per column: the accumulator stays in the thread's
+// local memory between products and only the factors (n_win, L, B)
+// stream from global memory, each limb once per product (362 MB at
+// n_win=86, L=257, B=4096).  The TPU kernel revisited its output block
+// over a (batch tile, window) grid instead.  Products run in the order
+// j = 0..n_win-1, so the result equals the streamed chain of K3/K9
+// products limb for limb.  Work: n_win products of 2L^2 limb products;
+// bytes: the factor array, acc0, the modulus and n0 read once, the
+// output written once.  The gather that builds the factor array from
+// the comb is eager PyTorch in the wrapper's caller.
 //
 // What bounds it on the H100.  Work: K9 is one product and K10
 // (2^4 - 2) + n_win*5 products per column, each 2L^2 16x16-bit limb
@@ -72,10 +87,29 @@ __global__ void mont_exp_kernel(const uint32_t* base, const int32_t* digits,
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
   const int c = per_elem ? col : 0;
-  cios::exp_col<kMaxLimbs, true>(base + col, digits + col, B, one + c,
-                                 out + col, table + col, n + c,
-                                 per_elem ? B : 1, n0[c], L, B, 4, win_start,
-                                 n_win);
+  cios::exp_col<kMaxLimbs, true, false>(base + col, digits + col, B, one + c,
+                                        out + col, table + col, n + c,
+                                        per_elem ? B : 1, n0[c], L, B, 4,
+                                        win_start, n_win);
+}
+
+__global__ void mont_chain_kernel(const uint32_t* factors,
+                                  const uint32_t* acc0, uint32_t* out,
+                                  const uint32_t* n, const uint32_t* n0,
+                                  int per_elem, int n_win, int L, int B) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= B) return;
+  const int c = per_elem ? col : 0;
+  const int sn = per_elem ? B : 1;
+  const uint32_t n0c = n0[c];
+  uint32_t t[kMaxLimbs + 2];
+  uint32_t acc[kMaxLimbs];
+  for (int j = 0; j < L; ++j) acc[j] = acc0[static_cast<size_t>(j) * B + col];
+  const size_t plane = static_cast<size_t>(L) * B;
+  for (int w = 0; w < n_win; ++w)            // acc = acc * factors[w]
+    cios::mont_mul_col(cios::Strided{factors + w * plane + col, B}, acc, 1,
+                       acc, 1, n + c, sn, n0c, L, t);
+  for (int j = 0; j < L; ++j) out[static_cast<size_t>(j) * B + col] = acc[j];
 }
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
@@ -105,5 +139,18 @@ extern "C" int pct_mont_exp(const uint32_t* base, const int32_t* digits,
                     static_cast<cudaStream_t>(stream)>>>(
       base, digits, one, out, table, n, n0, per_elem, L, B, n_win,
       win_start);
+  return cudaGetLastError();
+}
+
+extern "C" int pct_mont_chain(const uint32_t* factors, const uint32_t* acc0,
+                              uint32_t* out, const uint32_t* n,
+                              const uint32_t* n0, int per_elem, int n_win,
+                              int L, int B, void* stream) {
+  if (L < 2 || L > kMaxLimbs || B < 1 || n_win < 0) {
+    return cudaErrorInvalidValue;
+  }
+  mont_chain_kernel<<<blocks_for(B), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      factors, acc0, out, n, n0, per_elem, n_win, L, B);
   return cudaGetLastError();
 }

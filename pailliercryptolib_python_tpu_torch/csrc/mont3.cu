@@ -1,6 +1,6 @@
-// Kernels K3 (mm3_mul), K4 (mm3_exp) and K7 (mm3_exp_shared):
-// shared-modulus Montgomery arithmetic over 16-bit limbs, for Hopper
-// (sm_90a).
+// Kernels K3 (mm3_mul), K4 (mm3_exp), K7 (mm3_exp_shared) and K8
+// (mm3_sqr): shared-modulus Montgomery arithmetic over 16-bit limbs, for
+// Hopper (sm_90a).
 //
 // K3 replaces pailliercryptolib_python_tpu/ops/pallas_mont3.py
 //    _mm3_mul_kernel (:239, wrapper mm3_mul_p :247): a*b*R^-1 mod m.
@@ -11,6 +11,9 @@
 //    _mm3_exp_shared_kernel (:391, wrapper mm3_exp_shared_p :430):
 //    base^e with one exponent shared by the batch (the limb CRT
 //    decrypt), w-bit fixed window, 2^w-entry table.
+// K8 replaces pailliercryptolib_python_tpu/ops/pallas_mont3.py
+//    _mm3_sqr_kernel (:273, wrapper mm3_sqr_p :280, body _mm3_sqr_val
+//    :224 over _mm2_square, pallas_mont2.py:235): a*a*R^-1 mod m.
 //
 // Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs; one
 // thread owns one column (one big number) and walks its limbs with
@@ -48,13 +51,24 @@
 // K7 runs the same column routine with a 2^w-entry table in global
 // scratch ((32, 129, B) u32 at w=5: 68 MB at B=4096) and the exponent
 // p-1 (q-1) as one int32 digit vector for the whole batch.  The TPU
-// kernel squared through K8's body; CIOS output is unique, so acc*acc
-// through the product routine gives the same limbs (a dedicated square
-// is K8's work).  The digits are key-derived and every column reads the
+// kernel squared through K8's body at L <= 192; so do K4 and K7 here
+// (cios::mont_sqr_col at L <= cios::kSqrMaxLimbs, the product routine
+// above it): the Montgomery result is unique, so either squaring gives
+// the same limbs.  The digits are key-derived and every column reads the
 // same entry at the same step, so the table index follows the key, as
 // on the TPU and as in K2 (README threat-model note, ROADMAP C5).  Bound:
 // as K3, per-product latency; (2^w - 2) + n_win (w + 1) products of
 // 2 L^2 16x16-bit limb products each per column.
+//
+// K8 is one thread per column through cios::mont_sqr_col: the symmetric
+// product (each cross product once, one doubling pass, the diagonal) in
+// a 2L-word local array, then L REDC steps; K8(a) equals K3(a, a) limb
+// for limb.  L <= 520 as K3 (the local array is then ~4 KB per thread).
+// Work model: counted as K3's, one product's 2 L^2 16x16-bit limb
+// products, so both rows read the same bound for the same function
+// (the kernel itself runs L(L+1)/2 + L^2 multiplies); bytes: a read
+// once, the modulus, the output written once.  Bound by per-thread
+// latency like K3: the 2L-word running array lives in local memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,6 +90,7 @@ __global__ void mm3_mul_kernel(const uint32_t* a, const uint32_t* b,
                      1, n0, L, t);
 }
 
+template <bool kSqr>
 __global__ void mm3_exp_kernel(const uint32_t* base, const int32_t* digits,
                                const uint32_t* one, uint32_t* out,
                                uint32_t* table, const uint32_t* n,
@@ -83,11 +98,12 @@ __global__ void mm3_exp_kernel(const uint32_t* base, const int32_t* digits,
                                int win_start) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
-  cios::exp_col<kMaxLimbs, true>(base + col, digits + col, B, one, out + col,
-                                 table + col, n, 1, n0, L, B, 4, win_start,
-                                 n_win);
+  cios::exp_col<kMaxLimbs, true, kSqr>(base + col, digits + col, B, one,
+                                       out + col, table + col, n, 1, n0, L,
+                                       B, 4, win_start, n_win);
 }
 
+template <bool kSqr>
 __global__ void mm3_exp_shared_kernel(const uint32_t* base,
                                       const int32_t* digits, int n_win,
                                       const uint32_t* one, uint32_t* out,
@@ -95,9 +111,17 @@ __global__ void mm3_exp_shared_kernel(const uint32_t* base,
                                       uint32_t n0, int L, int B, int window) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
-  cios::exp_col<kMaxLimbs, false>(base + col, digits, 1, one, out + col,
-                                  table + col, n, 1, n0, L, B, window, 0,
-                                  n_win);
+  cios::exp_col<kMaxLimbs, false, kSqr>(base + col, digits, 1, one, out + col,
+                                        table + col, n, 1, n0, L, B, window,
+                                        0, n_win);
+}
+
+__global__ void mm3_sqr_kernel(const uint32_t* a, uint32_t* out,
+                               const uint32_t* n, uint32_t n0, int L, int B) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= B) return;
+  uint32_t t[2 * kMaxLimbs];
+  cios::mont_sqr_col(a + col, B, out + col, B, n, 1, n0, L, t);
 }
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
@@ -122,8 +146,9 @@ extern "C" int pct_mm3_exp(const uint32_t* base, const int32_t* digits,
   if (L < 2 || L > kMaxLimbs || B < 1 || win_start < 0) {
     return cudaErrorInvalidValue;
   }
-  mm3_exp_kernel<<<blocks_for(B), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = L <= cios::kSqrMaxLimbs ? mm3_exp_kernel<true>
+                                              : mm3_exp_kernel<false>;
+  kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       base, digits, one, out, table, n, n0, L, B, n_win, win_start);
   return cudaGetLastError();
 }
@@ -137,8 +162,19 @@ extern "C" int pct_mm3_exp_shared(const uint32_t* base, const int32_t* digits,
       || window > 8) {
     return cudaErrorInvalidValue;
   }
-  mm3_exp_shared_kernel<<<blocks_for(B), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = L <= cios::kSqrMaxLimbs
+                          ? mm3_exp_shared_kernel<true>
+                          : mm3_exp_shared_kernel<false>;
+  kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       base, digits, n_win, one, out, table, n, n0, L, B, window);
+  return cudaGetLastError();
+}
+
+extern "C" int pct_mm3_sqr(const uint32_t* a, uint32_t* out,
+                           const uint32_t* n, unsigned n0, int L, int B,
+                           void* stream) {
+  if (L < 2 || L > kMaxLimbs || B < 1) return cudaErrorInvalidValue;
+  mm3_sqr_kernel<<<blocks_for(B), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a, out, n, n0, L, B);
   return cudaGetLastError();
 }

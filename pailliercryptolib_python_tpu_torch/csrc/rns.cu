@@ -1,5 +1,6 @@
-// Kernels K1 (rns_mul), K2 (rns_exp_sched) and K5 (rns_exp_elem):
-// RNS-Montgomery products over 16-bit prime channels, for Hopper (sm_90a).
+// Kernels K1 (rns_mul), K2 (rns_exp_sched), K5 (rns_exp_elem) and K6
+// (rns_exp_shared): RNS-Montgomery products over 16-bit prime channels,
+// for Hopper (sm_90a).
 //
 // K1 replaces pailliercryptolib_python_tpu/ops/pallas_rns.py
 //    _rns_mul_kernel (:578, wrapper rns_mul_p :612, body _mul_val
@@ -10,6 +11,10 @@
 // K5 replaces pailliercryptolib_python_tpu/ops/pallas_rns.py
 //    _rns_exp_elem_kernel (:501, wrapper rns_exp_elem_p :624): the
 //    fixed-window chain c^e * M with one exponent per column (ct*pt).
+// K6 replaces pailliercryptolib_python_tpu/ops/pallas_rns.py
+//    _rns_exp_kernel (:349, call _exp_call :383, wrapper
+//    rns_exp_shared_p :639): the fixed-window chain c^e * M with one
+//    exponent shared by the batch (a CRT half of decrypt).
 //
 // One product, per column (see ops/rns.py rns_mont_mul, its plain twin):
 //   S   = cmul(X, Y)                       all CH channels
@@ -67,6 +72,19 @@
 // Bound: the same per-product latency as K1 ((2^w - 2) + n_win (w + 1)
 // products per column; ops model 2 extensions x 4(k+1)k int8 MACs per
 // product and column), plus 2^w x CH table reads per window.
+//
+// K6 keeps K5's table [one, X, X^2, ..., X^(2^w-1)] ((32, CH, B) at w=5:
+// 137 MB at CH=261, B=4096) in global scratch the wrapper allocates,
+// built in the same order, and the accumulator in the output column.
+// Per window: w squarings, then one product by T[digit], a zero digit
+// multiplying by `one`, so every state equals the plain twin's.  The
+// digit is one key-derived value (p-1 or q-1) shared by the batch: it
+// indexes the table, as in the TPU kernel (:374-375) and in K2.  The
+// TPU kernel's table had to fit a VMEM tile; here it lies in global
+// memory and no such limit applies.  Work: (2^w - 2) + n_win (w + 1)
+// products per column, each two extensions of 4(k+1)k int8 MACs; bytes:
+// X, the digits and the constants read once, the output written once.
+// Bound: the same per-product latency as K1.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -340,6 +358,34 @@ __global__ void rns_exp_elem_kernel(const uint32_t* x, const int32_t* digits,
   }
 }
 
+__global__ void rns_exp_shared_kernel(const uint32_t* x,
+                                      const int32_t* digits, int n_win,
+                                      uint32_t* out, uint32_t* tab, Ops op,
+                                      int window, int B) {
+  extern __shared__ uint32_t xs[];
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= B) return;
+  const int tid = threadIdx.x, nt = blockDim.x, CH = op.CH;
+  const size_t plane = static_cast<size_t>(CH) * B;
+  const uint32_t* xc = x + col;
+  uint32_t* tb = tab + col;
+  uint32_t* acc = out + col;
+  const int tsize = 1 << window;
+  for (int c = 0; c < CH; ++c) {
+    tb[c * B] = V(op, c, 9);                              // T[0] = one
+    tb[plane + c * B] = xc[c * B];                        // T[1] = X
+  }
+  for (int t = 2; t < tsize; ++t)                         // T[t] = T[t-1] X
+    rns_mul_col(tb + (t - 1) * plane, xc, tb + t * plane, B, op, xs, tid,
+                nt);
+  for (int c = 0; c < CH; ++c) acc[c * B] = V(op, c, 9);
+  for (int j = 0; j < n_win; ++j) {
+    for (int r = 0; r < window; ++r)
+      rns_mul_col(acc, acc, acc, B, op, xs, tid, nt);
+    rns_mul_col(acc, tb + digits[j] * plane, acc, B, op, xs, tid, nt);
+  }
+}
+
 inline size_t shared_bytes(int KP) {
   return static_cast<size_t>(2 * (KP / 4)) * kThreads * sizeof(uint32_t);
 }
@@ -393,6 +439,23 @@ extern "C" int pct_rns_exp_elem(const uint32_t* x, const int32_t* digits,
   rns_exp_elem_kernel<<<(B + kThreads - 1) / kThreads, kThreads,
                         shared_bytes(KP),
                         static_cast<cudaStream_t>(stream)>>>(
+      x, digits, n_win, out, tab, op, window, B);
+  return cudaGetLastError();
+}
+
+extern "C" int pct_rns_exp_shared(const uint32_t* x, const int32_t* digits,
+                                  int n_win, uint32_t* out, uint32_t* tab,
+                                  const uint32_t* vec, const uint32_t* skc,
+                                  const int8_t* E1, const int8_t* E2, int k,
+                                  int CH, int KP, int nlev, int window, int B,
+                                  void* stream) {
+  if (bad_shape(k, CH, KP, B) || window < 1 || window > 8 || n_win < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const Ops op{vec, skc, E1, E2, k, CH, KP, nlev};
+  rns_exp_shared_kernel<<<(B + kThreads - 1) / kThreads, kThreads,
+                          shared_bytes(KP),
+                          static_cast<cudaStream_t>(stream)>>>(
       x, digits, n_win, out, tab, op, window, B);
   return cudaGetLastError();
 }

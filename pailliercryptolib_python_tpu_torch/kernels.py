@@ -39,8 +39,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 COUNTS = {"rns_mul": 0, "rns_exp_sched": 0, "rns_exp_elem": 0,
-          "mm3_mul": 0, "mm3_exp": 0, "mm3_exp_shared": 0,
-          "mont_mul": 0, "mont_exp": 0}
+          "rns_exp_shared": 0, "mm3_mul": 0, "mm3_exp": 0,
+          "mm3_exp_shared": 0, "mm3_sqr": 0, "mont_mul": 0, "mont_exp": 0,
+          "mont_chain": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,14 +51,18 @@ _U = ctypes.c_uint
 _SIGS = {
     "mm3_mul": [_P, _P, _P, _P, _U, _I, _I, _P],
     "mm3_exp": [_P, _P, _P, _P, _P, _P, _U, _I, _I, _I, _I, _P],
+    "mm3_sqr": [_P, _P, _P, _U, _I, _I, _P],
     "rns_mul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rns_exp_sched": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
     "rns_exp_elem": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
+    "rns_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P],
     "mm3_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _U, _I, _I, _I, _P],
     "mont_mul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mont_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -16,7 +16,10 @@ exponentiates (stage 2: per CRT half the RNS sliding-window chain K2 or,
 with ``decrypt_engine="limb"``, the shared-exponent limb modexp K7; on
 contexts without mm3 weights the fused per-element chain over
 [p^2]*B ++ [q^2]*B, K10) and recombines (stage 3).  Every shared-modulus
-product is K3 (K9 without weights).
+product is K3 (K9 without weights).  The private context also carries the
+fixed-window RNS digits (``rdig_p``, ``rdig_q``) for
+``rns.rns_crt_exp_half`` (K6).  The comb tables of all live keys are held
+under ``comb_hbm_budget_bytes`` by ``utils.config.comb_registry``.
 
 Ciphertexts are (L, B) int32 limb tensors in the Montgomery domain mod
 n^2, on the context's device.
@@ -386,6 +389,9 @@ class PublicContext:
                 lad, base, key, w=self.comb_window,
                 n_win=-(-self.randbits // self.comb_window),
                 randbits=self.randbits)
+            self._register_tables()
+        else:
+            _config.comb_registry.touch(self)
         return self._comb_rns
 
     @property
@@ -400,12 +406,32 @@ class PublicContext:
                             self.device)            # (randbits, L, 1)
             self._comb = mg.build_comb_table(lad, self.ctx,
                                              self.comb_window)
+            self._register_tables()
+        else:
+            _config.comb_registry.touch(self)
         return self._comb
 
+    def _register_tables(self) -> None:
+        """(Re-)register the bytes of the comb tables that exist now (the
+        limb comb, the RNS comb or both) with the LRU registry, which may
+        tell less recently used keys to drop theirs."""
+        total = sum(t.numel() * t.element_size()
+                    for t in (self._comb, self._comb_rns) if t is not None)
+        if total:
+            _config.comb_registry.register(self, total)
+
     def _drop_comb(self) -> None:
-        """Free both comb tables (rebuilt at next use)."""
+        """Drop both comb tables (the registry's eviction; rebuilt at
+        next use)."""
         self._comb = None
         self._comb_rns = None
+
+    def free(self) -> None:
+        """Retire the key: drop its comb tables, leave the registry and
+        evict its cached kernel operand bundle."""
+        self._drop_comb()
+        _config.comb_registry.unregister(self)
+        _rk.pack_evict(self.nsquare)
 
     @property
     def n_exp_digits(self) -> np.ndarray:
@@ -484,7 +510,7 @@ class PublicContext:
                                                  self.L), self.ctx)
 
     def _dev_digits(self, digits: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(digits.astype(np.int32)).to(self.device)
+        return to_device(digits, self.device)
 
     def obfuscate(self, ct_mont: torch.Tensor) -> torch.Tensor:
         """Multiply in a fresh obfuscator (re-randomization).  DJN: the
@@ -514,7 +540,10 @@ class PublicContext:
         """Encodings (ints mod n) -> Montgomery ciphertexts (L, B_pad).
         DJN obfuscation takes the RNS comb or the limb comb
         (``_rns_enc_plan``); a plain-Paillier key encrypts raw and then
-        obfuscates with r^n."""
+        obfuscates with r^n.  The device work is only enqueued (host
+        arrays go up through pinned memory, nothing is read back), so a
+        caller that chunks a batch overlaps the next chunk's host stage
+        with this chunk's device stage."""
         m = self.encodings_to_device(encodings, pad_to)
         if apply_obfuscator and self.enable_DJN:
             digits = self.sample_obfuscator_digits(m.shape[1])
@@ -531,6 +560,27 @@ class PublicContext:
         if apply_obfuscator:
             ct = self.obfuscate(ct)
         return ct
+
+    def host_encrypt(self, encodings: list,
+                     apply_obfuscator: bool = True) -> list:
+        """Encrypt on the host with Python bigints: canonical ciphertext
+        ints, the same scheme as the device path with fresh obfuscators
+        from OS entropy.  The host leg of the hybrid split
+        (``api._hybrid_split_encrypt``), run in a worker thread while the
+        device encrypts the rest of the batch."""
+        nsq = self.nsquare
+        out = []
+        for m in encodings:
+            c = (1 + int(m) * self.n) % nsq
+            if apply_obfuscator:
+                if self.enable_DJN:
+                    r = secrets.randbits(self.randbits)
+                    c = c * pow(self.hs, r, nsq) % nsq
+                else:
+                    r = secrets.randbelow(self.n - 1) + 1
+                    c = c * pow(r, self.n, nsq) % nsq
+            out.append(c)
+        return out
 
     def add_ct(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """HE addition: ciphertext product mod n^2 (kernel K3)."""
@@ -675,7 +725,9 @@ class PrivateContext:
     built: "auto"/"rns" the RNS chain (K2), anything else the limb
     engine: the shared-exponent modexp per CRT half (K7) on p^2/q^2
     contexts with mm3 weights, else one fused per-element chain over
-    [p^2]*B ++ [q^2]*B (``_crt_stage_exp``, K10)."""
+    [p^2]*B ++ [q^2]*B (``_crt_stage_exp``, K10).  An RNS context also
+    holds the fixed-window digits of p-1, q-1 at ``rns_exp_window``
+    (``rdig_p``, ``rdig_q``: ``rns.rns_crt_exp_half``, K6)."""
 
     def __init__(self, pub: PublicContext, p: int, q: int):
         if p * q != pub.n:
@@ -729,7 +781,14 @@ class PrivateContext:
             self.rns_base = _rns.RnsBase.for_bits(mbits, dev)
             self.rns_p = _rns.RnsModulus.build(self.rns_base, psq, Lh)
             self.rns_q = _rns.RnsModulus.build(self.rns_base, qsq, Lh)
-            self.rns_sched_window = _rk.plan_sched(self.rns_base.CH)
+            self.rns_window = _config.get_config().rns_exp_window
+            digr = mg.exponent_digits([p - 1, q - 1],
+                                      -(-ebits // self.rns_window),
+                                      self.rns_window)
+            self.rdig_p = np.ascontiguousarray(digr[:, 0].astype(np.int32))
+            self.rdig_q = np.ascontiguousarray(digr[:, 1].astype(np.int32))
+            self.rns_sched_window = (_rk.plan_sched(self.rns_base.CH)
+                                     or self.rns_window)
             self.rsched_p = _rns.sliding_schedule(
                 p - 1, self.rns_sched_window, ebits)
             self.rsched_q = _rns.sliding_schedule(
@@ -771,28 +830,87 @@ class PrivateContext:
     def decrypt_device(self, ct_mont: torch.Tensor) -> torch.Tensor:
         """Montgomery ciphertexts mod n^2 -> canonical plaintext limbs
         (Ln, B) on the device."""
-        B = ct_mont.shape[1]
-        base_m = _crt_stage_reduce(ct_mont, self)
+        return _crt_stage_recombine(
+            self._stage_exp(_crt_stage_reduce(ct_mont, self)), self)
+
+    def _stage_exp(self, base_m: torch.Tensor) -> torch.Tensor:
+        """Stage 2 on this context's engine: (Lh, 2B) -> canonical
+        c^(p-1) mod p^2 | c^(q-1) mod q^2."""
+        B = base_m.shape[1] // 2
         if self.use_rns:
-            u_p = _rns.rns_crt_exp_sched(base_m[:, :B], self.rsched_p,
-                                         self.rns_base, self.rns_p,
-                                         self._sq_p, self.rns_sched_window,
-                                         self.Lh)
-            u_q = _rns.rns_crt_exp_sched(base_m[:, B:], self.rsched_q,
-                                         self.rns_base, self.rns_q,
-                                         self._sq_q, self.rns_sched_window,
-                                         self.Lh)
-            u = torch.cat([u_p, u_q], dim=1)
+            return torch.cat(self._rns_exp_halves(base_m), dim=1)
+        if self._sq_p.wmu is not None:
+            return torch.cat(self._limb_exp_halves(base_m), dim=1)
+        return _crt_stage_exp(base_m, self._sq_ctx(B), self.exp_digits_pq,
+                              self.n_win_dec)
+
+    def _rns_exp_halves(self, base_m: torch.Tensor):
+        """Stage 2 on the RNS engine: per half enter, the sliding-window
+        chain (K2), exit."""
+        B = base_m.shape[1] // 2
+        return (self._rns_exp_half(base_m[:, :B], "p"),
+                self._rns_exp_half(base_m[:, B:], "q"))
+
+    def _rns_exp_half(self, v: torch.Tensor, which: str) -> torch.Tensor:
+        sched, key, sq = ((self.rsched_p, self.rns_p, self._sq_p)
+                          if which == "p" else
+                          (self.rsched_q, self.rns_q, self._sq_q))
+        return _rns.rns_crt_exp_sched(v, sched, self.rns_base, key, sq,
+                                      self.rns_sched_window, self.Lh)
+
+    def _limb_exp_halves(self, base_m: torch.Tensor):
+        """Stage 2 on the limb engine with mm3 weights: K7 per half."""
+        B = base_m.shape[1] // 2
+        return (_crt_stage_exp_half(base_m[:, :B], self._sq_p, self.dig_p,
+                                    self.dec_window),
+                _crt_stage_exp_half(base_m[:, B:], self._sq_q, self.dig_q,
+                                    self.dec_window))
+
+    def profile_stages(self, ct_mont: torch.Tensor, b: int) -> dict:
+        """Per-stage thunks of the decrypt, each on the inputs the decrypt
+        itself would hand it, for callers that time them one by one.  On
+        a CUDA context every thunk ends in ``torch.cuda.synchronize()``,
+        so its wall time is the stage's."""
+        B = ct_mont.shape[1]
+        cuda = ct_mont.is_cuda
+
+        def synced(fn):
+            def run():
+                out = fn()
+                if cuda:
+                    torch.cuda.synchronize()
+                return out
+            return run
+
+        base_m = _crt_stage_reduce(ct_mont, self)
+        u = self._stage_exp(base_m)
+        m = _crt_stage_recombine(u, self)
+        stages = {
+            "stage1_reduce": lambda: _crt_stage_reduce(ct_mont, self),
+            "stage3_recombine": lambda: _crt_stage_recombine(u, self),
+            "stage4_d2h": lambda: m.cpu().numpy(),
+            "stage5_to_ints": lambda: limbs_to_ints(m)[:b],
+        }
+        if self.use_rns:
+            stages["stage2_rns_p_half"] = lambda: self._rns_exp_half(
+                base_m[:, :B], "p")
+            stages["stage2_rns_q_half"] = lambda: self._rns_exp_half(
+                base_m[:, B:], "q")
         elif self._sq_p.wmu is not None:
-            u_p = _crt_stage_exp_half(base_m[:, :B], self._sq_p, self.dig_p,
-                                      self.dec_window)
-            u_q = _crt_stage_exp_half(base_m[:, B:], self._sq_q, self.dig_q,
-                                      self.dec_window)
-            u = torch.cat([u_p, u_q], dim=1)
+            stages["stage2_exp_p_half"] = lambda: _crt_stage_exp_half(
+                base_m[:, :B], self._sq_p, self.dig_p, self.dec_window)
+            stages["stage2_exp_q_half"] = lambda: _crt_stage_exp_half(
+                base_m[:, B:], self._sq_q, self.dig_q, self.dec_window)
         else:
-            u = _crt_stage_exp(base_m, self._sq_ctx(B), self.exp_digits_pq,
-                               self.n_win_dec)
-        return _crt_stage_recombine(u, self)
+            stages["stage2_exp"] = lambda: _crt_stage_exp(
+                base_m, self._sq_ctx(B), self.exp_digits_pq, self.n_win_dec)
+        return {k: synced(f) for k, f in stages.items()}
+
+    def free(self) -> None:
+        """Retire the key: evict the cached kernel operand bundles of
+        p^2 and q^2."""
+        _rk.pack_evict(self.p * self.p)
+        _rk.pack_evict(self.q * self.q)
 
 
 def _crt_stage_reduce(ct_mont, s: PrivateContext):
@@ -877,6 +995,7 @@ def from_jax_state(state: dict, device=None):
                       "rns_p", "rns_q": {RnsModulus vectors},
                       "pack_p", "pack_q": pack() bundles,
                       "rsched_p", "rsched_q", "rns_sched_window",
+                      "rdig_p", "rdig_q", "rns_window" (optional),
                       Cp_lo..Cq_hi, f2_p, ..., q_limbs,
                       "dec_window", "dig_p", "dig_q",
                       "exp_digits_pq" (optional)}}
@@ -910,6 +1029,12 @@ def from_jax_state(state: dict, device=None):
         priv.rns_sched_window = int(vd["rns_sched_window"])
         priv.rsched_p = np.asarray(vd["rsched_p"], dtype=np.int32)
         priv.rsched_q = np.asarray(vd["rsched_q"], dtype=np.int32)
+        if vd.get("rns_window") is not None:
+            priv.rns_window = int(vd["rns_window"])
+        for f in ("rdig_p", "rdig_q"):
+            if vd.get(f) is not None:
+                setattr(priv, f, np.ascontiguousarray(
+                    np.asarray(vd[f], dtype=np.int32).reshape(-1)))
     if vd.get("dec_window") is not None:
         priv.dec_window = int(vd["dec_window"])
     for f in ("dig_p", "dig_q"):

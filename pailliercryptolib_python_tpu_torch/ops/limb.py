@@ -78,10 +78,21 @@ def idot(W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                         x.to(torch.float64)).to(torch.int64)
 
 
+def h2d(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`.  To a CUDA device it goes through pinned
+    memory as an asynchronous copy on the current stream: a copy from
+    pageable memory would wait for all device work enqueued before it,
+    and so serialize a caller that pipelines host and device stages."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
     """Host uint32/int numpy limbs (< 2^31) -> int32 tensor on `device`."""
-    return torch.from_numpy(np.ascontiguousarray(
-        np.asarray(arr).astype(np.int32))).to(device)
+    return h2d(torch.from_numpy(np.ascontiguousarray(
+        np.asarray(arr).astype(np.int32))), device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Montgomery product (K9) and per-element modexp (K10) with a modulus per
-column or one shared modulus, for contexts without mm3 weights.
+"""Montgomery product (K9), per-element modexp (K10) and product chain
+(K11) with a modulus per column or one shared modulus, for contexts
+without mm3 weights.
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont.py``
-(``mont_mul_p``, ``mont_exp_p``), with the same broadcasting: operands
+(``mont_mul_p``, ``mont_exp_p``, ``mont_chain_p``), with the same broadcasting: operands
 (L, B) or (L, 1); n (L, 1) or (L, B); n0 an int or a (1,) / (B,) tensor
 of -n^-1 mod 2^16; ``one`` (the Montgomery one) shaped like n.
 
@@ -13,6 +14,10 @@ of -n^-1 mod 2^16; ``one`` (the Montgomery one) shaped like n.
   CUDA tensor, ``mont_exp_plain`` on a CPU tensor: the table
   ``[one, base, base^2, ...]`` by successive products, then per 4-bit
   window four squarings and one product by the selected entry.
+* ``mont_chain_p(factors, acc0, n, n0)`` -- kernel K11 on a CUDA tensor,
+  ``mont_chain_plain`` on a CPU tensor: ``acc0 * prod_j factors[j]``, one
+  product per pre-gathered factor (the fused form of the limb comb
+  encrypt chain, ``montgomery.mont_exp_fixed_base``).
 
 Digits are MSB-first 4-bit windows (n_win, B) or (n_win, 1), given on
 the host (numpy or a CPU tensor) and range-checked there
@@ -36,6 +41,23 @@ def mont_exp_plain(base, digits, n, n0, one,
     return fixed_window_exp(base, digits, one,
                             lambda x, y: cios_mul(x, y, n, n0), 4,
                             win_start)
+
+
+def mont_chain_plain(factors, acc0, n, n0) -> torch.Tensor:
+    """Plain twin of K11: factors (n_win, L, B), acc0 (L, B|1)."""
+    acc = acc0
+    for j in range(factors.shape[0]):
+        acc = cios_mul(acc, factors[j], n, n0)
+    return acc.to(LIMB_DTYPE)
+
+
+def mont_chain_p(factors: torch.Tensor, acc0: torch.Tensor,
+                 n: torch.Tensor, n0) -> torch.Tensor:
+    """acc0 * prod_j factors[j] * R^-n_win mod n per column: factors
+    (n_win, L, B) and acc0 (L, B|1) canonical limbs < 2n."""
+    if factors.device.type == "cpu":
+        return mont_chain_plain(factors, acc0, n, n0)
+    return _mont_chain_cuda(factors, acc0, n, n0)
 
 
 def mont_mul_p(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor,
@@ -74,7 +96,8 @@ def _operands(n, n0, B: int, dev, *others):
 
 def _check_limbs(L: int) -> None:
     if not 2 <= L <= MAX_LIMBS:
-        raise ValueError(f"K9/K10 take 2 <= L <= {MAX_LIMBS} limbs; got {L}")
+        raise ValueError(f"K9/K10/K11 take 2 <= L <= {MAX_LIMBS} limbs; "
+                         f"got {L}")
 
 
 def _mont_mul_cuda(a, b, n, n0) -> torch.Tensor:
@@ -103,4 +126,17 @@ def _mont_exp_cuda(base, digits, n, n0, one, win_start) -> torch.Tensor:
     table = torch.empty((16, L, B), dtype=LIMB_DTYPE, device=base.device)
     kernels.launch("mont_exp", base, digits, one, out, table, n, n0,
                    per_elem, L, B, n_win, int(win_start))
+    return out
+
+
+def _mont_chain_cuda(factors, acc0, n, n0) -> torch.Tensor:
+    n_win, L, B = factors.shape
+    _check_limbs(L)
+    kernels.require_cuda(factors, acc0)
+    per_elem, n, n0 = _operands(n, n0, B, factors.device)
+    factors = factors.to(LIMB_DTYPE).contiguous()
+    acc0 = acc0.to(LIMB_DTYPE).expand(L, B).contiguous()
+    out = torch.empty((L, B), dtype=LIMB_DTYPE, device=factors.device)
+    kernels.launch("mont_chain", factors, acc0, out, n, n0, per_elem, n_win,
+                   L, B)
     return out

@@ -1,5 +1,5 @@
-"""Shared-modulus Montgomery product (K3), per-element modexp (K4) and
-shared-exponent modexp (K7).
+"""Shared-modulus Montgomery product (K3), per-element modexp (K4),
+shared-exponent modexp (K7) and square (K8).
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
 
@@ -9,6 +9,8 @@ Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
   tensor, ``mm3_exp_plain`` on a CPU tensor.
 * ``mm3_exp_shared(base, digits, ctx, window)`` -- kernel K7 on a CUDA
   tensor, ``mm3_exp_shared_plain`` on a CPU tensor.
+* ``mm3_sqr(a, ctx)`` -- kernel K8 on a CUDA tensor, ``mm3_sqr_plain``
+  on a CPU tensor.
 
 The plain twins keep the TPU kernel's algorithm: the schoolbook product,
 then the Montgomery reduction as two signed-byte Toeplitz matrix products
@@ -147,6 +149,29 @@ def mm3_mul_plain(a, b, wmu, wm, off1, off2) -> torch.Tensor:
     return _mm3_reduce(T, wmu, wm, off1, off2, L)
 
 
+def big_sqr(a: torch.Tensor) -> torch.Tensor:
+    """Canonical 2L-limb a*a by the symmetric schoolbook product: the
+    cross products a_i*a_j (i < j) once, doubled, plus the diagonal (the
+    order of the TPU's ``_mm2_square``)."""
+    L, B = a.shape
+    a = a.to(torch.int64)
+    acc = torch.zeros((2 * L, B), dtype=torch.int64, device=a.device)
+    for i in range(L - 1):
+        p = a[i:i + 1] * a[i + 1:]
+        acc[2 * i + 1:i + L] += p & 0xFFFF
+        acc[2 * i + 2:i + L + 1] += p >> LIMB_BITS
+    acc = acc * 2
+    d = a * a
+    acc[0::2] += d & 0xFFFF
+    acc[1::2] += d >> LIMB_BITS
+    return normalize(acc)
+
+
+def mm3_sqr_plain(a, wmu, wm, off1, off2) -> torch.Tensor:
+    """Plain twin of K8: a*a*R^-1 mod m, canonical < 2m in and out."""
+    return _mm3_reduce(big_sqr(a), wmu, wm, off1, off2, a.shape[0])
+
+
 def mm3_exp_plain(base, digits, wmu, wm, off1, off2, one,
                   win_start: int = 0) -> torch.Tensor:
     """Plain twin of K4: 4-bit fixed window, 16-entry table, per-element
@@ -241,4 +266,22 @@ def _mm3_exp_shared_cuda(base, digits, ctx, window) -> torch.Tensor:
                         device=base.device)
     kernels.launch("mm3_exp_shared", base, digits, digits.shape[0], one,
                    out, table, ctx.n_limbs, ctx.n0inv, L, B, window)
+    return out
+
+
+def mm3_sqr(a: torch.Tensor, ctx) -> torch.Tensor:
+    """a*a*R^-1 mod m (shared m); (L, B) canonical limbs < 2m.  Equals
+    ``mm3_mul(a, a, ctx)`` limb for limb."""
+    if a.device.type == "cpu":
+        return mm3_sqr_plain(a, ctx.wmu, ctx.wm, ctx.off1, ctx.off2)
+    return _mm3_sqr_cuda(a, ctx)
+
+
+def _mm3_sqr_cuda(a, ctx) -> torch.Tensor:
+    kernels.require_cuda(a, ctx.n_limbs)
+    L, B = a.shape
+    a = _cols(a, L, B)
+    out = torch.empty((L, B), dtype=LIMB_DTYPE, device=a.device)
+    kernels.launch("mm3_sqr", a, out, ctx.n_limbs.contiguous(), ctx.n0inv,
+                   L, B)
     return out

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, compare_ge, cond_sub,
-                   int_to_limbs, ints_to_limbs, limbs_for_bits,
+                   h2d, int_to_limbs, ints_to_limbs, limbs_for_bits,
                    limbs_to_ints, normalize, sub_mod_base, to_device)
 from ..device import resolve
 
@@ -117,6 +117,12 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
         return mont3.mm3_mul(a, b, ctx)
     from . import mont
     return mont.mont_mul_p(a, b, ctx.n_limbs, ctx.n0inv)
+
+
+def mont_sqr(a: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
+    """Montgomery square, as the product of a with itself (the dedicated
+    square kernel K8 is ``mont3.mm3_sqr``)."""
+    return mont_mul(a, a, ctx)
 
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -437,12 +443,11 @@ def build_comb_table(ladder: torch.Tensor, ctx: MontCtx,
 def mont_exp_fixed_base(comb: torch.Tensor, digits, ctx: MontCtx,
                         acc0: torch.Tensor | None = None) -> torch.Tensor:
     """prod_j T[j][digits[j]] (times acc0 when given): fixed-base
-    exponentiation with no squarings.  comb (n_win, L, 2^w); digits
-    (n_win, B) LSB-window-first, on the host or the device."""
+    exponentiation with no squarings, one gather and one product (K3 or
+    K9) per window.  comb (n_win, L, 2^w); digits (n_win, B)
+    LSB-window-first, on the host or the device."""
     n_win = comb.shape[0]
-    dig = torch.as_tensor(np.asarray(digits, dtype=np.int64)) \
-        if not isinstance(digits, torch.Tensor) else digits.to(torch.int64)
-    dig = dig.to(comb.device)
+    dig = _comb_digits(digits, comb.device)
 
     def gather(j):
         return torch.index_select(comb[j], 1, dig[j])     # (L, B)
@@ -454,6 +459,25 @@ def mont_exp_fixed_base(comb: torch.Tensor, digits, ctx: MontCtx,
     for j in range(start, n_win):
         acc = mont_mul(acc, gather(j), ctx)
     return acc
+
+
+def _comb_digits(digits, device) -> torch.Tensor:
+    if isinstance(digits, torch.Tensor):
+        return digits.to(device).to(torch.int64)
+    return h2d(torch.from_numpy(np.asarray(digits, dtype=np.int64)), device)
+
+
+def mont_exp_fixed_base_chain(comb: torch.Tensor, digits, ctx: MontCtx,
+                              acc0: torch.Tensor) -> torch.Tensor:
+    """``mont_exp_fixed_base`` in its fused form: every window's factor
+    gathered first into one (n_win, L, B) array, then the whole product
+    chain in one call (kernel K11, ``mont.mont_chain_p``).  Same limbs as
+    the streamed form; it holds n_win*L*B*4 bytes of factors at once."""
+    from . import mont
+    dig = _comb_digits(digits, comb.device)
+    factors = torch.stack([torch.index_select(comb[j], 1, dig[j])
+                           for j in range(comb.shape[0])], dim=0)
+    return mont.mont_chain_p(factors, acc0, ctx.n_limbs, ctx.n0inv)
 
 
 # ---------------------------------------------------------------------------

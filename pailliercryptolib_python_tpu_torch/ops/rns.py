@@ -21,8 +21,9 @@ code (``_plane_dots`` asserts the bound).  torch refuses integer matmul
 on CUDA.
 
 On a CUDA tensor every RNS product goes through kernel K1, the decrypt
-chain through K2 and the per-element ct*pt chain through K5
-(``ops/rns_kernels.py``); the chain functions below call those wrappers.
+chain through K2 (sliding window) or K6 (fixed window) and the
+per-element ct*pt chain through K5 (``ops/rns_kernels.py``); the chain
+functions below call those wrappers.
 """
 
 from __future__ import annotations
@@ -287,9 +288,10 @@ def modulus_arrays_np(mbits: int, m: int, L: int) -> dict:
                 one_ch=one_ch, k5_limbs=int_to_limbs(k5, L)[:, None])
 
 
-@lru_cache(maxsize=32)
 def modulus_vectors(mbits: int, m: int) -> dict:
-    """Per-(base, m) channel constant vectors (numpy)."""
+    """Per-(base, m) channel constant vectors (numpy).  Not memoized: m
+    is key material (p^2, q^2 or n^2); the one bounded cache of per-key
+    constants is ``rns_kernels.pack``'s, emptied by ``pack_evict``."""
     a = base_arrays_np(mbits)
     M, Mp, m_r = a["M"], a["Mp"], a["m_r"]
     mods_B, mods_Bp = a["mods_B_int"], a["mods_Bp_int"]
@@ -511,12 +513,26 @@ def _enter_planes_np(mbits: int, L: int):
     return _byte_planes(P)
 
 
+@lru_cache(maxsize=16)
+def _enter_planes(mbits: int, L: int, device: torch.device):
+    """_enter_planes_np on `device` (key-independent; held there so an
+    enter copies nothing from the host)."""
+    return tuple(_t64(p, device) for p in _enter_planes_np(mbits, L))
+
+
+@lru_cache(maxsize=8)
+def _M_limbs(mbits: int, device: torch.device) -> torch.Tensor:
+    """(L_W, 1) limbs of the base product M on `device`."""
+    a = base_arrays_np(mbits)
+    L_W = limbs_for_bits(a["M"].bit_length()) + 1
+    return _t64(int_to_limbs(a["M"], L_W)[:, None], device)
+
+
 def rns_enter(v_limbs, base: RnsBase, key: RnsModulus):
     """(L, B) positional limbs of v (< 2m) -> RNS state of v*M*R^-1
     (one residue matmul + one RNS product, kernel K1 on CUDA)."""
     from . import rns_kernels
-    P_lo, P_hi = (_t64(p, v_limbs.device)
-                  for p in _enter_planes_np(base.mbits, v_limbs.shape[0]))
+    P_lo, P_hi = _enter_planes(base.mbits, v_limbs.shape[0], v_limbs.device)
     S00, mid, S11 = _plane_dots(v_limbs, P_lo, P_hi)
     V = _combine_planes(S00, mid, S11, base.mods, base.n032)
     V = _cmul(V, key.c_enter, base.mods, base.n0).to(LIMB_DTYPE)
@@ -543,7 +559,6 @@ def _exit_limbs(Z, base: RnsBase):
     mR, n0R = mods[2 * k:], n0[2 * k:]
     Z = Z.to(I64)
     a = base_arrays_np(base.mbits)
-    dev = Z.device
 
     xi = _cmul_shoup(Z[:k], base.K1gs, base.K1gsh, mods[:k])
     S00, mid, S11 = _plane_dots(xi, base.W_lo, base.W_hi)
@@ -560,8 +575,7 @@ def _exit_limbs(Z, base: RnsBase):
     rr = _cmul(rr, c48, mR, n0R)                        # true r_hat mod m_r
     z_r = _cmul(Z[2 * k:], base.exit_c[2:3], mR, n0R)   # true z~ mod m_r
     delta = _cmul(_submod(rr, z_r, mR), cMinv16, mR, n0R)   # < k
-    M_limbs = _t64(int_to_limbs(a["M"], base.L_W)[:, None], dev)
-    dM = normalize(M_limbs * delta)
+    dM = normalize(_M_limbs(base.mbits, Z.device) * delta)
     return sub_mod_base(r_hat, dM)
 
 
@@ -635,6 +649,43 @@ def rns_crt_exp_sched(v_limbs, sched, base: RnsBase, key: RnsModulus,
     from . import rns_kernels
     X = rns_enter(v_limbs, base, key)
     Z = rns_kernels.rns_exp_sched_p(X, sched, base, key, window)
+    return rns_exit(Z, base, key, sq_ctx, L)
+
+
+def rns_exp_shared(X, digits, base: RnsBase, key: RnsModulus, window: int):
+    """Fixed-window shared-exponent chain: X the entered state (value
+    c*M), digits (n_win,) MSB-first base-2^window digits of the one
+    exponent, on the host.  Returns the state of c^e * M: kernel K6 on a
+    CUDA tensor, the plain twin on a CPU tensor
+    (``rns_kernels.rns_exp_shared_p`` decides)."""
+    from . import rns_kernels
+    return rns_kernels.rns_exp_shared_p(X, digits, base, key, window)
+
+
+def rns_exp_shared_plain(X, digits, base: RnsBase, key: RnsModulus,
+                         window: int):
+    """Plain twin of kernel K6: table [one, X, X^2, ...] of 2^window
+    entries by successive products with X, then per window `window`
+    squarings and one product by T[digit] (by `one` on a zero digit)."""
+    B = X.shape[1]
+    mul = lambda a, b: rns_mont_mul(a, b, base, key)
+    table = [rns_one_state(base, key, B), X.to(LIMB_DTYPE)]
+    for _ in range((1 << window) - 2):
+        table.append(mul(table[-1], X))
+    acc = table[0]
+    for d in np.asarray(digits).reshape(-1).tolist():
+        for _ in range(window):
+            acc = mul(acc, acc)
+        acc = mul(acc, table[d])
+    return acc
+
+
+def rns_crt_exp_half(v_limbs, digits, base: RnsBase, key: RnsModulus,
+                     sq_ctx, window: int, L: int):
+    """One CRT half on the fixed-window chain: Montgomery-limb values
+    (L, B) -> canonical c^e mod m: enter, the K6 chain, exit."""
+    X = rns_enter(v_limbs, base, key)
+    Z = rns_exp_shared(X, digits, base, key, window)
     return rns_exit(Z, base, key, sq_ctx, L)
 
 

@@ -1,5 +1,6 @@
-"""Wrappers of the RNS kernels K1 (``rns_mul``), K2 (``rns_exp_sched_p``)
-and K5 (``rns_exp_elem_p``) and the packing of their operands.
+"""Wrappers of the RNS kernels K1 (``rns_mul``), K2 (``rns_exp_sched_p``),
+K5 (``rns_exp_elem_p``) and K6 (``rns_exp_shared_p``) and the packing of
+their operands.
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_rns.py``.  The
 packing is ported from the code, not from its comments (which misstate
@@ -12,6 +13,7 @@ for a CUDA tensor it launches the kernel (``csrc/rns.cu``) or raises.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
@@ -94,8 +96,35 @@ def _pack_static(mbits: int):
     return dict(vec=vec, skc=skc, E1=E1, E2=E2, CHP=CHP)
 
 
+# Operand bundles keyed by (mbits, m).  m is key material (p^2, q^2 or
+# n^2), so the cache is bounded and a retired key's entries can be
+# dropped at once; 16 entries hold five keys (n^2 and both CRT halves).
+_PACK_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
+_PACK_CACHE_MAX = 16
+
+
+def pack_evict(m: int) -> None:
+    """Drop the cached operand bundles of modulus m (key retirement)."""
+    for ck in [ck for ck in _PACK_CACHE if ck[1] == m]:
+        del _PACK_CACHE[ck]
+
+
 def pack(mbits: int, m: int) -> dict:
-    """Kernel operand bundle for modulus m (numpy)."""
+    """Kernel operand bundle for modulus m (numpy; least recently used of
+    more than _PACK_CACHE_MAX bundles is dropped)."""
+    ck = (mbits, m)
+    hit = _PACK_CACHE.get(ck)
+    if hit is not None:
+        _PACK_CACHE.move_to_end(ck)
+        return hit
+    out = _pack(mbits, m)
+    _PACK_CACHE[ck] = out
+    while len(_PACK_CACHE) > _PACK_CACHE_MAX:
+        _PACK_CACHE.popitem(last=False)
+    return out
+
+
+def _pack(mbits: int, m: int) -> dict:
     a = rns.base_arrays_np(mbits)
     kv = rns.modulus_vectors(mbits, m)
     k = a["k"]
@@ -181,11 +210,27 @@ def _rns_mul_cuda(A, Bst, base, key) -> torch.Tensor:
     return out
 
 
+def _host_schedule(sched, window: int) -> np.ndarray:
+    """The schedule as host int32, each entry checked to lie in
+    [0, 2^(window-1)].  A schedule already on a device raises: checking
+    it would cost a copy back and a synchronize."""
+    if isinstance(sched, torch.Tensor):
+        if sched.device.type != "cpu":
+            raise ValueError("the schedule must be given on the host "
+                             f"(got a tensor on {sched.device})")
+        sched = sched.numpy()
+    sched = np.ascontiguousarray(np.asarray(sched).astype(np.int32))
+    if sched.size and (sched.max() > (1 << (window - 1)) or sched.min() < 0):
+        raise ValueError("rns_exp_sched_p: schedule entry out of range")
+    return sched
+
+
 def rns_exp_sched_p(X: torch.Tensor, sched, base: rns.RnsBase,
                     key: rns.RnsModulus, window: int) -> torch.Tensor:
     """The whole sliding-window chain (K2 on CUDA): X (CH, B) entered
-    state, sched (n_ops,) from rns.sliding_schedule.  Returns the state
-    of c^e * M."""
+    state, sched (n_ops,) from rns.sliding_schedule, on the host (numpy
+    or a CPU tensor).  Returns the state of c^e * M."""
+    sched = _host_schedule(sched, window)
     if X.device.type == "cpu":
         return rns.rns_exp_sched(X, sched, base, key, window)
     return _rns_exp_sched_cuda(X, sched, base, key, window)
@@ -195,10 +240,6 @@ def _rns_exp_sched_cuda(X, sched, base, key, window) -> torch.Tensor:
     kernels.require_cuda(X)
     CH, B = base.CH, X.shape[1]
     x = _state(X, CH, B)
-    sched = np.asarray(sched.cpu() if isinstance(sched, torch.Tensor)
-                       else sched, dtype=np.int32)
-    if sched.max() > (1 << (window - 1)) or sched.min() < 0:
-        raise ValueError("rns_exp_sched_p: schedule entry out of range")
     sched = torch.from_numpy(sched).to(x.device)
     p = kernel_operands(base, key, x.device)
     out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
@@ -235,5 +276,34 @@ def _rns_exp_elem_cuda(X, digits, base, key, window) -> torch.Tensor:
                       device=x.device)
     kernels.launch("rns_exp_elem", x, digits, n_win, out, tab, p["vec"],
                    p["skc"], p["E1"], p["E2"], base.k, CH, p["KP"],
+                   rns.combine_levels(base.mbits), window, B)
+    return out
+
+
+def rns_exp_shared_p(X: torch.Tensor, digits, base: rns.RnsBase,
+                     key: rns.RnsModulus, window: int) -> torch.Tensor:
+    """The fixed-window shared-exponent chain (K6 on CUDA): X (CH, B)
+    entered state, digits (n_win,) MSB-first base-2^window digits on the
+    host (numpy or a CPU tensor).  Returns the state of c^e * M.  Raises
+    on a digit outside [0, 2^window).  The 2^window-entry table lies in
+    global memory the wrapper allocates ((2^window, CH, B) int32), so the
+    tile-memory limit that bounds the TPU kernel's window does not apply
+    here."""
+    digits = kernels.digit_tensor(digits, window, X.device).reshape(-1)
+    if X.device.type == "cpu":
+        return rns.rns_exp_shared_plain(X, digits.numpy(), base, key, window)
+    return _rns_exp_shared_cuda(X, digits, base, key, window)
+
+
+def _rns_exp_shared_cuda(X, digits, base, key, window) -> torch.Tensor:
+    kernels.require_cuda(X, digits)
+    CH, B = base.CH, X.shape[1]
+    x = _state(X, CH, B)
+    p = kernel_operands(base, key, x.device)
+    out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
+    tab = torch.empty((1 << window, CH, B), dtype=LIMB_DTYPE,
+                      device=x.device)
+    kernels.launch("rns_exp_shared", x, digits, digits.shape[0], out, tab,
+                   p["vec"], p["skc"], p["E1"], p["E2"], base.k, CH, p["KP"],
                    rns.combine_levels(base.mbits), window, B)
     return out

@@ -3,14 +3,17 @@
 
     python3 tools/torch_profile.py
 
-Runs the API steps of ``chip_smoke.py`` phases 4, 6 and 7 at a 2048-bit
-key (``fixed_key_ints(2048)``) and B=4096: among them the limb-engine
-encrypt, the decrypt with the fused per-element CRT stage (K10) and one
-sieve window of the device-batched Miller-Rabin (1024-bit candidates).  Each step runs once to warm up,
+Runs the API steps of ``chip_smoke.py`` phases 4, 6, 7 and 8 at a
+2048-bit key (``fixed_key_ints(2048)``) and B=4096: among them the
+limb-engine encrypt, the decrypt with the fused per-element CRT stage
+(K10), one sieve window of the device-batched Miller-Rabin (1024-bit
+candidates), the encrypt pipelined in 4 chunks, the decrypt with the
+fixed-window RNS chain (K6) and the limb encrypt with the fused product
+chain (K11).  Each step runs once to warm up,
 once under the host clock (ending in ``torch.cuda.synchronize()``: the
 wall time), and once under ``torch.profiler``.  From the profiled run it
 prints the device kernel time, the share of it in each hand-written
-kernel (K1..K7) and in the eager aten/cuBLAS kernels, with launch
+kernel (K1..K11) and in the eager aten/cuBLAS kernels, with launch
 counts, and the busy share: device kernel time over the unprofiled wall
 time.  Needs one CUDA card; imports nothing of JAX.  The last line is a
 JSON object of the same numbers.
@@ -30,9 +33,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 4096
 SEED = 20261016
 KERNEL_NAMES = (("rns_exp_elem_kernel", "K5"), ("rns_exp_sched_kernel", "K2"),
-                ("rns_mul_kernel", "K1"), ("mm3_exp_shared_kernel", "K7"),
-                ("mm3_exp_kernel", "K4"), ("mm3_mul_kernel", "K3"),
-                ("mont_exp_kernel", "K10"), ("mont_mul_kernel", "K9"))
+                ("rns_exp_shared_kernel", "K6"), ("rns_mul_kernel", "K1"),
+                ("mm3_exp_shared_kernel", "K7"), ("mm3_exp_kernel", "K4"),
+                ("mm3_sqr_kernel", "K8"), ("mm3_mul_kernel", "K3"),
+                ("mont_exp_kernel", "K10"), ("mont_chain_kernel", "K11"),
+                ("mont_mul_kernel", "K9"))
 
 
 def label(kernel_name: str) -> str:
@@ -80,7 +85,10 @@ def main() -> int:
     import random
     import pailliercryptolib_python_tpu_torch as pt
     from pailliercryptolib_python_tpu_torch import native
+    from pailliercryptolib_python_tpu_torch.fixedpoint import encode_vector
     from pailliercryptolib_python_tpu_torch.models import paillier as sch
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    from pailliercryptolib_python_tpu_torch.ops import rns
     from pailliercryptolib_python_tpu_torch.utils.fixtures import \
         fixed_key_ints
 
@@ -127,6 +135,37 @@ def main() -> int:
                                priv.exp_digits_pq, priv.n_win_dec)
         return sch._crt_stage_recombine(u, priv)
 
+    def chunked_encrypt():
+        pt.set_config(encrypt_pipeline_chunks=4)
+        try:
+            return pk.encrypt(x)
+        finally:
+            pt.set_config(encrypt_pipeline_chunks=1)
+
+    def k6_decrypt():
+        """decrypt_device with stage 2 the fixed-window RNS chain."""
+        ct = ct_x.ciphertext().device_array()
+        B = ct.shape[1]
+        base_m = sch._crt_stage_reduce(ct, priv)
+        u = torch.cat([
+            rns.rns_crt_exp_half(base_m[:, :B], priv.rdig_p, priv.rns_base,
+                                 priv.rns_p, priv._sq_p, priv.rns_window,
+                                 priv.Lh),
+            rns.rns_crt_exp_half(base_m[:, B:], priv.rdig_q, priv.rns_base,
+                                 priv.rns_q, priv._sq_q, priv.rns_window,
+                                 priv.Lh)], dim=1)
+        return sch._crt_stage_recombine(u, priv)
+
+    lctx = limb_pk.pubkey.context
+    encs, _ = encode_vector(x, lctx.n, limb_pk.max_int)
+
+    def chain_encrypt():
+        """The limb encrypt with the comb chain fused (gather, then K11)."""
+        digs = lctx.sample_obfuscator_digits(BATCH)
+        ct0 = lctx.encrypt_raw(lctx.encodings_to_device(encs))
+        return mg.mont_exp_fixed_base_chain(lctx.comb_table, digs, lctx.ctx,
+                                            ct0)
+
     r = random.Random(SEED)
     base = r.getrandbits(1024) | (1 << 1023) | 1
     mask = native.sieve_window(base, 2048, sch._SMALL_PRIMES)
@@ -148,6 +187,9 @@ def main() -> int:
         "encrypt 4096 (limb)": limb_encrypt,
         "decrypt 4096 (K10)": fused_decrypt,
         "device MR window": lambda: sch.device_mr_base2(cands, dev),
+        "encrypt 4096, 4 chunks": chunked_encrypt,
+        "decrypt 4096, K6": k6_decrypt,
+        "encrypt 4096, K11 chain": chain_encrypt,
     }
     print(f"card: {card} | torch {torch.__version__}", flush=True)
     rows = {}
