@@ -8,7 +8,7 @@ the repository root).  Imports nothing of JAX.  Phases, each raising on
 failure (so any failure exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build the eleven CUDA kernels from ``pailliercryptolib_python_tpu_torch/
+2. build the fifteen CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
    git-ignored ``build/``);
 3. each kernel against its plain PyTorch twin on the card, at the main
@@ -18,7 +18,11 @@ failure (so any failure exits non-zero):
    at n^2 and, where it squares through K8's routine, at p^2, there also
    against K10; K6 at the decrypt chain's shape, K8 at L=257/129/65 also
    against K3(a, a), K11 at the limb encrypt chain's shape and
-   per-element against a K9 loop);
+   per-element against a K9 loop; the nibble kernels K12 at L=257/129
+   also against K3, K13 at L=257/129/65 also against K8 and K12(a, a),
+   K14 at L=257 and 129 (windows 3..8) also against K4, K15 at K7's
+   decrypt shape also against K7, each with the bound of K3's work model
+   beside its own);
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
@@ -50,11 +54,17 @@ failure (so any failure exits non-zero):
    encrypt chain (K11)
    against the streamed one, ``profile_stages`` under
    ``profiling.timed`` and one ``profiling.trace``, and the comb LRU
-   registry under a budget for two of three keys.
+   registry under a budget for two of three keys;
+9. the fifth slice: ``tools/torch_kbench.py``'s subcommands in-process
+   at full width (``mul`` L=257, ``sqr`` L=129, ``exp`` L=257 with 256
+   windows, ``expshared`` L=129 with a 1024-bit exponent, all B=4096;
+   ``crt`` at the 2048-bit key), every variant ok against Python's
+   ``pow`` and the variants of one function equal limb for limb.
 
-Phases 4, 6, 7 and 8 each set the launch counters to 0 just before and
-read them just after.  The second-to-last lines are the kernels' JSON record and the card line; the
-last line is ``{"ok": true, "device": {...}}``.
+Phases 4, 6, 7, 8 and 9 each set the launch counters to 0 just before
+and read them just after.  The second-to-last lines are the kernels'
+JSON record and the card line; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -98,6 +108,15 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                  "pailliercryptolib_python_tpu/ops/pallas_mont.py:155"),
     "mont_chain": ("pailliercryptolib_python_tpu_torch/csrc/mont.cu",
                    "pailliercryptolib_python_tpu/ops/pallas_mont.py:233"),
+    "mm2_mul": ("pailliercryptolib_python_tpu_torch/csrc/mont2.cu",
+                "pailliercryptolib_python_tpu/ops/pallas_mont2.py:364"),
+    "mm2_sqr": ("pailliercryptolib_python_tpu_torch/csrc/mont2.cu",
+                "pailliercryptolib_python_tpu/ops/pallas_mont2.py:403"),
+    "mm2_exp": ("pailliercryptolib_python_tpu_torch/csrc/mont2.cu",
+                "pailliercryptolib_python_tpu/ops/pallas_mont2.py:435"),
+    "mm2_exp_shared": ("pailliercryptolib_python_tpu_torch/csrc/mont2.cu",
+                       "pailliercryptolib_python_tpu/ops/pallas_mont2.py"
+                       ":521"),
 }
 FIRST_SLICE = ("rns_mul", "rns_exp_sched", "mm3_mul", "mm3_exp")
 SECOND_SLICE = FIRST_SLICE + ("rns_exp_elem", "mm3_exp_shared")
@@ -105,6 +124,10 @@ THIRD_SLICE = ("mont_mul", "mont_exp")
 FOURTH_SLICE = ("rns_exp_shared", "mm3_sqr", "mont_chain", "rns_mul",
                 "rns_exp_sched", "mm3_mul", "mm3_exp_shared", "mont_mul",
                 "mont_exp")
+# Phase 9 (the microbench): the nibble kernels and every variant beside
+FIFTH_SLICE = ("mm2_mul", "mm2_sqr", "mm2_exp", "mm2_exp_shared", "mont_mul",
+               "mont_exp", "mm3_mul", "mm3_sqr", "mm3_exp", "mm3_exp_shared",
+               "rns_exp_shared", "rns_exp_sched", "rns_mul")
 
 # Bounds (published NVIDIA H100 SXM peaks): bytes over the memory rate,
 # int8 operations over the int8 tensor-core rate, the larger of the two.
@@ -122,6 +145,16 @@ def rns_ops(k: int, products: int, B: int) -> int:
 
 def limb_ops(L: int, products: int, B: int) -> int:
     return products * B * 2 * (4 * 2 * L * L)
+
+
+def mm2_ops(L: int, products: int, B: int, square: bool = False) -> int:
+    """The nibble algorithm's own int8 work, printed beside the bound (the
+    bound itself counts the function's work, ``limb_ops``, as K3's row
+    does): per product L^2 limb products (a square L(L+1)/2) of 4 int8
+    MACs each, plus (4L)(4L) + (8L)(4L) nibble MACs for the two weight
+    products; 2 operations a MAC."""
+    limb = L * (L + 1) // 2 if square else L * L
+    return products * B * 2 * (4 * limb + 48 * L * L)
 
 
 def nbytes(*tensors) -> int:
@@ -394,6 +427,7 @@ def check_kernels(dev, kd) -> dict:
            rns_ops(base.k, tbl + len(sched), BATCH), headline=True)
     check_per_element(dev, kd, rng, record)
     check_fourth_slice(dev, kd, rng, record)
+    check_fifth_slice(dev, kd, rng, record)
     return res
 
 
@@ -491,6 +525,124 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
         raise AssertionError("K11 differs from a K9 loop, per-element")
     print("  mont_chain     equals the streamed K3 chain (shared) and a K9 "
           "loop (per-element)", flush=True)
+
+
+def check_fifth_slice(dev, kd, rng, record) -> None:
+    """Phase 3, the nibble kernels, exact against their twins and against
+    the CIOS kernel of the same function on the same inputs: K12 at
+    L=257 (n^2) and 129 (p^2) against K3; K13 at L=257, 129, 65 against
+    K8 and K12(a, a); K14 at L=257 and 129, windows 3..8, against K4; K15
+    at the limb decrypt's shape (p^2, L=129, window 5, the 205 windows of
+    p-1) against K7.  The bound is the function's (K3's work model over
+    the inputs, the modulus and the output), as the CIOS kernels' rows
+    count it; beside each row: the CIOS kernel's time and the bound of the
+    nibble algorithm's own int8 work (``mm2_ops``, weights read once)."""
+    import torch
+    from pailliercryptolib_python_tpu_torch import kernels
+    from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
+    from pailliercryptolib_python_tpu_torch.ops import mont2, mont3
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    n, p = kd["n"], kd["p"]
+    sqr_max = kernels.sqr_max_limbs()
+    if sqr_max != mont2.PRESHIFT_MAX_L:
+        raise AssertionError(f"the kernels square up to L={sqr_max}, "
+                             f"mont2.PRESHIFT_MAX_L is "
+                             f"{mont2.PRESHIFT_MAX_L}")
+
+    def beside(name, other, L, n_bytes, ops, ms):
+        b_ms, b_by = bound(n_bytes, ops)
+        print(f"  {name:14s} equals {other} at L={L} ({other} on the same "
+              f"input {ms:.3f} ms; bound of the nibble algorithm's own "
+              f"int8 work {b_ms:.6f} ms ({b_by}))", flush=True)
+
+    def same(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(what)
+
+    for m in (n * n, p * p, p):
+        ctx = mg.MontCtx.for_modulus(m, device=dev)
+        L = ctx.num_limbs
+        mc = mm.MatmulMontCtx(m, L, device=dev)
+        w = (mc.W_mu, mc.W_m)
+        a = random_cols(rng, [m] * BATCH, L, dev)
+        b = random_cols(rng, [m] * BATCH, L, dev)
+        head = m == n * n
+        if m != p:
+            # K12
+            got = mont2.mm2_mul(a, b, *w)
+            want = mont2.mm2_mul_plain(a, b, *w)
+            record("mm2_mul", got, want, f"L={L} B={BATCH}",
+                   ms_of(lambda: mont2.mm2_mul(a, b, *w), 3),
+                   ms_of(lambda: mont2.mm2_mul_plain(a, b, *w), 1),
+                   nbytes(a, b, got, mc.m_limbs), limb_ops(L, 1, BATCH),
+                   headline=head)
+            same(got, mont3.mm3_mul(a, b, ctx),
+                 f"K12 differs from K3 at L={L}")
+            beside("mm2_mul", "mm3_mul", L, nbytes(a, b, got, *w),
+                   mm2_ops(L, 1, BATCH),
+                   ms_of(lambda: mont3.mm3_mul(a, b, ctx), 5))
+        # K13
+        got = mont2.mm2_sqr(a, *w)
+        want = mont2.mm2_sqr_plain(a, *w)
+        record("mm2_sqr", got, want, f"L={L} B={BATCH}",
+               ms_of(lambda: mont2.mm2_sqr(a, *w), 3),
+               ms_of(lambda: mont2.mm2_sqr_plain(a, *w), 1),
+               nbytes(a, got, mc.m_limbs), limb_ops(L, 1, BATCH),
+               headline=head)
+        same(got, mont3.mm3_sqr(a, ctx), f"K13 differs from K8 at L={L}")
+        same(got, mont2.mm2_mul(a, a, *w), f"K13 differs from K12(a, a) at "
+             f"L={L}")
+        beside("mm2_sqr", "mm3_sqr", L, nbytes(a, got, *w),
+               mm2_ops(L, 1, BATCH, square=True),
+               ms_of(lambda: mont3.mm3_sqr(a, ctx), 5))
+        if m == p:
+            continue
+        # K14: K4's headline shape, 20-bit exponents, windows 3..8; at
+        # L=129 it squares through K13's routine
+        exps = [int(e) for e in rng.integers(1, 1 << 20, size=BATCH)]
+        digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
+        dig_dev = torch.from_numpy(digits).to(dev)
+        ws = 3
+        got = mont2.mm2_exp(a, digits, *w, ctx.one, ws)
+        want = mont2.mm2_exp_plain(a, dig_dev, *w, ctx.one, ws)
+        nsq, nmul = (8 - ws) * 4, 14 + (8 - ws)
+        record("mm2_exp", got, want, f"L={L} B={BATCH} win 3..8",
+               ms_of(lambda: mont2.mm2_exp(a, digits, *w, ctx.one, ws), 1),
+               ms_of(lambda: mont2.mm2_exp_plain(a, dig_dev, *w, ctx.one,
+                                                 ws), 1),
+               nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
+               limb_ops(L, nsq + nmul, BATCH), headline=head)
+        same(got, mont3.mm3_exp(a, digits, ctx, ws),
+             f"K14 differs from K4 at L={L}")
+        beside("mm2_exp", "mm3_exp", L,
+               nbytes(a, dig_dev, got, ctx.one, *w),
+               mm2_ops(L, nmul, BATCH)
+               + mm2_ops(L, nsq, BATCH, square=L <= sqr_max),
+               ms_of(lambda: mont3.mm3_exp(a, digits, ctx, ws), 2))
+        if m != p * p:
+            continue
+        # K15: the limb decrypt's chain of p-1 at window 5 (one timed call
+        # each: the kernel takes seconds, the twin tens of seconds)
+        window = mont3.shared_exp_window(L)
+        e = p - 1
+        nwd = -(-e.bit_length() // window)
+        dig = mg.exponent_digits([e], nwd, window)[:, 0].astype(np.int32)
+        dig_dev = torch.from_numpy(dig).to(dev)
+        got, k_ms = timed(lambda: mont2.mm2_exp_shared(a, dig, *w, ctx.one,
+                                                       window))
+        want, plain_ms = timed(lambda: mont2.mm2_exp_shared_plain(
+            a, dig_dev, *w, ctx.one, window))
+        nmul, nsq = (1 << window) - 2 + nwd, nwd * window
+        record("mm2_exp_shared", got, want,
+               f"L={L} B={BATCH} w={window} {nwd} windows", k_ms, plain_ms,
+               nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
+               limb_ops(L, nmul + nsq, BATCH), headline=True)
+        k7, k7_ms = timed(lambda: mont3.mm3_exp_shared(a, dig, ctx, window))
+        same(got, k7, f"K15 differs from K7 at L={L}")
+        beside("mm2_exp_shared", "mm3_exp_shared", L,
+               nbytes(a, dig_dev, got, ctx.one, *w),
+               mm2_ops(L, nmul, BATCH)
+               + mm2_ops(L, nsq, BATCH, square=L <= sqr_max), k7_ms)
 
 
 def check_per_element(dev, kd, rng, record) -> None:
@@ -1162,6 +1314,42 @@ def fourth_slice(dev, kd, tag: str, mp: dict, limb) -> dict:
     return dict(times=times, counts=counts)
 
 
+def fifth_slice(dev, tag: str) -> dict:
+    """Phase 9: ``tools/torch_kbench.py``'s subcommands in-process on the
+    card at full width.  Every variant must be ok against Python's
+    ``pow`` and the variants of one function equal limb for limb.  The
+    chains (exp, expshared) are timed on their checked call alone
+    (``--iters 0``): K14's 256 windows are 1,294 products."""
+    import importlib.util
+    from pailliercryptolib_python_tpu_torch import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_kbench", os.path.join(HERE, "tools", "torch_kbench.py"))
+    kb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kb)
+    runs = (["mul", "--L", "257", "--B", str(BATCH), "--chain", "16"],
+            ["sqr", "--L", "129", "--B", str(BATCH)],
+            ["exp", "--L", "257", "--B", str(BATCH), "--nwin", "256",
+             "--iters", "0"],
+            ["expshared", "--L", "129", "--B", str(BATCH), "--ebits", "1024",
+             "--window", "5", "--variants", "v2,v3,rns,rnssched",
+             "--iters", "0"],
+            ["crt", "--bits", "2048", "--B", str(BATCH)])
+    times = {}
+    kernels.reset_counts()
+    for argv in runs:
+        res, times[argv[0] + "_s"] = wall(lambda: kb.run(argv))
+        bad = [n for n, v in res["variants"].items() if not v["ok"]]
+        if bad or not res["agree"]:
+            raise AssertionError(f"torch_kbench {' '.join(argv)}: not ok "
+                                 f"{bad}, variants agree {res['agree']}")
+    counts = dict(kernels.COUNTS)
+    for k, t in times.items():
+        print(f"  {k:26s} {t:10.4f} s   ({tag})", flush=True)
+    print(f"  kernel launches over phase 9: {counts}", flush=True)
+    return dict(times=times, counts=counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1214,18 +1402,25 @@ def main() -> int:
     s4 = fourth_slice(dev, kd, card, mp, s3["limb"])
     print(f"    phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"[9] fifth slice: tools/torch_kbench.py, B={BATCH} ({card})",
+          flush=True)
+    t0 = time.perf_counter()
+    s5 = fifth_slice(dev, card)
+    print(f"    phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
     missing = ([k for k in FIRST_SLICE if mp["counts"][k] <= 0]
                + [k for k in SECOND_SLICE if s2["counts"][k] <= 0]
                + [k for k in THIRD_SLICE if s3["counts"][k] <= 0]
-               + [k for k in FOURTH_SLICE if s4["counts"][k] <= 0])
+               + [k for k in FOURTH_SLICE if s4["counts"][k] <= 0]
+               + [k for k in FIFTH_SLICE if s5["counts"][k] <= 0])
     if missing:
         raise AssertionError(f"a phase never launched {missing}")
-    launches = {k: sum(s["counts"][k] for s in (mp, s2, s3, s4))
+    launches = {k: sum(s["counts"][k] for s in (mp, s2, s3, s4, s5))
                 for k in KERNELS}
     print(f"[5] every kernel launched: phase 4 {mp['counts']}, phase 6 "
-          f"{s2['counts']}, phase 7 {s3['counts']}, phase 8 {s4['counts']}",
-          flush=True)
-    print(f"    phases 3-8: {time.perf_counter() - t_all:.1f} s; library "
+          f"{s2['counts']}, phase 7 {s3['counts']}, phase 8 {s4['counts']}, "
+          f"phase 9 {s5['counts']}", flush=True)
+    print(f"    phases 3-9: {time.perf_counter() - t_all:.1f} s; library "
           f"call: none (no single PyTorch call computes an RNS product or "
           f"a modular exponentiation)", flush=True)
 

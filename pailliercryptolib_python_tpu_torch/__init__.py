@@ -10,7 +10,7 @@ ciphertext ``+`` / ``sum`` -> CRT decrypt, on the default device
 a mode sets how ``encrypt`` pipelines a batch in chunks and what share of
 it a host thread encrypts.
 
-On a CUDA tensor each of the eleven kernels (``kernels.COUNTS``)
+On a CUDA tensor each of the fifteen kernels (``kernels.COUNTS``)
 launches or raises; on a CPU tensor its plain PyTorch twin runs.
 """
 

@@ -41,7 +41,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 COUNTS = {"rns_mul": 0, "rns_exp_sched": 0, "rns_exp_elem": 0,
           "rns_exp_shared": 0, "mm3_mul": 0, "mm3_exp": 0,
           "mm3_exp_shared": 0, "mm3_sqr": 0, "mont_mul": 0, "mont_exp": 0,
-          "mont_chain": 0}
+          "mont_chain": 0, "mm2_mul": 0, "mm2_sqr": 0, "mm2_exp": 0,
+          "mm2_exp_shared": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,6 +64,10 @@ _SIGS = {
     "mont_mul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mont_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mm2_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "mm2_sqr": [_P, _P, _P, _P, _I, _I, _P],
+    "mm2_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mm2_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -133,6 +138,13 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def sqr_max_limbs() -> int:
+    """The largest L at which the exponentiation kernels square through
+    their squaring routine (``cios::kSqrMaxLimbs``), read from the built
+    library."""
+    return int(lib().pct_sqr_max_limbs())
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -1,0 +1,180 @@
+"""Matmul-Montgomery (nibble, "v2") product (K12), square (K13),
+per-element modexp (K14) and shared-exponent modexp (K15).
+
+Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont2.py``, with
+its signatures: the modulus enters only through the nibble weights of
+``ops/matmul_mont.MatmulMontCtx`` (wmu int8 (4L, 4L), wm int8 (8L, 4L)),
+and the chains take the Montgomery one as an (L, 1) column.
+
+* ``mm2_mul(a, b, wmu, wm)`` -- kernel K12 (``csrc/mont2.cu``) on a CUDA
+  tensor, ``mm2_mul_plain`` (``matmul_mont.mm_mul``: the schoolbook
+  ``limb.big_mul``, then ``matmul_mont.mm_reduce``) on a CPU tensor.
+* ``mm2_sqr(a, wmu, wm)`` -- K13, or ``mm2_sqr_plain`` (the symmetric
+  ``mont3.big_sqr``, in ``_mm2_square``'s order, then the reduction).
+* ``mm2_exp(base, digits, wmu, wm, one, win_start)`` -- K14, or
+  ``mm2_exp_plain``: 4-bit windows, a 16-entry table, per-element digits
+  (n_win, B|1) MSB-first.
+* ``mm2_exp_shared(base, digits, wmu, wm, one, window)`` -- K15, or
+  ``mm2_exp_shared_plain``: one exponent for the batch, digits (n_win,)
+  MSB-first base-2^window.
+
+Digits are given on the host (numpy or a CPU tensor) and range-checked
+there (``kernels.digit_tensor``).  Every result is the unique
+(T + q*m)/R < 2m of each product, so the kernels, the twins, the TPU
+kernels and the mm3 / CIOS kernels agree limb for limb.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .limb import LIMB_DTYPE
+from .matmul_mont import mm_mul, mm_reduce
+from .mont3 import big_sqr
+from .montgomery import fixed_window_exp
+from .. import kernels
+
+# The chains square through K13's routine at L <= PRESHIFT_MAX_L (the
+# reference's cutoff, ``pallas_mont2.py:63``), and through the product
+# above it.  Chosen from L alone: no knob.  The kernels pick it from
+# ``cios::kSqrMaxLimbs`` (``kernels.sqr_max_limbs()``), which
+# ``chip_smoke.py`` holds equal to this constant.
+PRESHIFT_MAX_L = 192
+
+
+# ---------------------------------------------------------------------------
+# Plain twins.
+# ---------------------------------------------------------------------------
+
+# Plain twin of K12: canonical < 2m in and out.
+mm2_mul_plain = mm_mul
+
+
+def mm2_sqr_plain(a, wmu, wm) -> torch.Tensor:
+    """Plain twin of K13: a*a*R^-1 mod m, canonical < 2m in and out."""
+    return mm_reduce(big_sqr(a), wmu, wm, a.shape[0])
+
+
+def mm2_exp_plain(base, digits, wmu, wm, one,
+                  win_start: int = 0) -> torch.Tensor:
+    """Plain twin of K14 (digits a tensor (n_win, B|1))."""
+    return fixed_window_exp(base, digits, one,
+                            lambda x, y: mm2_mul_plain(x, y, wmu, wm), 4,
+                            win_start)
+
+
+def mm2_exp_shared_plain(base, digits, wmu, wm, one,
+                         window: int) -> torch.Tensor:
+    """Plain twin of K15 (digits a tensor (n_win,))."""
+    return fixed_window_exp(base, digits.reshape(-1, 1), one,
+                            lambda x, y: mm2_mul_plain(x, y, wmu, wm),
+                            window)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CPU tensor -> plain twin; CUDA tensor -> kernel, else raise.
+# ---------------------------------------------------------------------------
+
+def mm2_mul(a: torch.Tensor, b: torch.Tensor, wmu: torch.Tensor,
+            wm: torch.Tensor) -> torch.Tensor:
+    """a*b*R^-1 mod m; a, b (L, B|1) canonical limbs < 2m."""
+    if a.device.type == "cpu":
+        return mm2_mul_plain(a, b, wmu, wm)
+    return _mm2_mul_cuda(a, b, wmu, wm)
+
+
+def _mm2_mul_cuda(a, b, wmu, wm) -> torch.Tensor:
+    L = a.shape[0]
+    B = max(a.shape[1], b.shape[1])
+    kernels.require_cuda(a, b, wmu, wm)
+    w = _weights(wmu, wm, L)
+    out = torch.empty((L, B), dtype=LIMB_DTYPE, device=a.device)
+    kernels.launch("mm2_mul", _cols(a, L, B), _cols(b, L, B), out, *w, L, B)
+    return out
+
+
+def mm2_sqr(a: torch.Tensor, wmu: torch.Tensor,
+            wm: torch.Tensor) -> torch.Tensor:
+    """a*a*R^-1 mod m; a (L, B) canonical limbs < 2m.  Equals
+    ``mm2_mul(a, a, wmu, wm)`` limb for limb."""
+    if a.device.type == "cpu":
+        return mm2_sqr_plain(a, wmu, wm)
+    return _mm2_sqr_cuda(a, wmu, wm)
+
+
+def _mm2_sqr_cuda(a, wmu, wm) -> torch.Tensor:
+    L, B = a.shape
+    kernels.require_cuda(a, wmu, wm)
+    w = _weights(wmu, wm, L)
+    out = torch.empty((L, B), dtype=LIMB_DTYPE, device=a.device)
+    kernels.launch("mm2_sqr", _cols(a, L, B), out, *w, L, B)
+    return out
+
+
+def mm2_exp(base: torch.Tensor, digits, wmu: torch.Tensor, wm: torch.Tensor,
+            one: torch.Tensor, win_start: int = 0) -> torch.Tensor:
+    """base^e (Montgomery form) with per-element 4-bit MSB-first digits
+    (n_win, B|1) on the host; windows before win_start are skipped."""
+    digits = kernels.digit_tensor(digits, 4, base.device)
+    if base.device.type == "cpu":
+        return mm2_exp_plain(base, digits, wmu, wm, one, win_start)
+    return _mm2_exp_cuda(base, digits, wmu, wm, one, win_start)
+
+
+def _mm2_exp_cuda(base, digits, wmu, wm, one, win_start) -> torch.Tensor:
+    L = base.shape[0]
+    n_win = digits.shape[0]
+    B = max(base.shape[1], digits.shape[1])
+    kernels.require_cuda(base, digits, wmu, wm, one)
+    w = _weights(wmu, wm, L)
+    out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
+    table = torch.empty((16, L, B), dtype=LIMB_DTYPE, device=base.device)
+    kernels.launch("mm2_exp", _cols(base, L, B),
+                   digits.expand(n_win, B).contiguous(), _cols(one, L, B),
+                   out, table, *w, L, B, n_win, int(win_start))
+    return out
+
+
+def mm2_exp_shared(base: torch.Tensor, digits, wmu: torch.Tensor,
+                   wm: torch.Tensor, one: torch.Tensor,
+                   window: int = 5) -> torch.Tensor:
+    """base^e (Montgomery form) with one exponent for the batch: digits
+    (n_win,) MSB-first base-2^window on the host.  The digit indexes the
+    table, as on the TPU (key-derived exponent, ROADMAP C5)."""
+    digits = kernels.digit_tensor(digits, window, base.device).reshape(-1)
+    if base.device.type == "cpu":
+        return mm2_exp_shared_plain(base, digits, wmu, wm, one, window)
+    return _mm2_exp_shared_cuda(base, digits, wmu, wm, one, window)
+
+
+def _mm2_exp_shared_cuda(base, digits, wmu, wm, one, window) -> torch.Tensor:
+    L, B = base.shape
+    kernels.require_cuda(base, digits, wmu, wm, one)
+    w = _weights(wmu, wm, L)
+    out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
+    table = torch.empty((1 << window, L, B), dtype=LIMB_DTYPE,
+                        device=base.device)
+    kernels.launch("mm2_exp_shared", _cols(base, L, B), digits,
+                   digits.shape[0], _cols(one, L, B), out, table, *w, L, B,
+                   window)
+    return out
+
+
+def _cols(x: torch.Tensor, L: int, B: int) -> torch.Tensor:
+    return x.to(LIMB_DTYPE).expand(L, B).contiguous()
+
+
+def _weights(wmu: torch.Tensor, wm: torch.Tensor, L: int) -> tuple:
+    """The weights as the kernels read them: contiguous int8 rows of 4L
+    bytes, each row read as L 32-bit words (so 4-byte aligned)."""
+    if tuple(wmu.shape) != (4 * L, 4 * L) or tuple(wm.shape) != (8 * L,
+                                                               4 * L):
+        raise ValueError(f"mm2 weights must be (4L, 4L) and (8L, 4L) at "
+                         f"L={L}; got {tuple(wmu.shape)}, {tuple(wm.shape)}")
+    out = []
+    for w in (wmu, wm):
+        w = w.to(torch.int8).contiguous()
+        if w.data_ptr() % 4:
+            w = w.clone()
+        out.append(w)
+    return tuple(out)
