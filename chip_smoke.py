@@ -10,15 +10,20 @@ failure (so any failure exits non-zero):
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. build the fifteen CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
-   git-ignored ``build/``);
+   git-ignored ``build/``), with the ``-Xptxas -v`` report of the tile
+   kernels K1 and K2 (``csrc/rns_tile.cuh``), the shared memory their
+   launches ask for, and their tensor-core (IMMA) instructions in the
+   SASS where the toolkit has ``cuobjdump``;
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
-   kernel's bound (K9 and K10 at the fused CRT decrypt's shape, K10's
-   eager twin alone ~32 s; K9 on a weightless n^2 also against K3; K4
-   at n^2 and, where it squares through K8's routine, at p^2, there also
-   against K10; K6 at the decrypt chain's shape, K8 at L=257/129/65 also
-   against K3(a, a), K11 at the limb encrypt chain's shape and
-   per-element against a K9 loop; the nibble kernels K12 at L=257/129
+   kernel's bound (K1 and K2 also at a ragged batch and at one column,
+   K2 also where W1, W2 do not fit shared memory; K9 and K10 at the
+   fused CRT decrypt's shape, K10's eager twin alone ~32 s; K9 on a
+   weightless n^2 also against K3; K4 at n^2 and, where it squares
+   through K8's routine, at p^2, there also against K10; K6 at the
+   decrypt chain's shape, K8 at L=257/129/65 also against K3(a, a),
+   K11 at the limb encrypt chain's shape and per-element against a K9
+   loop; the nibble kernels K12 at L=257/129
    also against K3, K13 at L=257/129/65 also against K8 and K12(a, a),
    K14 at L=257 and 129 (windows 3..8) also against K4, K15 at K7's
    decrypt shape also against K7, each with the bound of K3's work model
@@ -33,7 +38,10 @@ failure (so any failure exits non-zero):
    [-1, 1], about half negative), ``x.dot(w)``, ``x.mean()``, ``x - y``,
    ``2.5 - x``, ``x / 3``, ``v @ W`` and ``W @ v`` (64 ciphertexts, a
    64x64 matrix), ``apply_obfuscator``, a plain-Paillier key (r^n
-   obfuscator), every result decrypted and checked against numpy; then
+   obfuscator), every result decrypted and checked against numpy;
+   decrypt, ``+``, ``x * w``, ``dot`` and ``@`` once more under
+   ``torch.cuda.set_sync_debug_mode`` (no host synchronization, but for
+   the inversion tree's root read back where a weight is negative); then
    the ct*pt engines K4 and K5 on the same exponents (equal ciphertexts)
    and the decrypt engines K7 and K2 on the same ciphertexts (equal
    plaintexts), each timed;
@@ -252,6 +260,58 @@ def random_state(rng, base, B: int, dev):
     return torch.from_numpy(st).to(dev)
 
 
+def tile_kernel_report() -> None:
+    """Phase 2, K1 and K2: nvcc's -Xptxas -v lines of the two tile
+    kernels (registers, spills; their shared memory is dynamic, so the
+    bytes each launch asks for at the main path's CH are printed beside),
+    and, where the toolkit has cuobjdump, the tensor-core instructions
+    (IMMA for mma.sync) in each kernel's SASS."""
+    from pailliercryptolib_python_tpu_torch import kernels
+    lines, cur = {}, None
+    for line in kernels.build_log.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((k for k in ("rns_mul_kernel", "rns_exp_sched_kernel")
+                        if k in line), None)
+            if cur:
+                cur = line.split("'")[1]
+                lines[cur] = []
+        elif cur and "ptxas info" in line and "Function properties" not in \
+                line or cur and "spill" in line:
+            lines[cur].append(line.strip())
+    for fn, ls in lines.items():
+        print(f"    {fn}:")
+        for line in ls:
+            print("      " + line)
+    # dynamic shared memory of a launch (rns.cu: states as uint16, the
+    # digit tile of 32 rows of 2KP + 16 bytes, delta; K2 also W1 + W2)
+    for CH, k in ((521, 260), (261, 130)):
+        KP = -(-k // 16) * 16
+        work = 32 * (2 * KP + 16) + 128
+        w = 2 * (-(-2 * (k + 1) // 16)) * (2 * KP // 32) * 512
+        k2 = 2 * CH * 64 + work
+        print(f"    CH={CH}: K1 asks {CH * 64 + work} B of shared memory, "
+              f"K2 {k2 + w} B with W1 + W2 resident"
+              + ("" if k2 + w <= 232448 else
+                 f" (over the 232448 B limit: W from global memory, "
+                 f"{k2} B)"))
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", kernels.LIB_PATH],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn and ("IMMA" in line or "IGMMA" in line):
+                counts[fn] = counts.get(fn, 0) + 1
+        tile = {f: c for f, c in counts.items()
+                if "rns_mul_kernel" in f or "rns_exp_sched_kernel" in f}
+        print(f"    tensor-core instructions (IMMA/IGMMA) in SASS: {tile}")
+        if len(tile) < 3:
+            raise AssertionError("K1 / K2 lack their IMMA instructions")
+
+
 def check_kernels(dev, kd) -> dict:
     """Phase 3: each kernel against its plain twin, exact, with both times
     and the kernel's bound at the same inputs.  Every kernel is checked
@@ -364,7 +424,9 @@ def check_kernels(dev, kd) -> dict:
                                         ctx.n_limbs),
                        limb_ops(L, tbl + nw * (window + 1), BATCH),
                        headline=nw == nwd)
-    # K1 at the encrypt (n^2) and decrypt (p^2) bases
+    # K1 at the encrypt (n^2) and decrypt (p^2) bases: the main path's
+    # width, a ragged batch and one column (the tile kernel masks the
+    # last tile's columns)
     for m, bits in ((n * n, 2 * 2048 + 2), (p * p, (p * p).bit_length())):
         base = rns.RnsBase.for_bits(-(-bits // 16) * 16, dev)
         L = (m.bit_length() + 2 + 15) // 16
@@ -372,15 +434,21 @@ def check_kernels(dev, kd) -> dict:
         ops_t = rk.kernel_operands(base, key, dev)
         const_bytes = nbytes(ops_t["vec"], ops_t["skc"], ops_t["E1"],
                              ops_t["E2"])
+        tile_bytes = nbytes(ops_t["vec"], ops_t["skc"], ops_t["W1f"],
+                            ops_t["W2f"])
         X = random_state(rng, base, BATCH, dev)
         Y = random_state(rng, base, BATCH, dev)
-        got = rk.rns_mul(X, Y, base, key)
-        want = rns.rns_mont_mul(X, Y, base, key)
-        record("rns_mul", got, want, f"CH={base.CH} B={BATCH}",
-               ms_of(lambda: rk.rns_mul(X, Y, base, key), 5),
-               ms_of(lambda: rns.rns_mont_mul(X, Y, base, key), 2),
-               nbytes(X, Y, got) + const_bytes, rns_ops(base.k, 1, BATCH),
-               headline=m == n * n)
+        for B in (BATCH, BATCH - 1, 1):
+            Xr = X if B == BATCH else random_state(rng, base, B, dev)
+            Yr = Y if B == BATCH else random_state(rng, base, B, dev)
+            got = rk.rns_mul(Xr, Yr, base, key)
+            want = rns.rns_mont_mul(Xr, Yr, base, key)
+            record("rns_mul", got, want, f"CH={base.CH} B={B}",
+                   ms_of(lambda: rk.rns_mul(Xr, Yr, base, key), 20),
+                   ms_of(lambda: rns.rns_mont_mul(Xr, Yr, base, key), 2),
+                   nbytes(Xr, Yr, got) + tile_bytes,
+                   rns_ops(base.k, 1, B),
+                   headline=m == n * n and B == BATCH)
         if m == n * n:
             # K5 at the ct*pt base: 4 windows at B=256, then the main
             # path's shape, B=4096 and 16 windows (53-bit exponents bucket
@@ -414,17 +482,37 @@ def check_kernels(dev, kd) -> dict:
            f"CH={base.CH} B=256 w={window} 64 ops",
            ms_of(lambda: rk.rns_exp_sched_p(X, short, base, key, window), 2),
            ms_of(lambda: rns.rns_exp_sched(X, short, base, key, window), 1),
-           nbytes(X, got) + 4 * len(short) + const_bytes,
+           nbytes(X, got) + 4 * len(short) + tile_bytes,
            rns_ops(base.k, tbl + len(short), 256))
-    Xf = random_state(rng, base, BATCH, dev)
-    got = rk.rns_exp_sched_p(Xf, sched, base, key, window)
-    want, plain_ms = timed(lambda: rns.rns_exp_sched(Xf, sched, base, key,
-                                                     window))
+    # the whole chain at the main path's width, a ragged batch and one
+    # column
+    for B in (BATCH, 100, 1):
+        Xf = random_state(rng, base, B, dev)
+        got = rk.rns_exp_sched_p(Xf, sched, base, key, window)
+        want, plain_ms = timed(lambda: rns.rns_exp_sched(Xf, sched, base,
+                                                         key, window))
+        record("rns_exp_sched", got, want,
+               f"CH={base.CH} B={B} w={window} {len(sched)} ops",
+               ms_of(lambda: rk.rns_exp_sched_p(Xf, sched, base, key,
+                                                window), 3),
+               plain_ms, nbytes(Xf, got) + 4 * len(sched) + tile_bytes,
+               rns_ops(base.k, tbl + len(sched), B), headline=B == BATCH)
+    # W1, W2 of the n^2 base (CH=521) do not fit beside the states in
+    # shared memory: the instantiation that reads them from global memory
+    b2 = rns.RnsBase.for_bits(-(-(2 * 2048 + 2) // 16) * 16, dev)
+    k2 = rns.RnsModulus.build(b2, n * n, (2 * 2048 + 2 + 15) // 16)
+    o2 = rk.kernel_operands(b2, k2, dev)
+    X2 = random_state(rng, b2, 100, dev)
+    w2 = 4
+    s2 = rns.sliding_schedule(e, w2, e.bit_length())[-64:]
+    got = rk.rns_exp_sched_p(X2, s2, b2, k2, w2)
+    want = rns.rns_exp_sched(X2, s2, b2, k2, w2)
     record("rns_exp_sched", got, want,
-           f"CH={base.CH} B={BATCH} w={window} {len(sched)} ops",
-           ms_of(lambda: rk.rns_exp_sched_p(Xf, sched, base, key, window), 1),
-           plain_ms, nbytes(Xf, got) + 4 * len(sched) + const_bytes,
-           rns_ops(base.k, tbl + len(sched), BATCH), headline=True)
+           f"CH={b2.CH} B=100 w={w2} 64 ops, W global",
+           ms_of(lambda: rk.rns_exp_sched_p(X2, s2, b2, k2, w2), 2),
+           ms_of(lambda: rns.rns_exp_sched(X2, s2, b2, k2, w2), 1),
+           nbytes(X2, got, o2["vec"], o2["skc"], o2["W1f"], o2["W2f"])
+           + 4 * len(s2), rns_ops(b2.k, (1 << (w2 - 1)) + len(s2), 100))
     check_per_element(dev, kd, rng, record)
     check_fourth_slice(dev, kd, rng, record)
     check_fifth_slice(dev, kd, rng, record)
@@ -842,6 +930,7 @@ def second_slice(dev, kd, tag: str) -> dict:
     for label, fn, want in steps:
         ct, times[label + "_s"] = wall(fn)
         check(label, ct, want)
+    sync_audit(sk, ct_x, ct_y, ct_v, w, W, x, v)
 
     # the ct*pt engines on the same 53-bit exponents: K4 (limb) and K5
     ctx = pk.pubkey.context
@@ -895,6 +984,64 @@ def second_slice(dev, kd, tag: str) -> dict:
         print(f"  {k:24s} {t:10.4f} s   ({tag})", flush=True)
     print(f"  kernel launches over phase 6: {counts}", flush=True)
     return dict(times=times, counts=counts, exps=exps)
+
+
+def sync_audit(sk, ct_x, ct_y, ct_v, w, W, x, v) -> None:
+    """Phase 6: no host synchronization inside decrypt, ``+``, ``x * w``,
+    ``dot`` and ``@`` at B=4096 (every upload is pinned and asynchronous,
+    every per-key digit tensor already on the card), each run once more
+    under ``torch.cuda.set_sync_debug_mode("error")``.  The decrypt runs to
+    its plaintext limbs on the card (``decrypt_device``; the copy of the
+    plaintexts to the host is the result itself).  A negative weight
+    inverts its column through the product tree, whose root is inverted
+    on the host by design (``mont_inv_tree_hostroot``, as in the
+    reference): so x * w, dot and @ run under "error" with the weights'
+    magnitudes, and with the mixed-sign weights under "warn", where every
+    synchronization must come from that root's read-back."""
+    import traceback
+    import warnings
+    import torch
+    priv = sk.prikey.context
+    ct_dev = ct_x.ciphertext().device_array()
+    wa, Wa = np.abs(w), np.abs(W)
+    runs = (("decrypt", lambda: priv.decrypt_device(ct_dev), None),
+            ("x+y", lambda: ct_x + ct_y, None),
+            ("x*|w|", lambda: ct_x * wa, x * wa),
+            ("x.dot(|w|)", lambda: ct_x.dot(wa), x @ wa),
+            ("v@|W|", lambda: ct_v @ Wa, v @ Wa))
+    for label, fn, want in runs:
+        fn()                              # warm: per-key tensors, caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if want is not None and not np.allclose(sk.decrypt(out), want):
+            raise AssertionError(f"{label} under the sync check differs")
+    print("  no host synchronization (set_sync_debug_mode 'error') in "
+          f"{', '.join(r[0] for r in runs)} at B={BATCH}", flush=True)
+    for label, fn in (("x*w", lambda: ct_x * w), ("x.dot(w)",
+                                                   lambda: ct_x.dot(w)),
+                      ("v@W", lambda: ct_v @ W)):
+        stacks = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = lambda *a, **k: stacks.append(
+                (str(a[0]), "".join(traceback.format_stack())))
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [st for msg, st in stacks
+                 if msg.startswith("called a synchronizing")]
+        other = [st for st in syncs if "mont_inv_tree_hostroot" not in st]
+        print(f"  {label}: {len(syncs)} synchronization(s), each the "
+              f"inversion tree's root read back to the host", flush=True)
+        if other:
+            raise AssertionError(f"{label} synchronizes outside the host "
+                                 f"root: {other[0][-1500:]}")
 
 
 def third_slice(dev, kd, tag: str, exps: list) -> dict:
@@ -1374,6 +1521,7 @@ def main() -> int:
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("    " + line.strip())
+    tile_kernel_report()
 
     kd = fixed_key_ints(2048)
     t_all = time.perf_counter()

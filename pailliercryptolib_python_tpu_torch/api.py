@@ -15,6 +15,8 @@ device (``encrypt_host_ratio``, after ``context.initializeContext``);
 
 from __future__ import annotations
 
+import io
+import pickle
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -26,6 +28,7 @@ from .bindings.containers import (
     ipclCipherText)
 from .models.paillier import pad_batch
 from .ops import montgomery as mg
+from .ops.limb import h2d
 from .utils import config as _config
 from .utils.context import context as _context
 
@@ -361,13 +364,13 @@ class PaillierEncryptedNumber:
             inv = mg.mont_inv_tree_hostroot(ct_dev, ctx.ctx, ctx.nsquare)
             mask = np.zeros(ct_dev.shape[1], dtype=bool)
             mask[:len(flags)] = flags
-            return torch.where(torch.from_numpy(mask).to(ct_dev.device)[
+            return torch.where(h2d(torch.from_numpy(mask), ct_dev.device)[
                 None, :], inv, ct_dev)
         idx = np.nonzero(flags)[0]
         inv = mg.mont_inv_tree_hostroot(ctx.gather_batch(ct_dev, idx),
                                         ctx.ctx, ctx.nsquare)
         out = ct_dev.clone()
-        out[:, torch.from_numpy(idx).to(ct_dev.device)] = inv[:, :len(idx)]
+        out[:, h2d(torch.from_numpy(idx), ct_dev.device)] = inv[:, :len(idx)]
         return out
 
     # -- addition --------------------------------------------------------------
@@ -577,3 +580,37 @@ class PaillierEncryptedNumber:
 
     def __imatmul__(self, other) -> "PaillierEncryptedNumber":
         return self @ other
+
+
+# ---------------------------------------------------------------------------
+# Pickles written by the JAX package.
+# ---------------------------------------------------------------------------
+
+# Both packages pickle the same state tuples under their own module
+# names; the JAX package's names map onto the port's by string (nothing
+# of the JAX package is imported).
+_JAX_MODULES = {
+    "pailliercryptolib_python_tpu.api": "pailliercryptolib_python_tpu_torch.api",
+    "pailliercryptolib_python_tpu.bindings.containers":
+        "pailliercryptolib_python_tpu_torch.bindings.containers",
+}
+
+
+class Unpickler(pickle.Unpickler):
+    """A ``pickle.Unpickler`` that also reads the JAX package's pickles:
+    its keys, key pairs and ciphertexts load as the port's classes (on
+    the port's default device, ``device.set_device``)."""
+
+    def find_class(self, module, name):
+        return super().find_class(_JAX_MODULES.get(module, module), name)
+
+
+def loads(data: bytes):
+    """``pickle.loads`` that maps the JAX package's classes onto the
+    port's (``Unpickler``)."""
+    return Unpickler(io.BytesIO(data)).load()
+
+
+def load(file):
+    """``pickle.load`` from an open binary file, as ``loads``."""
+    return Unpickler(file).load()

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models import paillier as _scheme
+from ..ops.limb import h2d
 
 
 def _bn_to_bytes(v: int) -> bytes:
@@ -433,8 +434,8 @@ class ipclCipherText:
         if self._dev is not None:
             idx = np.concatenate([(np.arange(b) + k) % b,
                                   np.arange(b, self._dev.shape[1])])
-            rot = torch.index_select(self._dev, 1,
-                                     torch.from_numpy(idx).to(self._dev.device))
+            rot = torch.index_select(self._dev, 1, h2d(
+                torch.from_numpy(idx), self._dev.device))
             return ipclCipherText(self._pk, _dev=rot, _length=b)
         ints = self.host_ints()
         return ipclCipherText(self._pk, _ints=ints[k:] + ints[:k])

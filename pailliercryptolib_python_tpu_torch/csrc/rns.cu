@@ -16,7 +16,44 @@
 //    rns_exp_shared_p :639): the fixed-window chain c^e * M with one
 //    exponent shared by the batch (a CRT half of decrypt).
 //
-// One product, per column (see ops/rns.py rns_mont_mul, its plain twin):
+// K1 and K2 run on the tile routine of rns_tile.cuh: one CTA owns
+// rns_tile::kNC = 32 columns, its states lie in shared memory as uint16,
+// and both base extensions of every product are int8 tensor-core
+// products (mma.sync m16n8k32 u8) of the host-built extension matrices
+// W1, W2 with the tile's digits.  rns_tile.cuh says what bounds a product
+// and what the design does about it.
+//
+// K1 (one product): W1 and W2 (287 KB together at CH=521) do not fit a
+// block's shared memory beside the state, so every warp reads its A
+// fragments straight from global memory in fragment order (16 bytes a
+// lane, 512 contiguous bytes a warp; 50 MB of L2 hold both matrices for
+// all 128 CTAs).  Each CTA reads all of W once a product whichever way
+// it is staged, so a shared-memory ring of W slabs would move the same
+// bytes out of L2; it would pay only with cluster multicast, which this
+// kernel does not use.  x and y are read once, in the cmul pass, and the
+// output written once.
+//
+// K2 (the whole sliding-window chain): one CTA runs every product of its
+// tile's chain: c^2, the 2^(w-1) odd powers, `one`, then each schedule
+// entry (0 squares, t multiplies by T[t-1]).  At CH=261 W1 and W2 (2 x
+// 78,336 B) stay in shared memory for the whole chain beside the
+// accumulator, the operand buffer (CH x 32 uint16 each), the digit tile
+// and delta: 199,936 B of the 232,448 a block may use.  Where they do
+// not fit (CH > ~280) the kernel reads them from global memory as K1
+// does.  The odd-power table lies in global scratch the wrapper
+// allocates, tile by tile ((tiles, 2^(w-1), CH, 32) uint16), so one entry
+// of one tile is one contiguous block of CH x 64 bytes; after the cmul
+// pass of each product, the operand of the next multiply of the schedule
+// is copied into the operand buffer with cp.async while the product's
+// extensions run.  The table index comes from the schedule of the secret
+// exponent p-1 (q-1): every CTA reads the same entry at the same step,
+// so the access pattern follows the key, as on the TPU (pallas_rns.py
+// :443-445).  A constant-access select would read all 32 entries at every
+// table step, 32 times the table traffic; the README records the
+// key-derived index.
+//
+// The per-column routine below (K5, K6): one thread owns one column.
+// One product (see ops/rns.py rns_mont_mul, its plain twin):
 //   S   = cmul(X, Y)                       all CH channels
 //   xi  = shoup(S[B])                      k digits
 //   S_A, S_B = E1 . xi  (centred int8)     first base extension
@@ -31,35 +68,14 @@
 // 4 u5, 5 v5, 6 w9n, 7 w9b, 8 Shoup companion, 9 one, 10 CS1, 11 CS2;
 // skc[0..1] the SK constants; E1/E2 (4(k+1), KP) int8 stacks
 // [C_lo; C_hi; D_lo; D_hi] - 128, zero-padded from k to KP columns.
-//
-// What the TPU kernel did and what this does instead.  On the TPU the
-// extension dots ran on the MXU as int8 matmuls over a batch tile held
-// in VMEM.  Here one thread owns one column: it packs its k digits as
-// centred int8 words into shared memory and runs the dots with __dp4a
-// (4 int8 MACs per instruction); every thread of a warp reads the same
-// E row, so each 16-byte E load is one broadcast transaction.  The state
-// is updated in place in the output column, so K1 needs no scratch.
-//
-// What bounds it on the H100.  At CH=521 each E stack is 1044 x 272 B =
-// 284 KB, more than the 227 KB of shared memory a block may use, so E is
-// read through L1/L2 (50 MB L2 holds both stacks) instead of being
-// staged.  A product is two base extensions of 4(k+1)k int8 MACs each
-// per column (2 x 71k dp4a at k=260, KP=272); the bound in chip_smoke.py
-// counts those MACs at 2 int8 operations each against the bytes of the
-// states read and written once.  With one thread per column a 4096-wide
-// batch fills only 128 warps on 132 SMs, so the kernel is bound by
-// instruction latency, 2-3 orders of magnitude above that bound.  Later
-// work: the
-// extensions as int8 tensor-core (mma/wgmma) products over a column
-// tile, with E tiled over k through shared memory.
-//
-// K2 keeps its odd-power table ((2^(w-1), CH, B), 137 MB at w=6, CH=261,
-// B=4096) and c^2 in global scratch the wrapper allocates, and the
-// accumulator in the output column.  The table index comes from the
-// schedule of the secret exponent p-1 (q-1): every column reads the same
-// entry at the same step, so the access pattern follows the key, as on
-// the TPU.  The port's README records this; a constant-access select is
-// later work.
+// The thread packs its k digits as centred int8 words into shared memory
+// and runs the dots with __dp4a (4 int8 MACs per instruction); every
+// thread of a warp reads the same E row, so each 16-byte E load is one
+// broadcast transaction.  The state is updated in place in the output
+// column.  E is read through L1/L2.  With one thread per column a
+// 4096-wide batch fills only 128 warps on 132 SMs, so these kernels are
+// bound by instruction latency, 2-3 orders of magnitude above their
+// bound; ROADMAP R1 moves them onto rns_tile.cuh next.
 //
 // K5 keeps its 2^w-entry table [one, X, X^2, ..., X^(2^w-1)] ((16, CH, B)
 // at w=4: 137 MB at CH=521, B=4096) in global scratch the wrapper
@@ -89,7 +105,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "rns_tile.cuh"
+
 namespace {
+
+using rns_tile::cmul;
+using rns_tile::cmul2;
+using rns_tile::cmul_shoup;
+using rns_tile::combine_dual;
+using rns_tile::submod;
+using rns_tile::kNC;
+using rns_tile::TileOps;
+using rns_tile::u16;
 
 constexpr int kThreads = 32;
 
@@ -103,62 +130,6 @@ struct Ops {
 
 __device__ __forceinline__ uint32_t V(const Ops& o, int row, int col) {
   return o.vec[row * 16 + col];
-}
-
-__device__ __forceinline__ uint32_t csub(uint32_t r, uint32_t m) {
-  return r >= m ? r - m : r;
-}
-
-// a*b*2^-16 mod m (16-bit REDC), a, b < 2^16.  The carry of
-// tl + (u*m mod 2^16) is exactly (tl != 0).
-__device__ __forceinline__ uint32_t cmul(uint32_t a, uint32_t b, uint32_t m,
-                                         uint32_t n0) {
-  const uint32_t t = a * b, tl = t & 0xFFFFu;
-  const uint32_t um = ((tl * n0) & 0xFFFFu) * m;
-  return csub((t >> 16) + (um >> 16) + (tl != 0u), m);
-}
-
-// a*c mod m with Shoup companion ch = floor(c 2^16 / m); uint32 wrap of
-// a*c - q*m is intended (the true value lies in [0, 2m)).
-__device__ __forceinline__ uint32_t cmul_shoup(uint32_t a, uint32_t c,
-                                               uint32_t ch, uint32_t m) {
-  const uint32_t q = (a * ch) >> 16;
-  return csub(a * c - q * m, m);
-}
-
-// (a*b + c*d) * 2^-16 mod m with one shared REDC.
-__device__ __forceinline__ uint32_t cmul2(uint32_t a, uint32_t b, uint32_t c,
-                                          uint32_t d, uint32_t m,
-                                          uint32_t n0) {
-  const uint32_t P = a * b, Q = c * d;
-  const uint32_t lo = (P & 0xFFFFu) + (Q & 0xFFFFu);
-  const uint32_t hi = (P >> 16) + (Q >> 16);
-  const uint32_t ll = lo & 0xFFFFu;
-  const uint32_t um = ((ll * n0) & 0xFFFFu) * m;
-  const uint32_t r = hi + (lo >> 16) + (um >> 16) + (ll != 0u);
-  return csub(csub(r, m), m);
-}
-
-__device__ __forceinline__ uint32_t submod(uint32_t a, uint32_t b,
-                                           uint32_t m) {
-  return a >= b ? a - b : a + m - b;
-}
-
-// (S_A + 2^8 S_B) * 2^-16 mod m for exact non-negative accumulators.
-__device__ __forceinline__ uint32_t combine_dual(int32_t SA, int32_t SB,
-                                                 uint32_t m, uint32_t n0,
-                                                 int nlev) {
-  const uint32_t t = static_cast<uint32_t>(SA)
-                     + ((static_cast<uint32_t>(SB) & 0xFFu) << 8);
-  const uint32_t B1 = static_cast<uint32_t>(SB >> 8);
-  const uint32_t tl = t & 0xFFFFu;
-  const uint32_t um = ((tl * n0) & 0xFFFFu) * m;
-  uint32_t r = (t >> 16) + (um >> 16) + (tl != 0u) + B1;
-  for (int lev = nlev - 1; lev >= 0; --lev) {
-    const uint32_t mm = m << lev;
-    if (r >= mm) r -= mm;
-  }
-  return r;
 }
 
 // Centred-int8 digit words of one column in shared memory: word w of the
@@ -284,40 +255,153 @@ __device__ void rns_mul_col(const uint32_t* x, const uint32_t* y, uint32_t* o,
   rns_mul_finish(o, s, op, xs, tid, nt);
 }
 
-__global__ void rns_mul_kernel(const uint32_t* x, const uint32_t* y,
-                               uint32_t* out, Ops op, int B) {
-  extern __shared__ uint32_t xs[];
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  rns_mul_col(x + col, y + col, out + col, B, op, xs, threadIdx.x,
-              blockDim.x);
+// State copies between global (CH, B) int32 and a tile's (CH, kNC)
+// uint16 shared state; columns past B read as 0 and are not written.
+__device__ __forceinline__ void load_tile(const uint32_t* g, u16* st, int CH,
+                                          int col0, int B) {
+  for (int i = threadIdx.x; i < CH * kNC; i += blockDim.x) {
+    const int c = i / kNC, col = col0 + (i & (kNC - 1));
+    st[i] = col < B ? static_cast<u16>(g[static_cast<size_t>(c) * B + col])
+                    : u16{0};
+  }
 }
 
-__global__ void rns_exp_sched_kernel(const uint32_t* x, const int32_t* sched,
-                                     int n_ops, uint32_t* out, uint32_t* tab,
-                                     uint32_t* c2, Ops op, int window,
-                                     int B) {
-  extern __shared__ uint32_t xs[];
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  const int tid = threadIdx.x, nt = blockDim.x, CH = op.CH;
-  const size_t plane = static_cast<size_t>(CH) * B;
-  const uint32_t* xc = x + col;
-  uint32_t* tb = tab + col;
-  uint32_t* c2c = c2 + col;
-  uint32_t* acc = out + col;
-  rns_mul_col(xc, xc, c2c, B, op, xs, tid, nt);            // c^2
-  for (int c = 0; c < CH; ++c) tb[c * B] = xc[c * B];      // T[0] = c
-  const int tsize = 1 << (window - 1);
-  for (int t = 1; t < tsize; ++t)                          // T[t] = c^(2t+1)
-    rns_mul_col(tb + (t - 1) * plane, c2c, tb + t * plane, B, op, xs, tid,
-                nt);
-  for (int c = 0; c < CH; ++c) acc[c * B] = V(op, c, 9);   // one
-  for (int j = 0; j < n_ops; ++j) {
-    const int d = sched[j];                  // 0: square; t: times T[t-1]
-    const uint32_t* operand = d == 0 ? acc : tb + (d - 1) * plane;
-    rns_mul_col(acc, operand, acc, B, op, xs, tid, nt);
+__device__ __forceinline__ void store_tile(const u16* st, uint32_t* g, int CH,
+                                           int col0, int B) {
+  for (int i = threadIdx.x; i < CH * kNC; i += blockDim.x) {
+    const int c = i / kNC, col = col0 + (i & (kNC - 1));
+    if (col < B) g[static_cast<size_t>(c) * B + col] = st[i];
   }
+}
+
+// 16-byte copy of one (CH, kNC) uint16 state between shared and global
+// scratch (CH * 64 bytes, a multiple of 16).
+__device__ __forceinline__ void copy_state(uint4* dst, const uint4* src,
+                                           int CH) {
+  for (int i = threadIdx.x; i < CH * 4; i += blockDim.x) dst[i] = src[i];
+}
+
+__device__ __forceinline__ void prefetch_state(u16* dst, const u16* src,
+                                               int CH) {
+  for (int i = threadIdx.x; i < CH * 4; i += blockDim.x)
+    rns_tile::cp_async16(dst + 8 * i, src + 8 * i);
+  rns_tile::cp_async_commit();
+}
+
+// K1: one product per tile; W from global memory (NTU = 4: each A
+// fragment is read once per CTA).
+__global__ void __launch_bounds__(rns_tile::kThreads, 1)
+rns_mul_kernel(const uint32_t* x, const uint32_t* y, uint32_t* out,
+               TileOps op, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u16* st = reinterpret_cast<u16*>(smem);
+  uint8_t* xs = smem + static_cast<size_t>(op.CH) * kNC * sizeof(u16);
+  uint32_t* delta = reinterpret_cast<uint32_t*>(xs + kNC * op.XS);
+  const int col0 = blockIdx.x * kNC;
+  rns_tile::tile_mul<4, true>(
+      st,
+      [&](int c, int col, int) -> uint32_t {
+        const int gc = col0 + col;
+        if (gc >= B) return 0u;
+        const size_t at = static_cast<size_t>(c) * B + gc;
+        return cmul(x[at], y[at], rns_tile::V(op, c, 0),
+                    rns_tile::V(op, c, 1));
+      },
+      [] {}, op.W1, op.W2, op, xs, delta);
+  store_tile(st, out, op.CH, col0, B);
+}
+
+// K2: the whole chain of a tile.  kSharedW: W1, W2 copied into shared
+// memory once (NTU = 1 balances the 4 MT units over 16 warps); else read
+// from global memory as in K1.
+template <bool kSharedW>
+__global__ void __launch_bounds__(rns_tile::kThreads, 1)
+rns_exp_sched_kernel(const uint32_t* x, const int32_t* sched, int n_ops,
+                     uint32_t* out, u16* tab, TileOps op, int window,
+                     int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int CH = op.CH, SZ = CH * kNC;
+  const size_t wb = rns_tile::w_bytes(op.MT, op.KS);
+  unsigned char* p = smem;
+  const uint4* W1 = op.W1;
+  const uint4* W2 = op.W2;
+  if (kSharedW) {
+    uint4* w1 = reinterpret_cast<uint4*>(p);
+    uint4* w2 = reinterpret_cast<uint4*>(p + wb);
+    for (size_t i = threadIdx.x; i < wb / 16; i += blockDim.x) {
+      w1[i] = __ldg(op.W1 + i);
+      w2[i] = __ldg(op.W2 + i);
+    }
+    W1 = w1;
+    W2 = w2;
+    p += 2 * wb;
+  }
+  u16* acc = reinterpret_cast<u16*>(p);
+  u16* opb = acc + SZ;
+  uint8_t* xs = reinterpret_cast<uint8_t*>(opb + SZ);
+  uint32_t* delta = reinterpret_cast<uint32_t*>(xs + kNC * op.XS);
+  const int col0 = blockIdx.x * kNC;
+  const int tsize = 1 << (window - 1);
+  u16* tb = tab + static_cast<size_t>(blockIdx.x) * tsize * SZ;
+  constexpr int NTU = kSharedW ? 1 : 4;
+  const auto none = [] {};
+
+  load_tile(x, opb, CH, col0, B);                 // T[0] = c
+  __syncthreads();
+  copy_state(reinterpret_cast<uint4*>(tb), reinterpret_cast<const uint4*>(opb),
+             CH);
+  rns_tile::tile_mul<NTU, !kSharedW>(             // acc = c^2
+      acc,
+      [&](int c, int, int i) -> uint32_t {
+        return cmul(opb[i], opb[i], rns_tile::V(op, c, 0),
+                    rns_tile::V(op, c, 1));
+      },
+      none, W1, W2, op, xs, delta);
+  for (int t = 1; t < tsize; ++t) {               // T[t] = T[t-1] c^2
+    rns_tile::tile_mul<NTU, !kSharedW>(
+        opb,
+        [&](int c, int, int i) -> uint32_t {
+          return cmul(opb[i], acc[i], rns_tile::V(op, c, 0),
+                      rns_tile::V(op, c, 1));
+        },
+        none, W1, W2, op, xs, delta);
+    copy_state(reinterpret_cast<uint4*>(tb + static_cast<size_t>(t) * SZ),
+               reinterpret_cast<const uint4*>(opb), CH);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < SZ; i += blockDim.x)   // acc = one
+    acc[i] = static_cast<u16>(rns_tile::V(op, i / kNC, 9));
+  // the operand of the next multiply goes into opb ahead of its product
+  int nxt = 0;
+  while (nxt < n_ops && __ldg(sched + nxt) == 0) ++nxt;
+  if (nxt < n_ops)
+    prefetch_state(opb, tb + static_cast<size_t>(__ldg(sched + nxt) - 1) * SZ,
+                   CH);
+  for (int j = 0; j < n_ops; ++j) {
+    const int d = __ldg(sched + j);        // 0: square; t: times T[t-1]
+    if (d != 0) {
+      rns_tile::cp_async_wait_all();
+      __syncthreads();
+    }
+    const u16* other = d != 0 ? opb : acc;
+    rns_tile::tile_mul<NTU, !kSharedW>(
+        acc,
+        [&](int c, int, int i) -> uint32_t {
+          return cmul(acc[i], other[i], rns_tile::V(op, c, 0),
+                      rns_tile::V(op, c, 1));
+        },
+        [&] {
+          if (d == 0) return;
+          nxt = j + 1;
+          while (nxt < n_ops && __ldg(sched + nxt) == 0) ++nxt;
+          if (nxt < n_ops)
+            prefetch_state(
+                opb, tb + static_cast<size_t>(__ldg(sched + nxt) - 1) * SZ,
+                CH);
+        },
+        W1, W2, op, xs, delta);
+  }
+  store_tile(acc, out, CH, col0, B);
 }
 
 __global__ void rns_exp_elem_kernel(const uint32_t* x, const int32_t* digits,
@@ -395,34 +479,72 @@ inline bool bad_shape(int k, int CH, int KP, int B) {
          || shared_bytes(KP) > 48 * 1024;
 }
 
+// The tile kernels' operands: MT m-tiles of 16 rows over the 2(k+1)
+// interleaved extension rows, KS k-steps of 32 over the 2KP digit bytes.
+inline TileOps tile_ops(const uint32_t* vec, const uint32_t* skc,
+                        const uint8_t* W1, const uint8_t* W2, int k, int CH,
+                        int KP, int nlev) {
+  return TileOps{vec, skc, reinterpret_cast<const uint4*>(W1),
+                 reinterpret_cast<const uint4*>(W2), k, CH, KP, nlev,
+                 (2 * (k + 1) + 15) / 16, 2 * KP / 32,
+                 rns_tile::digit_stride(KP)};
+}
+
+inline size_t state_bytes(int CH) {
+  return static_cast<size_t>(CH) * kNC * sizeof(u16);
+}
+
+constexpr size_t kMaxShared = 232448;    // a block's limit on the H100
+
+inline bool bad_tile_shape(int k, int CH, int KP, int B) {
+  return k < 1 || CH != 2 * k + 1 || KP % 16 != 0 || KP < k || B < 1;
+}
+
 }  // namespace
 
 extern "C" int pct_rns_mul(const uint32_t* x, const uint32_t* y,
                            uint32_t* out, const uint32_t* vec,
-                           const uint32_t* skc, const int8_t* E1,
-                           const int8_t* E2, int k, int CH, int KP, int nlev,
+                           const uint32_t* skc, const uint8_t* W1,
+                           const uint8_t* W2, int k, int CH, int KP, int nlev,
                            int B, void* stream) {
-  if (bad_shape(k, CH, KP, B)) return cudaErrorInvalidValue;
-  const Ops op{vec, skc, E1, E2, k, CH, KP, nlev};
-  rns_mul_kernel<<<(B + kThreads - 1) / kThreads, kThreads, shared_bytes(KP),
-                   static_cast<cudaStream_t>(stream)>>>(x, y, out, op, B);
+  if (bad_tile_shape(k, CH, KP, B)) return cudaErrorInvalidValue;
+  const size_t smem = state_bytes(CH) + rns_tile::work_bytes(KP);
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      rns_mul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  rns_mul_kernel<<<(B + kNC - 1) / kNC, rns_tile::kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      x, y, out, tile_ops(vec, skc, W1, W2, k, CH, KP, nlev), B);
   return cudaGetLastError();
 }
 
 extern "C" int pct_rns_exp_sched(const uint32_t* x, const int32_t* sched,
-                                 int n_ops, uint32_t* out, uint32_t* tab,
-                                 uint32_t* c2, const uint32_t* vec,
-                                 const uint32_t* skc, const int8_t* E1,
-                                 const int8_t* E2, int k, int CH, int KP,
-                                 int nlev, int window, int B, void* stream) {
-  if (bad_shape(k, CH, KP, B) || window < 1 || window > 8 || n_ops < 0) {
+                                 int n_ops, uint32_t* out, uint16_t* tab,
+                                 const uint32_t* vec, const uint32_t* skc,
+                                 const uint8_t* W1, const uint8_t* W2, int k,
+                                 int CH, int KP, int nlev, int window, int B,
+                                 void* stream) {
+  if (bad_tile_shape(k, CH, KP, B) || window < 1 || window > 8
+      || n_ops < 0) {
     return cudaErrorInvalidValue;
   }
-  const Ops op{vec, skc, E1, E2, k, CH, KP, nlev};
-  rns_exp_sched_kernel<<<(B + kThreads - 1) / kThreads, kThreads,
-                         shared_bytes(KP),
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, sched, n_ops, out, tab, c2, op, window, B);
+  const TileOps op = tile_ops(vec, skc, W1, W2, k, CH, KP, nlev);
+  const size_t smem = 2 * state_bytes(CH) + rns_tile::work_bytes(KP);
+  const size_t smem_w = smem + 2 * rns_tile::w_bytes(op.MT, op.KS);
+  const bool shared_w = smem_w <= kMaxShared;
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  const auto kernel = shared_w ? rns_exp_sched_kernel<true>
+                               : rns_exp_sched_kernel<false>;
+  const size_t bytes = shared_w ? smem_w : smem;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  kernel<<<(B + kNC - 1) / kNC, rns_tile::kThreads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(x, sched, n_ops, out, tab, op,
+                                                window, B);
   return cudaGetLastError();
 }
 

@@ -31,6 +31,8 @@ import time
 import numpy as np
 import torch
 
+from .ops.limb import h2d
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -54,7 +56,7 @@ _SIGS = {
     "mm3_exp": [_P, _P, _P, _P, _P, _P, _U, _I, _I, _I, _I, _P],
     "mm3_sqr": [_P, _P, _P, _U, _I, _I, _P],
     "rns_mul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rns_exp_sched": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+    "rns_exp_sched": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
     "rns_exp_elem": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
@@ -156,21 +158,31 @@ def require_cuda(*tensors: torch.Tensor) -> None:
                              f"got {[str(x.device) for x in tensors]}")
 
 
-def digit_tensor(digits, window: int, device) -> torch.Tensor:
+def digit_tensor(digits, window: int, device, below: int | None = None
+                 ) -> torch.Tensor:
     """Exponent digits, made on the host (numpy or a CPU tensor), checked
-    there to lie in [0, 2^window), as a contiguous int32 tensor on
-    `device`.  Digits already on a device raise: checking them would cost
-    a copy back and a synchronize."""
+    there to lie in [0, below) (below = 2^window unless given), as a
+    contiguous int32 tensor on `device`, copied without a host
+    synchronization (``limb.h2d``).  The tensor carries the bound it was
+    checked against (``checked_below``), so a caller may keep it on the
+    device and pass it again.  Any other tensor on a device raises:
+    checking it would cost a copy back and a synchronize."""
+    below = (1 << window) if below is None else below
     if isinstance(digits, torch.Tensor):
         if digits.device.type != "cpu":
+            checked = getattr(digits, "checked_below", None)
+            if checked is not None and checked <= below:
+                return digits
             raise ValueError("exponent digits must be given on the host "
                              f"(got a tensor on {digits.device})")
         digits = digits.numpy()
     d = np.asarray(digits).astype(np.int64)
-    if d.size and (d.min() < 0 or d.max() >= (1 << window)):
+    if d.size and (d.min() < 0 or d.max() >= below):
         raise ValueError(f"exponent digit outside [0, 2^{window})")
-    return torch.from_numpy(np.ascontiguousarray(d.astype(np.int32))).to(
-        device)
+    t = h2d(torch.from_numpy(np.ascontiguousarray(d.astype(np.int32))),
+            device)
+    t.checked_below = below
+    return t
 
 
 def launch(name: str, *args) -> None:

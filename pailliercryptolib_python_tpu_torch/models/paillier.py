@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..ops.limb import (LIMB_BITS, LIMB_DTYPE, big_mul, cond_sub,
+from .. import kernels
+from ..ops.limb import (LIMB_BITS, LIMB_DTYPE, big_mul, cond_sub, h2d,
                         int_to_limbs, ints_to_limbs, limbs_for_bits,
                         limbs_to_ints, normalize, sub_mod_base, to_device)
 from ..ops import mont3 as _m3
@@ -622,7 +623,8 @@ class PublicContext:
         """out[:, j] = ct[:, idx[j]], padded to pad_batch(len(idx))."""
         full = np.zeros(pad_batch(len(idx)), dtype=np.int64)
         full[:len(idx)] = np.asarray(idx, dtype=np.int64)
-        return torch.index_select(ct, 1, torch.from_numpy(full).to(ct.device))
+        return torch.index_select(ct, 1, h2d(torch.from_numpy(full),
+                                             ct.device))
 
     def tree_reduce(self, ct: torch.Tensor, b: int) -> torch.Tensor:
         """HE sum of the first b ciphertexts, total in column 0."""
@@ -680,7 +682,7 @@ def _segment_tree_reduce(ct, ctx, groups, seg, L):
         arr = one.expand(L, groups * P).clone()
         dst = np.concatenate([np.arange(g * P, g * P + seg)
                               for g in range(groups)])
-        dst_t = torch.from_numpy(dst).to(ct.device)
+        dst_t = h2d(torch.from_numpy(dst), ct.device)
         arr[:, dst_t] = ct[:, :groups * seg]
     width = P
     while width > 1:
@@ -727,7 +729,9 @@ class PrivateContext:
     contexts with mm3 weights, else one fused per-element chain over
     [p^2]*B ++ [q^2]*B (``_crt_stage_exp``, K10).  An RNS context also
     holds the fixed-window digits of p-1, q-1 at ``rns_exp_window``
-    (``rdig_p``, ``rdig_q``: ``rns.rns_crt_exp_half``, K6)."""
+    (``rdig_p``, ``rdig_q``: ``rns.rns_crt_exp_half``, K6).  The digits
+    and schedules are host arrays; ``device_digits`` keeps each on the
+    device once it is first used there."""
 
     def __init__(self, pub: PublicContext, p: int, q: int):
         if p * q != pub.n:
@@ -761,6 +765,7 @@ class PrivateContext:
         self.exp_digits_pq = np.ascontiguousarray(mg.exponent_digits(
             [p - 1, q - 1], self.n_win_dec, WINDOW).astype(np.int32))
         self._sq_ctx_cache = {}
+        self._dev_digits = {}
         # limb engine: shared-exponent digits of p-1, q-1 at the window of
         # the JAX package's plan (5 at Lh=129)
         self.dec_window = (_m3.shared_exp_window(Lh)
@@ -815,6 +820,30 @@ class PrivateContext:
         self.p_limbs = col(p, Lq)
         self.q_limbs = col(q, Lq)
 
+    def device_digits(self, name: str, B: int = 0) -> torch.Tensor:
+        """The host digits or schedule `name` (``dig_p``, ``dig_q``,
+        ``rdig_p``, ``rdig_q``, ``rsched_p``, ``rsched_q``; for
+        ``exp_digits_pq`` its (n_win, 2B) columns at batch B) on this
+        context's device: range-checked on the host and copied once,
+        without a host synchronization, and again only when the host
+        array is replaced."""
+        arr = getattr(self, name)
+        hit = self._dev_digits.get(name)
+        if hit is not None and hit[0] is arr and hit[1] == B:
+            return hit[2]
+        dev = self.pub.device
+        if name.startswith("rsched"):
+            t = _rk.schedule_tensor(arr, self.rns_sched_window, dev)
+        elif name.startswith("rdig"):
+            t = kernels.digit_tensor(arr, self.rns_window, dev)
+        elif name.startswith("dig"):
+            t = kernels.digit_tensor(arr, self.dec_window, dev)
+        else:
+            t = kernels.digit_tensor(_pq_digits(arr, self.n_win_dec, B),
+                                     WINDOW, dev)
+        self._dev_digits[name] = (arr, B, t)
+        return t
+
     def _sq_ctx(self, B: int) -> mg.MontCtx:
         """Per-element context over [p^2]*B ++ [q^2]*B (cached by B)."""
         if B not in self._sq_ctx_cache:
@@ -842,7 +871,8 @@ class PrivateContext:
         if self._sq_p.wmu is not None:
             return torch.cat(self._limb_exp_halves(base_m), dim=1)
         return _crt_stage_exp(base_m, self._sq_ctx(B), self.exp_digits_pq,
-                              self.n_win_dec)
+                              self.n_win_dec,
+                              self.device_digits("exp_digits_pq", B))
 
     def _rns_exp_halves(self, base_m: torch.Tensor):
         """Stage 2 on the RNS engine: per half enter, the sliding-window
@@ -852,18 +882,20 @@ class PrivateContext:
                 self._rns_exp_half(base_m[:, B:], "q"))
 
     def _rns_exp_half(self, v: torch.Tensor, which: str) -> torch.Tensor:
-        sched, key, sq = ((self.rsched_p, self.rns_p, self._sq_p)
-                          if which == "p" else
-                          (self.rsched_q, self.rns_q, self._sq_q))
+        key, sq = ((self.rns_p, self._sq_p) if which == "p" else
+                   (self.rns_q, self._sq_q))
+        sched = self.device_digits("rsched_" + which)
         return _rns.rns_crt_exp_sched(v, sched, self.rns_base, key, sq,
                                       self.rns_sched_window, self.Lh)
 
     def _limb_exp_halves(self, base_m: torch.Tensor):
         """Stage 2 on the limb engine with mm3 weights: K7 per half."""
         B = base_m.shape[1] // 2
-        return (_crt_stage_exp_half(base_m[:, :B], self._sq_p, self.dig_p,
+        return (_crt_stage_exp_half(base_m[:, :B], self._sq_p,
+                                    self.device_digits("dig_p"),
                                     self.dec_window),
-                _crt_stage_exp_half(base_m[:, B:], self._sq_q, self.dig_q,
+                _crt_stage_exp_half(base_m[:, B:], self._sq_q,
+                                    self.device_digits("dig_q"),
                                     self.dec_window))
 
     def profile_stages(self, ct_mont: torch.Tensor, b: int) -> dict:
@@ -898,12 +930,15 @@ class PrivateContext:
                 base_m[:, B:], "q")
         elif self._sq_p.wmu is not None:
             stages["stage2_exp_p_half"] = lambda: _crt_stage_exp_half(
-                base_m[:, :B], self._sq_p, self.dig_p, self.dec_window)
+                base_m[:, :B], self._sq_p, self.device_digits("dig_p"),
+                self.dec_window)
             stages["stage2_exp_q_half"] = lambda: _crt_stage_exp_half(
-                base_m[:, B:], self._sq_q, self.dig_q, self.dec_window)
+                base_m[:, B:], self._sq_q, self.device_digits("dig_q"),
+                self.dec_window)
         else:
             stages["stage2_exp"] = lambda: _crt_stage_exp(
-                base_m, self._sq_ctx(B), self.exp_digits_pq, self.n_win_dec)
+                base_m, self._sq_ctx(B), self.exp_digits_pq, self.n_win_dec,
+                self.device_digits("exp_digits_pq", B))
         return {k: synced(f) for k, f in stages.items()}
 
     def free(self) -> None:
@@ -935,15 +970,21 @@ def _crt_stage_exp_half(base_m, sq_ctx, digits, window):
     return mg.from_mont(u, sq_ctx)
 
 
-def _crt_stage_exp(base_m, sq_ctx, exp_digits_pq, n_win_dec):
+def _pq_digits(exp_digits_pq, n_win_dec: int, B: int) -> np.ndarray:
+    """(n_win, 2) host digits of p-1 | q-1 -> their (n_win, 2B) columns."""
+    e = np.asarray(exp_digits_pq)
+    return np.concatenate([np.broadcast_to(e[:, 0:1], (n_win_dec, B)),
+                           np.broadcast_to(e[:, 1:2], (n_win_dec, B))],
+                          axis=1)
+
+
+def _crt_stage_exp(base_m, sq_ctx, exp_digits_pq, n_win_dec, digits=None):
     """Stage 2 fused: one 2B-wide per-element modexp (kernel K10 on CUDA)
     over [p^2]*B ++ [q^2]*B with the exponents p-1 | q-1 (host digits
-    (n_win_dec, 2)), and the Montgomery exit (canonical)."""
-    B = base_m.shape[1] // 2
-    e = np.asarray(exp_digits_pq)
-    digits = np.concatenate([np.broadcast_to(e[:, 0:1], (n_win_dec, B)),
-                             np.broadcast_to(e[:, 1:2], (n_win_dec, B))],
-                            axis=1)
+    (n_win, 2), or their columns as ``PrivateContext.device_digits``
+    keeps them), and the Montgomery exit (canonical)."""
+    if digits is None:
+        digits = _pq_digits(exp_digits_pq, n_win_dec, base_m.shape[1] // 2)
     u = mg.mont_exp(base_m, digits, sq_ctx, window=WINDOW)
     return mg.from_mont(u, sq_ctx)
 
@@ -954,7 +995,7 @@ def _crt_stage_recombine(u, s: PrivateContext):
     Lh, Lq, Ln = s.Lh, s.Lq, s.pub.Ln
     B = u.shape[1] // 2
     one_arr = torch.zeros((Lh, 1), dtype=LIMB_DTYPE, device=u.device)
-    one_arr[0, 0] = 1
+    one_arr[0].fill_(1)             # a kernel, not a host copy
     um1 = sub_mod_base(u, one_arr)
     dinv = torch.cat([s.pinv_R.expand(Lq, B), s.qinv_R.expand(Lq, B)], dim=1)
     t = exact_div(um1, dinv, Lq)                        # (Lq, 2B)

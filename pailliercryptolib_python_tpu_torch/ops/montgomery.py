@@ -193,7 +193,7 @@ def from_mont(a: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
     """aR (< 2n) -> a mod n, fully reduced."""
     L = a.shape[0]
     one_plain = torch.zeros((L, 1), dtype=LIMB_DTYPE, device=a.device)
-    one_plain[0, 0] = 1
+    one_plain[0].fill_(1)           # a kernel, not a host copy
     return cond_sub(mont_mul(a, one_plain, ctx), ctx.n_limbs)
 
 
@@ -295,7 +295,7 @@ def mont_inv(x_mont: torch.Tensor, ctx: MontCtx) -> torch.Tensor:
     a = cond_sub(x_mont.to(LIMB_DTYPE).expand(L, B), m)          # < m
     b = m
     u = torch.zeros((L, B), dtype=LIMB_DTYPE, device=dev)
-    u[0] = 1
+    u[0].fill_(1)
     v = torch.zeros((L, B), dtype=LIMB_DTYPE, device=dev)
 
     def half_mod(w):

@@ -2,6 +2,12 @@
 K5 (``rns_exp_elem_p``) and K6 (``rns_exp_shared_p``) and the packing of
 their operands.
 
+K1 and K2 run on the tile routine ``csrc/rns_tile.cuh``: both base
+extensions of a product are int8 tensor-core products of the extension
+matrices W1, W2 (``tile_weights``) with a tile of digits.
+``rns_mul_tile`` and ``rns_exp_sched_tile`` are that routine's arithmetic
+in plain PyTorch, matrix product included, for the CPU tests.
+
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_rns.py``.  The
 packing is ported from the code, not from its comments (which misstate
 two constants): ``exit_c[0]`` carries 2^32, and the CS correction rows
@@ -153,13 +159,57 @@ def _unpack_c(vec, skc, E1, E2):
             E2, vec[:o2, 11:12].astype(np.int32))
 
 
+# The tile kernels' mma instruction (m16n8k32): W is padded to these.
+MMA_M, MMA_K = 16, 32
+# Columns a CTA of K1 / K2 owns (rns_tile::kNC).
+TILE_COLS = 32
+
+
+def tile_weights(E: np.ndarray, KP: int) -> np.ndarray:
+    """One base extension's matrix for the tile kernels, from its centred
+    stack E = [C_lo; C_hi; D_lo; D_hi] - 128 ((4o, k) int8): W (Mp, 2KP)
+    uint8 with row 2j = [C_lo[j], D_lo[j]] and row 2j+1 = [C_hi[j],
+    D_hi[j]] (the rows of [[C_lo, D_lo], [C_hi, D_hi]] interleaved, so
+    S_A[j] and S_B[j] are neighbouring rows of W . X), each part
+    zero-padded from k to KP columns and the rows from 2o to Mp, a
+    multiple of MMA_M.  The bytes are the planes themselves (E + 128):
+    the tensor cores multiply unsigned bytes, and then W . X is the true
+    dot with no correction term."""
+    o = E.shape[0] // 4
+    k = E.shape[1]
+    U = (E.astype(np.int16) + 128).astype(np.uint8)
+    Mp = -(-2 * o // MMA_M) * MMA_M
+    W = np.zeros((Mp, 2 * KP), dtype=np.uint8)
+    W[0:2 * o:2, :k] = U[:o]                    # C_lo
+    W[1:2 * o:2, :k] = U[o:2 * o]               # C_hi
+    W[0:2 * o:2, KP:KP + k] = U[2 * o:3 * o]    # D_lo
+    W[1:2 * o:2, KP:KP + k] = U[3 * o:]         # D_hi
+    return W
+
+
+def fragment_order(W: np.ndarray) -> np.ndarray:
+    """W (MT*16, KS*32) in mma.m16n8k32 A-fragment order, flat: for
+    m-tile mt, k-step ks and lane L = 4g + t, the 16 bytes at
+    ((mt*KS + ks)*32 + L)*16 are registers a0..a3: rows mt*16 + g (a0,
+    a2) and + 8 (a1, a3), columns ks*32 + 4t + [0, 4) (a0, a1) and + 16
+    (a2, a3)."""
+    MT, KS = W.shape[0] // MMA_M, W.shape[1] // MMA_K
+    # row = mt*16 + h*8 + g, col = ks*32 + c*16 + t*4 + b
+    return np.ascontiguousarray(W.reshape(MT, 2, 8, KS, 2, 4, 4).transpose(
+        0, 3, 2, 5, 4, 1, 6)).reshape(-1)
+
+
 def kernel_operands(base: rns.RnsBase, key: rns.RnsModulus,
                     device: torch.device) -> dict:
     """Device copy of the operand bundle, memoized on the key.
 
-    The E stacks are zero-padded along k to KP, a multiple of 16, so the
-    kernel reads each row in 16-byte vectors (the pad columns meet zero
-    digits and add nothing)."""
+    The E stacks (K5, K6) are zero-padded along k to KP, a multiple of
+    16, so the kernel reads each row in 16-byte vectors (the pad columns
+    meet zero digits and add nothing).  W1, W2 are ``tile_weights`` of
+    the stacks (uint8 (Mp, 2KP), what ``rns_mul_tile`` multiplies) and
+    W1f, W2f the same bytes in ``fragment_order`` (what K1 and K2 read).
+    The stacks are key-independent, so the p^2 and q^2 bundles of one
+    base hold equal W."""
     ops = key._dev_ops
     if ops is not None and ops["vec"].device == device:
         return ops
@@ -175,10 +225,77 @@ def kernel_operands(base: rns.RnsBase, key: rns.RnsModulus,
     u32 = lambda x: torch.from_numpy(
         np.ascontiguousarray(np.asarray(x, dtype=np.uint32)).view(np.int32)
     ).to(device)
+    W1, W2 = (tile_weights(np.asarray(p[f]), KP) for f in ("E1", "E2"))
+    dev = lambda a: torch.from_numpy(a).to(device)
     ops = dict(vec=u32(p["vec"]), skc=u32(p["skc"]), E1=stack(p["E1"]),
-               E2=stack(p["E2"]), KP=KP)
+               E2=stack(p["E2"]), KP=KP, W1=dev(W1), W2=dev(W2),
+               W1f=dev(fragment_order(W1)), W2f=dev(fragment_order(W2)))
     key._dev_ops = ops
     return ops
+
+
+# ---------------------------------------------------------------------------
+# The tile routine in plain PyTorch (CPU; int64 matrix products).
+# ---------------------------------------------------------------------------
+
+def _digit_matrix(xi: torch.Tensor, KP: int) -> torch.Tensor:
+    """k digits (k, B) -> X (2KP, B): low bytes in rows [0, k), high
+    bytes in rows [KP, KP+k), zero elsewhere (the tile's digit layout)."""
+    k, B = xi.shape
+    X = torch.zeros((2 * KP, B), dtype=torch.int64, device=xi.device)
+    X[:k] = xi & 0xFF
+    X[KP:KP + k] = xi >> 8
+    return X
+
+
+def _extend(W: torch.Tensor, xi: torch.Tensor, KP: int, o: int):
+    """(S_A, S_B) of one base extension: W . X, rows de-interleaved."""
+    P = torch.matmul(W.to(torch.int64), _digit_matrix(xi, KP))
+    return P[0:2 * o:2], P[1:2 * o:2]
+
+
+def rns_mul_tile(X, Y, base: rns.RnsBase, key: rns.RnsModulus,
+                 ops: dict) -> torch.Tensor:
+    """One RNS-Montgomery product as the tile kernels compute it, with
+    the extensions as products of ``ops["W1"]``, ``ops["W2"]`` (from
+    ``kernel_operands``) and the digit matrix.  Equals
+    ``rns.rns_mont_mul`` limb for limb."""
+    k, KP = base.k, ops["KP"]
+    nlev = rns.combine_levels(base.mbits)
+    mods, n0 = base.mods, base.n0
+    mB, n0B = mods[:k], n0[:k]
+    mT, n0T = mods[k:], n0[k:]
+    mR, n0R = mods[2 * k:], n0[2 * k:]
+    S = rns._cmul(X.to(torch.int64), Y.to(torch.int64), mods, n0)
+    xi = rns._cmul_shoup(S[:k], key.K1s, key.K1sh, mB)
+    S_A, S_B = _extend(ops["W1"], xi, KP, k + 1)
+    Q = rns._combine_dual(S_A, S_B, mT, n0T, nlev)
+    Rp = rns._cmul2(S[k:], key.u5, Q, key.v5, mT, n0T)
+    xip = rns._cmul_shoup(Rp[:k], base.K2s, base.K2sh, mods[k:2 * k])
+    T_A, T_B = _extend(ops["W2"], xip, KP, k + 1)
+    Zh = rns._combine_dual(T_A, T_B, torch.cat([mB, mR]),
+                           torch.cat([n0B, n0R]), nlev)
+    delta = rns._submod(rns._cmul(Zh[k:], base.exit_c[0:1], mR, n0R),
+                        rns._cmul(Rp[k:], base.exit_c[1:2], mR, n0R), mR)
+    Z = rns._cmul2(Zh[:k], key.w9b, delta.expand(k, delta.shape[1]),
+                   key.w9n, mB, n0B)
+    return torch.cat([Z, Rp], dim=0).to(LIMB_DTYPE)
+
+
+def rns_exp_sched_tile(X, sched, base: rns.RnsBase, key: rns.RnsModulus,
+                       window: int, ops: dict) -> torch.Tensor:
+    """K2's chain over ``rns_mul_tile`` in the kernel's order: c^2, the
+    odd powers T[t] = T[t-1] c^2, then from `one` every schedule entry
+    (0 squares, t multiplies by T[t-1])."""
+    mul = lambda a, b: rns_mul_tile(a, b, base, key, ops)
+    c2 = mul(X, X)
+    table = [X.to(LIMB_DTYPE)]
+    for _ in range((1 << (window - 1)) - 1):
+        table.append(mul(table[-1], c2))
+    acc = rns.rns_one_state(base, key, X.shape[1])
+    for d in np.asarray(sched).reshape(-1).tolist():
+        acc = mul(acc, acc if d == 0 else table[d - 1])
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -204,50 +321,53 @@ def _rns_mul_cuda(A, Bst, base, key) -> torch.Tensor:
     a, b = _state(A, CH, B), _state(Bst, CH, B)
     p = kernel_operands(base, key, a.device)
     out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=a.device)
-    kernels.launch("rns_mul", a, b, out, p["vec"], p["skc"], p["E1"],
-                   p["E2"], base.k, CH, p["KP"],
+    kernels.launch("rns_mul", a, b, out, p["vec"], p["skc"], p["W1f"],
+                   p["W2f"], base.k, CH, p["KP"],
                    rns.combine_levels(base.mbits), B)
     return out
 
 
-def _host_schedule(sched, window: int) -> np.ndarray:
-    """The schedule as host int32, each entry checked to lie in
-    [0, 2^(window-1)].  A schedule already on a device raises: checking
-    it would cost a copy back and a synchronize."""
+def schedule_tensor(sched, window: int, device) -> torch.Tensor:
+    """The schedule as a contiguous int32 tensor on `device`, each entry
+    checked on the host to lie in [0, 2^(window-1)] and copied without a
+    host synchronization.  A tensor this function made may be passed
+    again (``kernels.digit_tensor``); any other schedule already on a
+    device raises: checking it would cost a copy back and a synchronize."""
+    below = (1 << (window - 1)) + 1
+    if isinstance(sched, torch.Tensor) and sched.device.type != "cpu":
+        return kernels.digit_tensor(sched, window, device, below)
     if isinstance(sched, torch.Tensor):
-        if sched.device.type != "cpu":
-            raise ValueError("the schedule must be given on the host "
-                             f"(got a tensor on {sched.device})")
         sched = sched.numpy()
-    sched = np.ascontiguousarray(np.asarray(sched).astype(np.int32))
-    if sched.size and (sched.max() > (1 << (window - 1)) or sched.min() < 0):
+    sched = np.asarray(sched).astype(np.int32).reshape(-1)
+    if sched.size and (sched.max() >= below or sched.min() < 0):
         raise ValueError("rns_exp_sched_p: schedule entry out of range")
-    return sched
+    return kernels.digit_tensor(sched, window, device, below)
 
 
 def rns_exp_sched_p(X: torch.Tensor, sched, base: rns.RnsBase,
                     key: rns.RnsModulus, window: int) -> torch.Tensor:
     """The whole sliding-window chain (K2 on CUDA): X (CH, B) entered
     state, sched (n_ops,) from rns.sliding_schedule, on the host (numpy
-    or a CPU tensor).  Returns the state of c^e * M."""
-    sched = _host_schedule(sched, window)
+    or a CPU tensor) or as ``schedule_tensor`` made it.  Returns the
+    state of c^e * M."""
+    sched = schedule_tensor(sched, window, X.device)
     if X.device.type == "cpu":
         return rns.rns_exp_sched(X, sched, base, key, window)
     return _rns_exp_sched_cuda(X, sched, base, key, window)
 
 
 def _rns_exp_sched_cuda(X, sched, base, key, window) -> torch.Tensor:
-    kernels.require_cuda(X)
+    kernels.require_cuda(X, sched)
     CH, B = base.CH, X.shape[1]
     x = _state(X, CH, B)
-    sched = torch.from_numpy(sched).to(x.device)
     p = kernel_operands(base, key, x.device)
     out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
-    tab = torch.empty((1 << (window - 1), CH, B), dtype=LIMB_DTYPE,
-                      device=x.device)
-    c2 = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
-    kernels.launch("rns_exp_sched", x, sched, sched.shape[0], out, tab, c2,
-                   p["vec"], p["skc"], p["E1"], p["E2"], base.k, CH,
+    # the odd powers, tile by tile: (tiles, 2^(window-1), CH, TILE_COLS)
+    # uint16 states (int16 storage)
+    tab = torch.empty((-(-B // TILE_COLS), 1 << (window - 1), CH,
+                       TILE_COLS), dtype=torch.int16, device=x.device)
+    kernels.launch("rns_exp_sched", x, sched, sched.shape[0], out, tab,
+                   p["vec"], p["skc"], p["W1f"], p["W2f"], base.k, CH,
                    p["KP"], rns.combine_levels(base.mbits), window, B)
     return out
 

@@ -174,7 +174,10 @@ def test_out_of_slice_operators_raise(monkeypatch):
 def test_port_reads_no_file_of_the_jax_package():
     """Outside docstrings and comments, no source of the port names the
     JAX package: it neither imports it nor builds a file of it (the
-    native helpers build the port's own copy of sieve.c)."""
+    native helpers build the port's own copy of sieve.c).  The one
+    exception is the pickle loader's table (``api._JAX_MODULES``), whose
+    keys are the JAX package's module names as strings, each mapped onto
+    a module of the port."""
     import ast
     import re
     from pailliercryptolib_python_tpu_torch import native
@@ -204,7 +207,10 @@ def test_port_reads_no_file_of_the_jax_package():
                 elif isinstance(node, ast.ImportFrom):
                     names = [node.module or ""]
                 offenders += [(path, v) for v in names if jax_pkg.search(v)]
-    assert offenders == []
+    from pailliercryptolib_python_tpu_torch import api
+    assert all(not jax_pkg.search(v) for v in api._JAX_MODULES.values())
+    table = {(os.path.join(pkg, "api.py"), k) for k in api._JAX_MODULES}
+    assert [o for o in offenders if o not in table] == []
 
 
 def _mont(ctx):

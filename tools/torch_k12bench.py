@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Time kernels K1 (``rns_mul``) and K2 (``rns_exp_sched``) of the port in
+one checkout, at their main-path shapes, on one GPU.
+
+    python3 tools/torch_k12bench.py [TREE]
+
+TREE (default: this repository) is the root of a checkout whose
+``pailliercryptolib_python_tpu_torch`` is imported; its kernels build
+into that checkout's ``build/``.  To compare two commits on one card,
+unpack the other one into a git-ignored directory (``git archive``) and
+run the script on both trees in turns (old, new, new, old) on one
+card.  Shapes: K1 one RNS product at the 2048-bit key's n^2
+base (CH=521), B=4096; K2 the decrypt chain of p-1 at the p^2 base
+(CH=261, window 6, 1195 schedule entries), B=4096.  The inputs come from
+a fixed seed, so every tree gets the same ones, and the line printed
+carries sums of the outputs for a cross-check.  CUDA events, one warm-up
+call.  Prints one line ``K12BENCH {json}`` with the card's name and
+power limit.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+
+def main(argv) -> int:
+    import torch
+    tree = os.path.abspath(argv[0] if argv else os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    sys.path.insert(0, tree)
+    from pailliercryptolib_python_tpu_torch import kernels
+    from pailliercryptolib_python_tpu_torch.ops import rns
+    from pailliercryptolib_python_tpu_torch.ops import rns_kernels as rk
+    from pailliercryptolib_python_tpu_torch.utils.fixtures import \
+        fixed_key_ints
+
+    dev = torch.device("cuda", 0)
+    kernels.lib()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+    def ms_of(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def setup(m, bits):
+        base = rns.RnsBase.for_bits(-(-bits // 16) * 16, dev)
+        key = rns.RnsModulus.build(base, m, (m.bit_length() + 2 + 15) // 16)
+        return base, key
+
+    def state(rng, base, B):
+        mods = base.mods.cpu().numpy()
+        st = (rng.integers(0, 1 << 16, size=(base.CH, B)) % mods).astype(
+            np.int32)
+        return torch.from_numpy(st).to(dev)
+
+    kd = fixed_key_ints(2048)
+    n, p = kd["n"], kd["p"]
+    rng = np.random.default_rng(42)
+    base, key = setup(n * n, 2 * 2048 + 2)
+    X, Y = state(rng, base, 4096), state(rng, base, 4096)
+    k1 = ms_of(lambda: rk.rns_mul(X, Y, base, key), 50)
+    out1 = rk.rns_mul(X, Y, base, key)
+    base, key = setup(p * p, (p * p).bit_length())
+    window = rk.plan_sched(base.CH)
+    e = p - 1
+    sched = rns.sliding_schedule(e, window, e.bit_length())
+    Xs = state(rng, base, 4096)
+    first = ms_of(lambda: rk.rns_exp_sched_p(Xs, sched, base, key, window),
+                  1)
+    reps = max(1, min(10, int(2000 // max(first, 1e-3))))
+    k2 = ms_of(lambda: rk.rns_exp_sched_p(Xs, sched, base, key, window),
+               reps)
+    out2 = rk.rns_exp_sched_p(Xs, sched, base, key, window)
+    print("K12BENCH " + json.dumps({
+        "tree": tree, "card": card, "K1_ms": k1, "K1_shape": "CH=521 B=4096",
+        "K2_ms": k2, "K2_shape": f"CH=261 B=4096 w={window} "
+                                 f"{len(sched)} ops",
+        "K2_reps": reps, "K1_out_sum": int(out1.long().sum()),
+        "K2_out_sum": int(out2.long().sum())}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
