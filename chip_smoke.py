@@ -11,15 +11,18 @@ failure (so any failure exits non-zero):
 2. build the fifteen CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
    git-ignored ``build/``), with the ``-Xptxas -v`` report of the tile
-   kernels K1 and K2 (``csrc/rns_tile.cuh``), the shared memory their
-   launches ask for, and their tensor-core (IMMA) instructions in the
-   SASS where the toolkit has ``cuobjdump``;
+   kernels K1, K2, K5 (``csrc/rns_tile.cuh``) and K3
+   (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
+   and their tensor-core (IMMA) instructions in the SASS where the
+   toolkit has ``cuobjdump`` (none is a failure);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
-   kernel's bound (K1 and K2 also at a ragged batch and at one column,
-   K2 also where W1, W2 do not fit shared memory; K9 and K10 at the
-   fused CRT decrypt's shape, K10's eager twin alone ~32 s; K9 on a
-   weightless n^2 also against K3; K4 at n^2 and, where it squares
+   kernel's bound (K1, K2 and K5 also at a ragged batch and at one
+   column, K2 also where W1, W2 do not fit shared memory; K3 at L=257
+   and 129 also at B=4095, 64, 1 and with b an (L, 1) broadcast, and at
+   L=520, its largest, B=64; K9 and
+   K10 at the fused CRT decrypt's shape, K10's eager twin alone ~32 s;
+   K9 on a weightless n^2 also against K3; K4 at n^2 and, where it squares
    through K8's routine, at p^2, there also against K10; K6 at the
    decrypt chain's shape, K8 at L=257/129/65 also against K3(a, a),
    K11 at the limb encrypt chain's shape and per-element against a K9
@@ -260,18 +263,23 @@ def random_state(rng, base, B: int, dev):
     return torch.from_numpy(st).to(dev)
 
 
+TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
+                "mm3_mul_kernel")
+
+
 def tile_kernel_report() -> None:
-    """Phase 2, K1 and K2: nvcc's -Xptxas -v lines of the two tile
-    kernels (registers, spills; their shared memory is dynamic, so the
-    bytes each launch asks for at the main path's CH are printed beside),
-    and, where the toolkit has cuobjdump, the tensor-core instructions
-    (IMMA for mma.sync) in each kernel's SASS."""
+    """Phase 2, the tensor-core tile kernels (K1, K2, K5 on
+    ``csrc/rns_tile.cuh``, K3 on ``csrc/mm3_tile.cuh``): nvcc's -Xptxas
+    -v lines (registers, spills; their shared memory is dynamic, so the
+    bytes each launch asks for at the main path's shape are printed
+    beside), and, where the toolkit has cuobjdump, the tensor-core
+    instructions (IMMA for mma.sync) in each kernel's SASS; fails when
+    one of them has none."""
     from pailliercryptolib_python_tpu_torch import kernels
     lines, cur = {}, None
     for line in kernels.build_log.splitlines():
         if "Compiling entry function" in line:
-            cur = next((k for k in ("rns_mul_kernel", "rns_exp_sched_kernel")
-                        if k in line), None)
+            cur = next((k for k in TILE_KERNELS if k in line), None)
             if cur:
                 cur = line.split("'")[1]
                 lines[cur] = []
@@ -283,17 +291,25 @@ def tile_kernel_report() -> None:
         for line in ls:
             print("      " + line)
     # dynamic shared memory of a launch (rns.cu: states as uint16, the
-    # digit tile of 32 rows of 2KP + 16 bytes, delta; K2 also W1 + W2)
+    # digit tile of 32 rows of 2KP + 16 bytes, delta; K2 also W1 + W2
+    # where they fit, K5 its 16 windows' digits; mm3_tile.cuh:
+    # two rows a column of 4L + 512 and 8L + 8 bytes, each 16 mod 32)
     for CH, k in ((521, 260), (261, 130)):
         KP = -(-k // 16) * 16
         work = 32 * (2 * KP + 16) + 128
         w = 2 * (-(-2 * (k + 1) // 16)) * (2 * KP // 32) * 512
         k2 = 2 * CH * 64 + work
+        k5 = k2 + 16 * 32
+        fit = lambda b: ("" if b + w <= 232448 else
+                         f" (over the 232448 B limit: W from global memory, "
+                         f"{b} B)")
         print(f"    CH={CH}: K1 asks {CH * 64 + work} B of shared memory, "
-              f"K2 {k2 + w} B with W1 + W2 resident"
-              + ("" if k2 + w <= 232448 else
-                 f" (over the 232448 B limit: W from global memory, "
-                 f"{k2} B)"))
+              f"K2 {k2 + w} B with W1 + W2 resident{fit(k2)}, K5 (16 "
+              f"windows) {k5} B (W1 + W2 from global memory)")
+    s16 = lambda b: -(-(b - 16) // 32) * 32 + 16
+    for L in (257, 129, 520):
+        print(f"    L={L}: K3 asks {32 * (s16(4 * L + 512) + s16(8 * L + 8))} "
+              f"B of shared memory")
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", kernels.LIB_PATH],
@@ -306,10 +322,12 @@ def tile_kernel_report() -> None:
             elif fn and ("IMMA" in line or "IGMMA" in line):
                 counts[fn] = counts.get(fn, 0) + 1
         tile = {f: c for f, c in counts.items()
-                if "rns_mul_kernel" in f or "rns_exp_sched_kernel" in f}
+                if any(k in f for k in TILE_KERNELS)}
         print(f"    tensor-core instructions (IMMA/IGMMA) in SASS: {tile}")
-        if len(tile) < 3:
-            raise AssertionError("K1 / K2 lack their IMMA instructions")
+        missing = [k for k in TILE_KERNELS if not any(k in f for f in tile)]
+        if missing or len(tile) < 5:    # K2 in two instantiations
+            raise AssertionError(f"tile kernels lack their IMMA instructions: "
+                                 f"{missing or tile}")
 
 
 def check_kernels(dev, kd) -> dict:
@@ -357,6 +375,21 @@ def check_kernels(dev, kd) -> dict:
                nbytes(a, b, got, ctx.n_limbs), limb_ops(L, 1, BATCH),
                headline=m == n * n)
         if m != p:
+            # K3's tile masks a ragged last tile; the narrow batches of the
+            # inversion tree's upper levels; b as an (L, 1) broadcast
+            for Bn, bc in ((BATCH, True), (BATCH - 1, False), (64, False),
+                           (1, False)):
+                an = a[:, :Bn].contiguous()
+                bn = b[:, :1].contiguous() if bc else b[:, :Bn].contiguous()
+                got = mont3.mm3_mul(an, bn, ctx)
+                want = mont3.mm3_mul_plain(an, bn, ctx.wmu, ctx.wm, ctx.off1,
+                                           ctx.off2)
+                record("mm3_mul", got, want,
+                       f"L={L} B={Bn}" + (", b (L, 1)" if bc else ""),
+                       ms_of(lambda: mont3.mm3_mul(an, bn, ctx), 5),
+                       ms_of(lambda: mont3.mm3_mul_plain(
+                           an, bn, ctx.wmu, ctx.wm, ctx.off1, ctx.off2), 1),
+                       nbytes(an, bn, got, ctx.n_limbs), limb_ops(L, 1, Bn))
             # K4: short exponents (the exponent-alignment shape), win_start>0
             # (host digits, as mul_pt passes them).  At n^2 (L=257) it
             # squares through the product, at p^2 (L=129) through K8's
@@ -424,6 +457,22 @@ def check_kernels(dev, kd) -> dict:
                                         ctx.n_limbs),
                        limb_ops(L, tbl + nw * (window + 1), BATCH),
                        headline=nw == nwd)
+    # K3 at its largest L (kMaxLimbs, 217,088 B of shared memory): a
+    # random odd modulus the size of a 4096-bit key's n^2 context
+    import random
+    bits = 16 * 520 - 2
+    m = random.Random(SEED).getrandbits(bits) | (1 << (bits - 1)) | 1
+    ctx = mg.MontCtx.for_modulus(m, device=dev)
+    L = ctx.num_limbs
+    a = random_cols(rng, [m] * 64, L, dev)
+    b = random_cols(rng, [m] * 64, L, dev)
+    got = mont3.mm3_mul(a, b, ctx)
+    want = mont3.mm3_mul_plain(a, b, ctx.wmu, ctx.wm, ctx.off1, ctx.off2)
+    record("mm3_mul", got, want, f"L={L} B=64",
+           ms_of(lambda: mont3.mm3_mul(a, b, ctx), 5),
+           ms_of(lambda: mont3.mm3_mul_plain(a, b, ctx.wmu, ctx.wm,
+                                             ctx.off1, ctx.off2), 1),
+           nbytes(a, b, got, ctx.n_limbs), limb_ops(L, 1, 64))
     # K1 at the encrypt (n^2) and decrypt (p^2) bases: the main path's
     # width, a ragged batch and one column (the tile kernel masks the
     # last tile's columns)
@@ -432,8 +481,6 @@ def check_kernels(dev, kd) -> dict:
         L = (m.bit_length() + 2 + 15) // 16
         key = rns.RnsModulus.build(base, m, L)
         ops_t = rk.kernel_operands(base, key, dev)
-        const_bytes = nbytes(ops_t["vec"], ops_t["skc"], ops_t["E1"],
-                             ops_t["E2"])
         tile_bytes = nbytes(ops_t["vec"], ops_t["skc"], ops_t["W1f"],
                             ops_t["W2f"])
         X = random_state(rng, base, BATCH, dev)
@@ -452,11 +499,13 @@ def check_kernels(dev, kd) -> dict:
         if m == n * n:
             # K5 at the ct*pt base: 4 windows at B=256, then the main
             # path's shape, B=4096 and 16 windows (53-bit exponents bucket
-            # to 16); host digits, as mul_pt passes them
+            # to 16), a ragged batch and one column; the digits cover
+            # 0..15; host digits, as mul_pt passes them
             w = 4
-            for B, nw in ((256, 4), (BATCH, 16)):
+            for B, nw in ((256, 4), (BATCH, 16), (BATCH - 1, 16), (1, 16)):
                 Xe = X if B == BATCH else random_state(rng, base, B, dev)
                 dig = rng.integers(0, 1 << w, size=(nw, B)).astype(np.int32)
+                dig.reshape(-1)[:1 << w] = np.arange(1 << w)
                 dig_dev = torch.from_numpy(dig).to(dev)
                 got = rk.rns_exp_elem_p(Xe, dig, base, key, w)
                 want, plain_ms = timed(lambda: rns.rns_exp_elem(
@@ -465,7 +514,7 @@ def check_kernels(dev, kd) -> dict:
                        f"CH={base.CH} B={B} w={w} {nw} windows",
                        ms_of(lambda: rk.rns_exp_elem_p(Xe, dig, base, key,
                                                        w), 2),
-                       plain_ms, nbytes(Xe, dig_dev, got) + const_bytes,
+                       plain_ms, nbytes(Xe, dig_dev, got) + tile_bytes,
                        rns_ops(base.k, 14 + nw * (w + 1), B),
                        headline=B == BATCH)
     # K2 at the decrypt base: a truncated schedule at B=256, then the

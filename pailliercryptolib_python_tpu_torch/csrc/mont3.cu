@@ -15,27 +15,30 @@
 //    _mm3_sqr_kernel (:273, wrapper mm3_sqr_p :280, body _mm3_sqr_val
 //    :224 over _mm2_square, pallas_mont2.py:235): a*a*R^-1 mod m.
 //
-// Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs; one
-// thread owns one column (one big number) and walks its limbs with
-// stride B, so a warp's loads of one limb row are coalesced.
+// Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs.
 //
-// What the TPU kernel did and what this does instead.  The TPU kernel
-// reduced with two signed-byte Toeplitz matrix products on the MXU.
-// Hopper has native 32x32-bit integer multiplies, so this kernel runs a
-// plain CIOS reduction with 16-bit digits: every partial sum
+// K3 runs on the tile routine of mm3_tile.cuh: one CTA of 512 threads
+// owns 32 columns, spreads the schoolbook product a*b over its threads
+// by (column, block of 128 output limbs), and does the Montgomery
+// reduction as the TPU kernel did, two Toeplitz byte products (q = T_lo
+// mu mod R, then T + q*m), here as mma.sync m16n8k32 u8 products of the
+// host-built W_mu, W_m (ops/mont3.py tile_weights, kept on the MontCtx)
+// with the tile's bytes, read from global memory in fragment order.
+// mm3_tile.cuh gives the shared-memory layout (115,712 B at L=257,
+// 217,088 B at L=520; the launcher refuses a shape that does not fit) and
+// what bounds it (the L^2 multiply-adds of the product per column).  The
+// result (a*b + q*m)/R with q = -a*b*m^-1 mod R is unique, so it equals
+// the TPU kernel, the plain twin and the CIOS kernels limb for limb.
+//
+// K4, K7 and K8: one thread owns one column (one big number) and walks
+// its limbs with stride B, so a warp's loads of one limb row are
+// coalesced; CIOS with 16-bit digits (cios.cuh): every partial sum
 // t + a_i*b_j + carry stays below 2^32, so the carries are exact in one
-// 32-bit register.  The result (a*b + q*m)/R with q = -a*b*m^-1 mod R is
-// unique, so it equals the TPU kernel's limb for limb (and the plain
-// twin's, ops/mont3.py).
-//
-// What bounds it on the H100.  Each product is L^2 (66k at L=257)
-// dependent multiply-adds per column on the integer pipes; the running
-// sum t (L+2 words) lives in per-thread local memory, so every inner
-// step reads and writes it through L1/L2.  With one thread per column a
-// 4096-wide batch fills only 128 warps on 132 SMs: the kernel is
-// latency-bound, not throughput-bound.  Later work: 32-bit digits with
-// __umulhi (4x fewer steps), t in registers/shared memory, and several
-// threads per column.
+// 32-bit register.  Each product is L^2 (66k at L=257) dependent
+// multiply-adds per column, and the running sum lives in per-thread
+// local memory; with one thread per column a 4096-wide batch fills only
+// 128 warps on 132 SMs, so they are latency-bound.  They move onto the
+// tile routine next.
 //
 // K4 keeps its 16-entry table in a global scratch the wrapper allocates
 // ((16, L, B), coalesced like the operands; 67 MB at L=257, B=4096) and
@@ -68,26 +71,26 @@
 // products, so both rows read the same bound for the same function
 // (the kernel itself runs L(L+1)/2 + L^2 multiplies); bytes: a read
 // once, the modulus, the output written once.  Bound by per-thread
-// latency like K3: the 2L-word running array lives in local memory.
+// latency: the 2L-word running array lives in local memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "cios.cuh"
+#include "mm3_tile.cuh"
 
 namespace {
 
 constexpr int kMaxLimbs = 520;      // MontCtx.MXU_MAX_LIMBS
 constexpr int kThreads = 32;        // one warp: spreads a batch over more SMs
 
-__global__ void mm3_mul_kernel(const uint32_t* a, const uint32_t* b,
-                               uint32_t* out, const uint32_t* n, uint32_t n0,
-                               int L, int B) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  uint32_t t[kMaxLimbs + 2];
-  cios::mont_mul_col(cios::Strided{a + col, B}, b + col, B, out + col, B, n,
-                     1, n0, L, t);
+using rns_tile::kMaxShared;
+
+__global__ void __launch_bounds__(mm3_tile::kThreads, 1)
+mm3_mul_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out,
+               mm3_tile::Ops op, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mm3_tile::tile_mul(a, b, out, op, blockIdx.x * mm3_tile::kNC, B, smem);
 }
 
 template <bool kSqr>
@@ -129,12 +132,21 @@ inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 }  // namespace
 
 extern "C" int pct_mm3_mul(const uint32_t* a, const uint32_t* b,
-                           uint32_t* out, const uint32_t* n, unsigned n0,
-                           int L, int B, void* stream) {
+                           uint32_t* out, const uint8_t* Wmu,
+                           const uint8_t* Wm, int L, int B, void* stream) {
   if (L < 2 || L > kMaxLimbs || B < 1) return cudaErrorInvalidValue;
-  mm3_mul_kernel<<<blocks_for(B), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a, b, out, n, n0, L,
-                                                        B);
+  const size_t smem = mm3_tile::smem_bytes(L);
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> raised{0};
+  const cudaError_t e = rns_tile::allow_max_shared(mm3_mul_kernel, raised);
+  if (e != cudaSuccess) return e;
+  const mm3_tile::Ops op{reinterpret_cast<const uint4*>(Wmu),
+                         reinterpret_cast<const uint4*>(Wm), L,
+                         (2 * L + 15) / 16, (4 * L + 15) / 16,
+                         (2 * L + 31) / 32};
+  mm3_mul_kernel<<<(B + mm3_tile::kNC - 1) / mm3_tile::kNC,
+                   mm3_tile::kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(a, b, out, op, B);
   return cudaGetLastError();
 }
 

@@ -16,7 +16,7 @@
 //    rns_exp_shared_p :639): the fixed-window chain c^e * M with one
 //    exponent shared by the batch (a CRT half of decrypt).
 //
-// K1 and K2 run on the tile routine of rns_tile.cuh: one CTA owns
+// K1, K2 and K5 run on the tile routine of rns_tile.cuh: one CTA owns
 // rns_tile::kNC = 32 columns, its states lie in shared memory as uint16,
 // and both base extensions of every product are int8 tensor-core
 // products (mma.sync m16n8k32 u8) of the host-built extension matrices
@@ -52,7 +52,27 @@
 // table step, 32 times the table traffic; the README records the
 // key-derived index.
 //
-// The per-column routine below (K5, K6): one thread owns one column.
+// K5 (the per-element chain of ct*pt): one CTA runs every product of
+// its tile's chain, 2^w - 2 to build the table and w + 1 a window (94 at
+// w=4 and 16 windows), each one tile_mul, in the TPU kernel's order so
+// every state equals the plain twin's: T[0] = one, T[1] = X, T[t] =
+// T[t-1] X; acc = one; per window w squarings, then acc * T[d], a zero
+// digit multiplying by `one`.  Shared memory holds the accumulator and X
+// as uint16, the digit tile, delta and the tile's (n_win, 32) digits as
+// bytes: 84,736 + 32 n_win B at CH=521.  W1, W2 are read from global
+// memory, as in K1, at every CH; the launcher refuses a shape past
+// 232,448 B.  The table lies in global
+// scratch the wrapper allocates, tile by tile ((tiles, 2^w, CH, 32)
+// uint16: 68 MB at CH=521, B=4096, w=4), so one entry of one tile is one
+// contiguous block of CH x 64 bytes.  The digits are the plaintext's, so
+// the entry is chosen as on the TPU (:530-534) by a constant-access
+// one-hot select inside the product's cmul pass: each (channel, column)
+// reads all 2^w entries and keeps the one whose index equals its digit
+// by mask; the digit never forms an address.  Bound: the chain's
+// products, each K1's work; the select reads 2^w x CH x 64 B per tile and
+// window (1.1 GB at CH=521, B=4096, 16 windows, from L2 and HBM).
+//
+// The per-column routine below (K6): one thread owns one column.
 // One product (see ops/rns.py rns_mont_mul, its plain twin):
 //   S   = cmul(X, Y)                       all CH channels
 //   xi  = shoup(S[B])                      k digits
@@ -73,25 +93,13 @@
 // thread of a warp reads the same E row, so each 16-byte E load is one
 // broadcast transaction.  The state is updated in place in the output
 // column.  E is read through L1/L2.  With one thread per column a
-// 4096-wide batch fills only 128 warps on 132 SMs, so these kernels are
-// bound by instruction latency, 2-3 orders of magnitude above their
-// bound; ROADMAP R1 moves them onto rns_tile.cuh next.
+// 4096-wide batch fills only 128 warps on 132 SMs, so the kernel is
+// bound by instruction latency, 2-3 orders of magnitude above its
+// bound; ROADMAP R1 moves it onto rns_tile.cuh next.
 //
-// K5 keeps its 2^w-entry table [one, X, X^2, ..., X^(2^w-1)] ((16, CH, B)
-// at w=4: 137 MB at CH=521, B=4096) in global scratch the wrapper
-// allocates, built by successive products with X in the TPU kernel's
-// order, so every state equals the plain twin's.  The accumulator lives
-// in the output column.  The digits are the plaintext's, so the entry
-// is chosen as on the TPU (:530-534) by a constant-access one-hot
-// select: all 2^w entries of every channel are read and masked, and the
-// digit never forms an address.  A zero digit multiplies by `one`.
-// Bound: the same per-product latency as K1 ((2^w - 2) + n_win (w + 1)
-// products per column; ops model 2 extensions x 4(k+1)k int8 MACs per
-// product and column), plus 2^w x CH table reads per window.
-//
-// K6 keeps K5's table [one, X, X^2, ..., X^(2^w-1)] ((32, CH, B) at w=5:
+// K6 keeps a table [one, X, X^2, ..., X^(2^w-1)] ((32, CH, B) at w=5:
 // 137 MB at CH=261, B=4096) in global scratch the wrapper allocates,
-// built in the same order, and the accumulator in the output column.
+// built in K5's order, and the accumulator in the output column.
 // Per window: w squarings, then one product by T[digit], a zero digit
 // multiplying by `one`, so every state equals the plain twin's.  The
 // digit is one key-derived value (p-1 or q-1) shared by the batch: it
@@ -288,6 +296,27 @@ __device__ __forceinline__ void prefetch_state(u16* dst, const u16* src,
   rns_tile::cp_async_commit();
 }
 
+// W1, W2 for K2's chain: with kSharedW copied once into shared
+// memory at p (W1, W2 then point there), else left in global memory.
+// Returns the first byte past them.
+template <bool kSharedW>
+__device__ __forceinline__ unsigned char* stage_w(const TileOps& op,
+                                                  unsigned char* p,
+                                                  const uint4*& W1,
+                                                  const uint4*& W2) {
+  if (!kSharedW) return p;
+  const size_t wb = rns_tile::w_bytes(op.MT, op.KS);
+  uint4* w1 = reinterpret_cast<uint4*>(p);
+  uint4* w2 = reinterpret_cast<uint4*>(p + wb);
+  for (size_t i = threadIdx.x; i < wb / 16; i += blockDim.x) {
+    w1[i] = __ldg(op.W1 + i);
+    w2[i] = __ldg(op.W2 + i);
+  }
+  W1 = w1;
+  W2 = w2;
+  return p + 2 * wb;
+}
+
 // K1: one product per tile; W from global memory (NTU = 4: each A
 // fragment is read once per CTA).
 __global__ void __launch_bounds__(rns_tile::kThreads, 1)
@@ -321,21 +350,9 @@ rns_exp_sched_kernel(const uint32_t* x, const int32_t* sched, int n_ops,
                      int B) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int CH = op.CH, SZ = CH * kNC;
-  const size_t wb = rns_tile::w_bytes(op.MT, op.KS);
-  unsigned char* p = smem;
   const uint4* W1 = op.W1;
   const uint4* W2 = op.W2;
-  if (kSharedW) {
-    uint4* w1 = reinterpret_cast<uint4*>(p);
-    uint4* w2 = reinterpret_cast<uint4*>(p + wb);
-    for (size_t i = threadIdx.x; i < wb / 16; i += blockDim.x) {
-      w1[i] = __ldg(op.W1 + i);
-      w2[i] = __ldg(op.W2 + i);
-    }
-    W1 = w1;
-    W2 = w2;
-    p += 2 * wb;
-  }
+  unsigned char* p = stage_w<kSharedW>(op, smem, W1, W2);
   u16* acc = reinterpret_cast<u16*>(p);
   u16* opb = acc + SZ;
   uint8_t* xs = reinterpret_cast<uint8_t*>(opb + SZ);
@@ -404,42 +421,83 @@ rns_exp_sched_kernel(const uint32_t* x, const int32_t* sched, int n_ops,
   store_tile(acc, out, CH, col0, B);
 }
 
-__global__ void rns_exp_elem_kernel(const uint32_t* x, const int32_t* digits,
-                                    int n_win, uint32_t* out, uint32_t* tab,
-                                    Ops op, int window, int B) {
-  extern __shared__ uint32_t xs[];
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  const int tid = threadIdx.x, nt = blockDim.x, CH = op.CH;
-  const size_t plane = static_cast<size_t>(CH) * B;
-  const uint32_t* xc = x + col;
-  uint32_t* tb = tab + col;
-  uint32_t* acc = out + col;
+// K5: the whole per-element chain of a tile; W from global memory as in
+// K1 (NTU = 4).  The
+// table [one, X, X^2, ..., X^(2^w-1)] of the tile lies in global scratch
+// (tab: (tiles, 2^w, CH, kNC) uint16), written and read by this CTA
+// alone (plain loads: it is written in this launch).  The digits are the
+// plaintext's: each window's product by T[d] reads all 2^w entries of
+// every (channel, column) and keeps the one whose index equals the
+// column's digit by mask, so the digit never forms an address.
+__global__ void __launch_bounds__(rns_tile::kThreads, 1)
+rns_exp_elem_kernel(const uint32_t* x, const int32_t* digits, int n_win,
+                    uint32_t* out, u16* tab, TileOps op, int window, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int CH = op.CH, SZ = CH * kNC;
+  const uint4* W1 = op.W1;
+  const uint4* W2 = op.W2;
+  u16* acc = reinterpret_cast<u16*>(smem);
+  u16* xst = acc + SZ;
+  uint8_t* xs = reinterpret_cast<uint8_t*>(xst + SZ);
+  uint32_t* delta = reinterpret_cast<uint32_t*>(xs + kNC * op.XS);
+  uint8_t* dig = reinterpret_cast<uint8_t*>(delta + kNC);   // (n_win, kNC)
+  const int col0 = blockIdx.x * kNC;
   const int tsize = 1 << window;
-  for (int c = 0; c < CH; ++c) {
-    tb[c * B] = V(op, c, 9);                              // T[0] = one
-    tb[plane + c * B] = xc[c * B];                        // T[1] = X
+  u16* tb = tab + static_cast<size_t>(blockIdx.x) * tsize * SZ;
+  const auto none = [] {};
+
+  load_tile(x, xst, CH, col0, B);
+  for (int i = threadIdx.x; i < n_win * kNC; i += blockDim.x) {
+    const int gc = col0 + (i & (kNC - 1));
+    dig[i] = gc < B ? static_cast<uint8_t>(
+                          __ldg(digits + static_cast<size_t>(i / kNC) * B + gc))
+                    : uint8_t{0};
   }
-  for (int t = 2; t < tsize; ++t)                         // T[t] = T[t-1] X
-    rns_mul_col(tb + (t - 1) * plane, xc, tb + t * plane, B, op, xs, tid,
-                nt);
-  for (int c = 0; c < CH; ++c) acc[c * B] = V(op, c, 9);
+  for (int i = threadIdx.x; i < SZ; i += blockDim.x)       // T[0] = one
+    tb[i] = static_cast<u16>(rns_tile::V(op, i / kNC, 9));
+  __syncthreads();
+  copy_state(reinterpret_cast<uint4*>(tb + SZ),            // T[1] = X
+             reinterpret_cast<const uint4*>(xst), CH);
+  for (int t = 2; t < tsize; ++t) {                        // T[t] = T[t-1] X
+    const u16* prev = t == 2 ? xst : acc;
+    rns_tile::tile_mul<4, true>(
+        acc,
+        [&](int c, int, int i) -> uint32_t {
+          return cmul(prev[i], xst[i], rns_tile::V(op, c, 0),
+                      rns_tile::V(op, c, 1));
+        },
+        none, W1, W2, op, xs, delta);
+    copy_state(reinterpret_cast<uint4*>(tb + static_cast<size_t>(t) * SZ),
+               reinterpret_cast<const uint4*>(acc), CH);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < SZ; i += blockDim.x)       // acc = one
+    acc[i] = static_cast<u16>(rns_tile::V(op, i / kNC, 9));
   for (int j = 0; j < n_win; ++j) {
     for (int r = 0; r < window; ++r)
-      rns_mul_col(acc, acc, acc, B, op, xs, tid, nt);
-    const int d = digits[static_cast<size_t>(j) * B + col];
-    // acc * T[d]: every entry is read; the digit only builds masks
-    for (int c = 0; c < CH; ++c) {
-      uint32_t sel = tb[c * B];
-      for (int t = 1; t < tsize; ++t) {
-        const uint32_t v = tb[t * plane + c * B];
-        const uint32_t mask = 0u - static_cast<uint32_t>(d == t);
-        sel = (v & mask) | (sel & ~mask);
-      }
-      acc[c * B] = cmul(acc[c * B], sel, V(op, c, 0), V(op, c, 1));
-    }
-    rns_mul_finish(acc, B, op, xs, tid, nt);
+      rns_tile::tile_mul<4, true>(
+          acc,
+          [&](int c, int, int i) -> uint32_t {
+            return cmul(acc[i], acc[i], rns_tile::V(op, c, 0),
+                        rns_tile::V(op, c, 1));
+          },
+          none, W1, W2, op, xs, delta);
+    const uint8_t* dj = dig + j * kNC;
+    rns_tile::tile_mul<4, true>(                    // acc * T[d]
+        acc,
+        [&](int c, int col, int i) -> uint32_t {
+          const uint32_t d = dj[col];
+          uint32_t sel = 0u;
+          for (int t = 0; t < tsize; ++t) {
+            const uint32_t mask = 0u - static_cast<uint32_t>(d == t);
+            sel |= tb[static_cast<size_t>(t) * SZ + i] & mask;
+          }
+          return cmul(acc[i], sel, rns_tile::V(op, c, 0),
+                      rns_tile::V(op, c, 1));
+        },
+        none, W1, W2, op, xs, delta);
   }
+  store_tile(acc, out, CH, col0, B);
 }
 
 __global__ void rns_exp_shared_kernel(const uint32_t* x,
@@ -494,7 +552,7 @@ inline size_t state_bytes(int CH) {
   return static_cast<size_t>(CH) * kNC * sizeof(u16);
 }
 
-constexpr size_t kMaxShared = 232448;    // a block's limit on the H100
+using rns_tile::kMaxShared;
 
 inline bool bad_tile_shape(int k, int CH, int KP, int B) {
   return k < 1 || CH != 2 * k + 1 || KP % 16 != 0 || KP < k || B < 1;
@@ -510,9 +568,8 @@ extern "C" int pct_rns_mul(const uint32_t* x, const uint32_t* y,
   if (bad_tile_shape(k, CH, KP, B)) return cudaErrorInvalidValue;
   const size_t smem = state_bytes(CH) + rns_tile::work_bytes(KP);
   if (smem > kMaxShared) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      rns_mul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<unsigned long long> raised{0};
+  const cudaError_t e = rns_tile::allow_max_shared(rns_mul_kernel, raised);
   if (e != cudaSuccess) return e;
   rns_mul_kernel<<<(B + kNC - 1) / kNC, rns_tile::kThreads, smem,
                    static_cast<cudaStream_t>(stream)>>>(
@@ -535,12 +592,11 @@ extern "C" int pct_rns_exp_sched(const uint32_t* x, const int32_t* sched,
   const size_t smem_w = smem + 2 * rns_tile::w_bytes(op.MT, op.KS);
   const bool shared_w = smem_w <= kMaxShared;
   if (smem > kMaxShared) return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> raised[2] = {{0}, {0}};
   const auto kernel = shared_w ? rns_exp_sched_kernel<true>
                                : rns_exp_sched_kernel<false>;
   const size_t bytes = shared_w ? smem_w : smem;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  const cudaError_t e = rns_tile::allow_max_shared(kernel, raised[shared_w]);
   if (e != cudaSuccess) return e;
   kernel<<<(B + kNC - 1) / kNC, rns_tile::kThreads, bytes,
            static_cast<cudaStream_t>(stream)>>>(x, sched, n_ops, out, tab, op,
@@ -549,19 +605,26 @@ extern "C" int pct_rns_exp_sched(const uint32_t* x, const int32_t* sched,
 }
 
 extern "C" int pct_rns_exp_elem(const uint32_t* x, const int32_t* digits,
-                                int n_win, uint32_t* out, uint32_t* tab,
+                                int n_win, uint32_t* out, uint16_t* tab,
                                 const uint32_t* vec, const uint32_t* skc,
-                                const int8_t* E1, const int8_t* E2, int k,
+                                const uint8_t* W1, const uint8_t* W2, int k,
                                 int CH, int KP, int nlev, int window, int B,
                                 void* stream) {
-  if (bad_shape(k, CH, KP, B) || window < 1 || window > 8 || n_win < 0) {
+  if (bad_tile_shape(k, CH, KP, B) || window < 1 || window > 8
+      || n_win < 0) {
     return cudaErrorInvalidValue;
   }
-  const Ops op{vec, skc, E1, E2, k, CH, KP, nlev};
-  rns_exp_elem_kernel<<<(B + kThreads - 1) / kThreads, kThreads,
-                        shared_bytes(KP),
+  const size_t smem = 2 * state_bytes(CH) + rns_tile::work_bytes(KP)
+                      + static_cast<size_t>(n_win) * kNC;
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> raised{0};
+  const cudaError_t e =
+      rns_tile::allow_max_shared(rns_exp_elem_kernel, raised);
+  if (e != cudaSuccess) return e;
+  rns_exp_elem_kernel<<<(B + kNC - 1) / kNC, rns_tile::kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      x, digits, n_win, out, tab, op, window, B);
+      x, digits, n_win, out, tab, tile_ops(vec, skc, W1, W2, k, CH, KP, nlev),
+      window, B);
   return cudaGetLastError();
 }
 

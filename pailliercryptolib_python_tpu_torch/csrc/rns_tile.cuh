@@ -1,7 +1,8 @@
 // One RNS-Montgomery product for a tile of kNC columns owned by one CTA,
 // with both base extensions as int8 tensor-core products.  Kernels K1
-// (rns_mul) and K2 (rns_exp_sched) in rns.cu run on it; K5 and K6 keep
-// the per-column routine of rns.cu.
+// (rns_mul), K2 (rns_exp_sched) and K5 (rns_exp_elem) in rns.cu run on
+// it, and K3's reduction (mm3_tile.cuh) uses its mma_u8; K6 keeps the
+// per-column routine of rns.cu.
 //
 // The function is rns_mul_col's (see ops/rns.py rns_mont_mul), limb for
 // limb:
@@ -55,6 +56,7 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -62,8 +64,27 @@ namespace rns_tile {
 
 constexpr int kNC = 32;          // columns a CTA owns
 constexpr int kThreads = 512;    // 16 warps
+constexpr size_t kMaxShared = 232448;   // a block's limit on the H100
 
 using u16 = uint16_t;
+
+// Raises a kernel's dynamic shared-memory limit to kMaxShared, once per
+// device (the attribute belongs to the kernel's instance on the current
+// device); `done` is the kernel's own bit set of devices already raised.
+// The launchers still check each launch's size against kMaxShared.
+template <typename Kernel>
+inline cudaError_t allow_max_shared(Kernel kernel,
+                                    std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kMaxShared));
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
 
 __device__ __forceinline__ uint32_t csub(uint32_t r, uint32_t m) {
   return r >= m ? r - m : r;

@@ -52,7 +52,7 @@ _U = ctypes.c_uint
 # C signatures: pointers are c_void_p (ctypes would cut a Python int to
 # 32 bits otherwise); the last argument of each is the CUDA stream.
 _SIGS = {
-    "mm3_mul": [_P, _P, _P, _P, _U, _I, _I, _P],
+    "mm3_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mm3_exp": [_P, _P, _P, _P, _P, _P, _U, _I, _I, _I, _I, _P],
     "mm3_sqr": [_P, _P, _P, _U, _I, _I, _P],
     "rns_mul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

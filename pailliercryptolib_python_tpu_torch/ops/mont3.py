@@ -3,8 +3,9 @@ shared-exponent modexp (K7) and square (K8).
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
 
-* ``mm3_mul(a, b, ctx)`` -- kernel K3 (``csrc/mont3.cu``) on a CUDA
-  tensor, ``mm3_mul_plain`` on a CPU tensor.
+* ``mm3_mul(a, b, ctx)`` -- kernel K3 (``csrc/mont3.cu`` over
+  ``csrc/mm3_tile.cuh``) on a CUDA tensor, ``mm3_mul_plain`` on a CPU
+  tensor.
 * ``mm3_exp(base, digits, ctx, win_start)`` -- kernel K4 on a CUDA
   tensor, ``mm3_exp_plain`` on a CPU tensor.
 * ``mm3_exp_shared(base, digits, ctx, window)`` -- kernel K7 on a CUDA
@@ -14,8 +15,11 @@ Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
 
 The plain twins keep the TPU kernel's algorithm: the schoolbook product,
 then the Montgomery reduction as two signed-byte Toeplitz matrix products
-(q = T*mu mod R, then T + q*m), here as exact float64 matmuls.  The CUDA
-kernels use a plain CIOS reduction instead; both give the unique
+(q = T*mu mod R, then T + q*m), here as exact float64 matmuls.  K3
+(``csrc/mm3_tile.cuh``) reduces with the same two Toeplitz products, on
+unsigned bytes (``tile_weights``) as u8 tensor-core products;
+``mm3_mul_tile`` is its arithmetic in plain PyTorch, for the CPU tests.
+K4, K7 and K8 use a CIOS reduction instead.  All give the unique
 (a*b + q*m)/R with q = -a*b*m^-1 mod R, so they agree limb for limb.
 """
 
@@ -24,8 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .limb import (LIMB_BITS, LIMB_DTYPE, big_mul, idot, int_to_limbs,
-                   normalize)
+from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, big_mul, idot,
+                   int_to_limbs, normalize)
+from .rns_kernels import MMA_K, MMA_M, fragment_order
 from .. import kernels
 
 BIAS = 1 << 26          # per-limb slot bias: |signed slot| < 2^26
@@ -111,6 +116,40 @@ def byte_weights(m: int, L: int, device):
     return t(wmu, np.int8), t(wm, np.int8), t(off1, np.int32), t(off2, np.int32)
 
 
+def toeplitz_u8(c: int, rows: int, cols: int) -> np.ndarray:
+    """uint8 (rows, cols) W[p, i] = byte_{p-i}(c), 0 where p < i: row p
+    of W . bytes(x) is byte slot p of x*c (for c < 256^rows)."""
+    cb = np.frombuffer(c.to_bytes(rows, "little"), dtype=np.uint8)
+    d = np.arange(rows)[:, None] - np.arange(cols)[None, :]
+    return np.where(d >= 0, cb[np.clip(d, 0, rows - 1)], 0).astype(np.uint8)
+
+
+def tile_weights_np(m: int, L: int):
+    """K3's reduction matrices as unsigned bytes: W_mu (M1, K) with
+    W_mu[p, i] = byte_{p-i}(mu), mu = -m^-1 mod R, for p, i < 2L (lower
+    triangular), and W_m (M2, K) with W_m[p, i] = byte_{p-i}(m) for
+    p < 4L, i < 2L (a band), zero-padded to M1, M2 (multiples of MMA_M)
+    rows and K (a multiple of MMA_K) columns."""
+    R = 1 << (LIMB_BITS * L)
+    if 4 * m >= R:
+        raise ValueError("tile_weights: modulus too large for L")
+    mu = (-pow(m, -1, R)) % R
+    K = -(-2 * L // MMA_K) * MMA_K
+    Wmu = np.zeros((-(-2 * L // MMA_M) * MMA_M, K), dtype=np.uint8)
+    Wm = np.zeros((-(-4 * L // MMA_M) * MMA_M, K), dtype=np.uint8)
+    Wmu[:2 * L, :2 * L] = toeplitz_u8(mu, 2 * L, 2 * L)
+    Wm[:4 * L, :2 * L] = toeplitz_u8(m, 4 * L, 2 * L)
+    return Wmu, Wm
+
+
+def tile_weights(m: int, L: int, device):
+    """``tile_weights_np`` in mma fragment order (flat uint8 tensors on
+    `device`), what K3 reads; kept on the MontCtx (``wmu_f``, ``wm_f``)
+    and never in a cache keyed by the modulus, which is key material."""
+    return tuple(torch.from_numpy(fragment_order(W)).to(device)
+                 for W in tile_weights_np(m, L))
+
+
 # ---------------------------------------------------------------------------
 # Plain twins.
 # ---------------------------------------------------------------------------
@@ -147,6 +186,42 @@ def mm3_mul_plain(a, b, wmu, wm, off1, off2) -> torch.Tensor:
     L = a.shape[0]
     T = big_mul(a, b, out_limbs=2 * L)
     return _mm3_reduce(T, wmu, wm, off1, off2, L)
+
+
+def _slot_limbs(S: torch.Tensor, n: int) -> torch.Tensor:
+    """Byte slots S (>= 2n rows) -> the kernel's (n+1, B) limb slots:
+    the pair (S_2j, S_2j+1) adds S_2j mod 2^16 + (S_2j+1 mod 2^8) 2^8 to
+    limb j and S_2j div 2^16 + S_2j+1 div 2^8 to limb j+1."""
+    s0, s1 = S[0:2 * n:2], S[1:2 * n:2]
+    D = torch.zeros((n + 1, S.shape[1]), dtype=torch.int64, device=S.device)
+    D[:n] += (s0 & LIMB_MASK) + ((s1 & 0xFF) << 8)
+    D[1:] += (s0 >> 16) + (s1 >> 8)
+    return D
+
+
+def _bytes_u(x: torch.Tensor, K: int) -> torch.Tensor:
+    """(n, B) canonical limbs -> (K, B) little-endian bytes, zero-padded."""
+    n, B = x.shape
+    out = torch.zeros((K, B), dtype=torch.int64, device=x.device)
+    out[0:2 * n:2] = x & 0xFF
+    out[1:2 * n:2] = x >> 8
+    return out
+
+
+def mm3_mul_tile(a, b, Wmu, Wm) -> torch.Tensor:
+    """K3's arithmetic in plain PyTorch (int64): T = a*b; the slots of
+    W_mu . bytes(T_lo) as limbs mod R give q; the slots of W_m . bytes(q)
+    plus T, carried, give s; out = s / R.  Wmu, Wm are
+    ``tile_weights_np``'s (unsigned, padded).  Equals ``mm3_mul_plain``
+    limb for limb."""
+    L = a.shape[0]
+    K = Wmu.shape[1]
+    T = big_mul(a, b, out_limbs=2 * L).to(torch.int64)
+    S = torch.matmul(Wmu.to(torch.int64), _bytes_u(T[:L], K))
+    q = normalize(_slot_limbs(S, L)[:L]).to(torch.int64)
+    U = torch.matmul(Wm.to(torch.int64), _bytes_u(q, K))
+    s = normalize(_slot_limbs(U, 2 * L)[:2 * L] + T)
+    return s[L:]
 
 
 def big_sqr(a: torch.Tensor) -> torch.Tensor:
@@ -207,13 +282,12 @@ def mm3_mul(a: torch.Tensor, b: torch.Tensor, ctx) -> torch.Tensor:
 
 
 def _mm3_mul_cuda(a, b, ctx) -> torch.Tensor:
-    kernels.require_cuda(a, b, ctx.n_limbs)
+    kernels.require_cuda(a, b, ctx.wmu_f, ctx.wm_f)
     L = a.shape[0]
     B = max(a.shape[1], b.shape[1])
     a, b = _cols(a, L, B), _cols(b, L, B)
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=a.device)
-    n = ctx.n_limbs.contiguous()
-    kernels.launch("mm3_mul", a, b, out, n, ctx.n0inv, L, B)
+    kernels.launch("mm3_mul", a, b, out, ctx.wmu_f, ctx.wm_f, L, B)
     return out
 
 

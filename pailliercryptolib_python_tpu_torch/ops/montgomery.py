@@ -37,7 +37,10 @@ class MontCtx:
 
     wmu/wm/off1/off2 are the mm3 signed-byte Toeplitz weights and folded
     offsets (``ops/mont3.byte_weights``, shared modulus only); the plain
-    twin of kernel K3 reduces with them."""
+    twin of kernel K3 reduces with them.  wmu_f/wm_f are the same
+    reduction's unsigned Toeplitz bytes in mma fragment order
+    (``ops/mont3.tile_weights``), what kernel K3 reads; they live on the
+    context, never in a cache keyed by the (secret) modulus."""
 
     n_limbs: torch.Tensor
     n0inv: int | torch.Tensor       # -n^-1 mod 2^16: an int, or (B,)
@@ -47,6 +50,8 @@ class MontCtx:
     wm: torch.Tensor | None = None
     off1: torch.Tensor | None = None
     off2: torch.Tensor | None = None
+    wmu_f: torch.Tensor | None = None
+    wm_f: torch.Tensor | None = None
 
     MXU_MAX_LIMBS = 520
 
@@ -70,10 +75,10 @@ class MontCtx:
         n0inv = (-pow(n, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
         if mxu is None:
             mxu = dev.type == "cuda" and 16 <= L <= cls.MXU_MAX_LIMBS
-        w = (None,) * 4
+        w = (None,) * 6
         if mxu:
             from . import mont3
-            w = mont3.byte_weights(n, L, dev)
+            w = mont3.byte_weights(n, L, dev) + mont3.tile_weights(n, L, dev)
         col = lambda v: to_device(int_to_limbs(v, L)[:, None], dev)
         return cls(col(n), int(n0inv), col(R * R % n), col(R % n), *w)
 
@@ -95,17 +100,24 @@ class MontCtx:
     def from_arrays(cls, arrays: dict, device=None) -> "MontCtx":
         """Context from numpy arrays (e.g. the JAX package's MontCtx
         leaves): n_limbs, n0inv, r2, one and optionally the weights.  A
-        one-element n0inv becomes an int; a (B,) one stays whole."""
+        one-element n0inv becomes an int; a (B,) one stays whole.  With
+        the mm3 weights, K3's tile weights are built from the modulus."""
         dev = resolve(device)
         opt = lambda k, dt: (None if arrays.get(k) is None else
                              torch.from_numpy(np.ascontiguousarray(
                                  np.asarray(arrays[k]).astype(dt))).to(dev))
         n0 = np.asarray(arrays["n0inv"]).reshape(-1)
+        tile = (None, None)
+        if arrays.get("wmu") is not None:
+            from . import mont3
+            nl = np.asarray(arrays["n_limbs"])
+            nl = nl.reshape(nl.shape[0], -1)[:, :1]
+            tile = mont3.tile_weights(limbs_to_ints(nl)[0], nl.shape[0], dev)
         return cls(to_device(arrays["n_limbs"], dev),
                    int(n0[0]) if n0.size == 1 else to_device(n0, dev),
                    to_device(arrays["r2"], dev), to_device(arrays["one"], dev),
                    opt("wmu", np.int8), opt("wm", np.int8),
-                   opt("off1", np.int32), opt("off2", np.int32))
+                   opt("off1", np.int32), opt("off2", np.int32), *tile)
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor, ctx: MontCtx) -> torch.Tensor:

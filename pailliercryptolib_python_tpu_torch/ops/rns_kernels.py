@@ -2,11 +2,12 @@
 K5 (``rns_exp_elem_p``) and K6 (``rns_exp_shared_p``) and the packing of
 their operands.
 
-K1 and K2 run on the tile routine ``csrc/rns_tile.cuh``: both base
+K1, K2 and K5 run on the tile routine ``csrc/rns_tile.cuh``: both base
 extensions of a product are int8 tensor-core products of the extension
 matrices W1, W2 (``tile_weights``) with a tile of digits.
-``rns_mul_tile`` and ``rns_exp_sched_tile`` are that routine's arithmetic
-in plain PyTorch, matrix product included, for the CPU tests.
+``rns_mul_tile``, ``rns_exp_sched_tile`` and ``rns_exp_elem_tile`` are
+that routine's arithmetic in plain PyTorch, matrix product included, for
+the CPU tests.
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_rns.py``.  The
 packing is ported from the code, not from its comments (which misstate
@@ -161,7 +162,7 @@ def _unpack_c(vec, skc, E1, E2):
 
 # The tile kernels' mma instruction (m16n8k32): W is padded to these.
 MMA_M, MMA_K = 16, 32
-# Columns a CTA of K1 / K2 owns (rns_tile::kNC).
+# Columns a CTA of K1 / K2 / K5 owns (rns_tile::kNC).
 TILE_COLS = 32
 
 
@@ -203,7 +204,7 @@ def kernel_operands(base: rns.RnsBase, key: rns.RnsModulus,
                     device: torch.device) -> dict:
     """Device copy of the operand bundle, memoized on the key.
 
-    The E stacks (K5, K6) are zero-padded along k to KP, a multiple of
+    The E stacks (K6) are zero-padded along k to KP, a multiple of
     16, so the kernel reads each row in 16-byte vectors (the pad columns
     meet zero digits and add nothing).  W1, W2 are ``tile_weights`` of
     the stacks (uint8 (Mp, 2KP), what ``rns_mul_tile`` multiplies) and
@@ -295,6 +296,50 @@ def rns_exp_sched_tile(X, sched, base: rns.RnsBase, key: rns.RnsModulus,
     acc = rns.rns_one_state(base, key, X.shape[1])
     for d in np.asarray(sched).reshape(-1).tolist():
         acc = mul(acc, acc if d == 0 else table[d - 1])
+    return acc
+
+
+def elem_table_index(t, c, col, CH: int, window: int):
+    """Flat index of entry t, channel c, column col in K5's table, laid
+    out tile by tile as (tiles, 2^window, CH, TILE_COLS): one entry of
+    one tile is one contiguous block.  Works on ints and on tensors."""
+    return (((col // TILE_COLS) * (1 << window) + t) * CH + c) * TILE_COLS \
+        + col % TILE_COLS
+
+
+def rns_exp_elem_tile(X, digits, base: rns.RnsBase, key: rns.RnsModulus,
+                      window: int, ops: dict) -> torch.Tensor:
+    """K5's chain over ``rns_mul_tile`` in the kernel's order: the table
+    T[0] = one, T[1] = X, T[t] = T[t-1] X, kept flat in the kernel's
+    tile-by-tile layout (``elem_table_index``); from `one`, per window
+    `window` squarings, then the product by T[d], chosen by the one-hot
+    select (every entry read, the one whose index equals the column's
+    digit kept by mask).  digits (n_win, B)."""
+    CH, B = base.CH, X.shape[1]
+    tsize = 1 << window
+    mul = lambda a, b: rns_mul_tile(a, b, base, key, ops)
+    tab = torch.zeros(-(-B // TILE_COLS) * tsize * CH * TILE_COLS,
+                      dtype=torch.int64)
+    c = torch.arange(CH)[:, None]
+    col = torch.arange(B)[None, :]
+    at = lambda t: elem_table_index(t, c, col, CH, window)
+    one = rns.rns_one_state(base, key, B)
+    entry = X.to(LIMB_DTYPE)
+    tab[at(0)] = one.to(torch.int64)
+    tab[at(1)] = entry.to(torch.int64)
+    for t in range(2, tsize):
+        entry = mul(entry, X)
+        tab[at(t)] = entry.to(torch.int64)
+    digits = torch.as_tensor(np.asarray(digits)).to(torch.int64)
+    acc = one
+    for j in range(digits.shape[0]):
+        for _ in range(window):
+            acc = mul(acc, acc)
+        sel = torch.zeros((CH, B), dtype=torch.int64)
+        for t in range(tsize):
+            mask = -(digits[j] == t).to(torch.int64)[None, :]
+            sel = sel | (tab[at(t)] & mask)
+        acc = mul(acc, sel)
     return acc
 
 
@@ -392,10 +437,12 @@ def _rns_exp_elem_cuda(X, digits, base, key, window) -> torch.Tensor:
     digits = digits.expand(n_win, B).contiguous()
     p = kernel_operands(base, key, x.device)
     out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
-    tab = torch.empty((1 << window, CH, B), dtype=LIMB_DTYPE,
-                      device=x.device)
+    # the table, tile by tile: (tiles, 2^window, CH, TILE_COLS) uint16
+    # states (int16 storage; elem_table_index)
+    tab = torch.empty((-(-B // TILE_COLS), 1 << window, CH, TILE_COLS),
+                      dtype=torch.int16, device=x.device)
     kernels.launch("rns_exp_elem", x, digits, n_win, out, tab, p["vec"],
-                   p["skc"], p["E1"], p["E2"], base.k, CH, p["KP"],
+                   p["skc"], p["W1f"], p["W2f"], base.k, CH, p["KP"],
                    rns.combine_levels(base.mbits), window, B)
     return out
 

@@ -1,15 +1,17 @@
-"""The tile layout of kernels K1 and K2 (``csrc/rns_tile.cuh``) on the CPU:
-the extension matrices W1, W2 and their mma fragment order, and the plain
-PyTorch version of the tile product (``rns_kernels.rns_mul_tile``, its
-chain ``rns_exp_sched_tile``), which must equal the port's RNS product
-and the JAX package's bit for bit; plus the device-kept digits and
-schedules (``kernels.digit_tensor``, ``PrivateContext.device_digits``)."""
+"""The tile layout of kernels K1, K2 and K5 (``csrc/rns_tile.cuh``) on the
+CPU: the extension matrices W1, W2 and their mma fragment order, and the
+plain PyTorch version of the tile product (``rns_kernels.rns_mul_tile``,
+its chains ``rns_exp_sched_tile`` and ``rns_exp_elem_tile``), which must
+equal the port's RNS product and the JAX package's bit for bit; K5's
+tile-by-tile table index; plus the device-kept digits and schedules
+(``kernels.digit_tensor``, ``PrivateContext.device_digits``)."""
 
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from pailliercryptolib_python_tpu.ops import pallas_rns as jpr
 from pailliercryptolib_python_tpu.ops import rns as jr
 from pailliercryptolib_python_tpu.utils.fixtures import (P_1024, Q_1024,
                                                          fixed_key_ints)
@@ -117,6 +119,49 @@ def test_tile_chain_equals_both_packages(window, n_ops):
     # the wrapper's CPU route is the plain twin and agrees
     _same(trk.rns_exp_sched_p(torch.from_numpy(X), sched, tb, tk, window),
           got)
+
+
+@pytest.mark.parametrize("mbits,m", [CASES[0], CASES[2]],
+                         ids=[IDS[0], IDS[2]])
+def test_tile_elem_chain_equals_both_packages(mbits, m, monkeypatch):
+    monkeypatch.setattr(jpr, "INTERPRET", True)
+    jb, jk, tb, tk = _setup(mbits, m)
+    ops = trk.kernel_operands(tb, tk, CPU)
+    rng = np.random.default_rng(mbits + 5)
+    X = _states(rng, tb, B)
+    window, n_win = 4, 2
+    digits = rng.integers(0, 1 << window, size=(n_win, B)).astype(np.int32)
+    digits[0, :16] = np.arange(16)              # every digit, 0 included
+    got = trk.rns_exp_elem_tile(torch.from_numpy(X), digits, tb, tk, window,
+                                ops)
+    assert got.dtype == torch.int32 and got.shape == (tb.CH, B)
+    _same(got, tr.rns_exp_elem(torch.from_numpy(X), torch.from_numpy(digits),
+                               tb, tk, window))
+    jX = jnp.asarray(X.astype(np.uint32))
+    _same(got, jr.rns_exp_elem(jX, jnp.asarray(digits), jb, jk, window))
+    _same(got, jpr.rns_exp_elem_p(jX, jnp.asarray(digits), jb, jk, window))
+    # the wrapper's CPU route is the plain twin and agrees
+    _same(trk.rns_exp_elem_p(torch.from_numpy(X), digits, tb, tk, window),
+          got)
+
+
+def test_elem_table_index_is_tile_by_tile():
+    CH, window, Bt = 5, 3, 70                   # three tiles, the last short
+    tiles = -(-Bt // trk.TILE_COLS)
+    tab = np.arange(tiles * (1 << window) * CH * trk.TILE_COLS).reshape(
+        tiles, 1 << window, CH, trk.TILE_COLS)
+    for t, c, col in ((0, 0, 0), (7, 4, 69), (3, 2, 31), (5, 1, 32)):
+        assert trk.elem_table_index(t, c, col, CH, window) == \
+            tab[col // 32, t, c, col % 32]
+    # as tensors, one (CH, B) entry at once: every index once per entry
+    c = torch.arange(CH)[:, None]
+    col = torch.arange(Bt)[None, :]
+    idx = torch.stack([trk.elem_table_index(t, c, col, CH, window)
+                       for t in range(1 << window)])
+    assert idx.unique().numel() == idx.numel() == (1 << window) * CH * Bt
+    # one entry of one tile is one contiguous block of CH x 32
+    blk = idx[2, :, :32].flatten().sort().values
+    assert torch.equal(blk, torch.arange(int(blk[0]), int(blk[0]) + CH * 32))
 
 
 class _OnDevice(torch.Tensor):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels K1 (``rns_mul``) and K2 (``rns_exp_sched``) of the port in
-one checkout, at their main-path shapes, on one GPU.
+"""Time kernels K1 (``rns_mul``), K2 (``rns_exp_sched``), K5
+(``rns_exp_elem``) and K3 (``mm3_mul``) of the port in one checkout, at
+their main-path shapes, on one GPU.
 
     python3 tools/torch_k12bench.py [TREE]
 
@@ -11,7 +12,10 @@ unpack the other one into a git-ignored directory (``git archive``) and
 run the script on both trees in turns (old, new, new, old) on one
 card.  Shapes: K1 one RNS product at the 2048-bit key's n^2
 base (CH=521), B=4096; K2 the decrypt chain of p-1 at the p^2 base
-(CH=261, window 6, 1195 schedule entries), B=4096.  The inputs come from
+(CH=261, window 6, 1195 schedule entries), B=4096; K5 the ct*pt chain
+at the n^2 base, window 4, 16 windows, B=4096, 4095 and 1; K3 one
+Montgomery product at n^2 (L=257) and p^2 (L=129), B=4096, 4095, 64
+and 1, and B=4096 with b an (L, 1) broadcast.  The inputs come from
 a fixed seed, so every tree gets the same ones, and the line printed
 carries sums of the outputs for a cross-check.  CUDA events, one warm-up
 call.  Prints one line ``K12BENCH {json}`` with the card's name and
@@ -32,7 +36,10 @@ def main(argv) -> int:
         os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, tree)
     from pailliercryptolib_python_tpu_torch import kernels
-    from pailliercryptolib_python_tpu_torch.ops import rns
+    from pailliercryptolib_python_tpu_torch.ops import mont3, rns
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    from pailliercryptolib_python_tpu_torch.ops.limb import (ints_to_limbs,
+                                                             to_device)
     from pailliercryptolib_python_tpu_torch.ops import rns_kernels as rk
     from pailliercryptolib_python_tpu_torch.utils.fixtures import \
         fixed_key_ints
@@ -84,12 +91,38 @@ def main(argv) -> int:
     k2 = ms_of(lambda: rk.rns_exp_sched_p(Xs, sched, base, key, window),
                reps)
     out2 = rk.rns_exp_sched_p(Xs, sched, base, key, window)
+    reps_of = lambda first, most: max(1, min(most, int(2000 // max(first,
+                                                                   1e-3))))
+    k5, sums = {}, {}
+    base, key = setup(n * n, 2 * 2048 + 2)
+    for B in (4096, 4095, 1):
+        X5 = state(rng, base, B)
+        dig = rng.integers(0, 16, size=(16, B)).astype(np.int32)
+        run = lambda: rk.rns_exp_elem_p(X5, dig, base, key, 4)
+        k5[f"CH=521 B={B} 16 windows"] = ms_of(run, reps_of(ms_of(run, 1),
+                                                             20))
+        sums[f"K5 B={B}"] = int(run().long().sum())
+    k3 = {}
+    for m in (n * n, p * p):
+        ctx = mg.MontCtx.for_modulus(m, device=dev)
+        L = ctx.num_limbs
+        for B, bc in ((4096, False), (4096, True), (4095, False),
+                      (64, False), (1, False)):
+            a, b = (to_device(ints_to_limbs(
+                [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
+                 for _ in range(B)], L), dev) for _ in range(2))
+            b = b[:, :1].contiguous() if bc else b
+            run = lambda: mont3.mm3_mul(a, b, ctx)
+            tag = f"L={L} B={B}" + (" b (L, 1)" if bc else "")
+            k3[tag] = ms_of(run, 50)
+            sums["K3 " + tag] = int(run().long().sum())
     print("K12BENCH " + json.dumps({
         "tree": tree, "card": card, "K1_ms": k1, "K1_shape": "CH=521 B=4096",
         "K2_ms": k2, "K2_shape": f"CH=261 B=4096 w={window} "
                                  f"{len(sched)} ops",
-        "K2_reps": reps, "K1_out_sum": int(out1.long().sum()),
-        "K2_out_sum": int(out2.long().sum())}), flush=True)
+        "K2_reps": reps, "K5_ms": k5, "K3_ms": k3,
+        "K1_out_sum": int(out1.long().sum()),
+        "K2_out_sum": int(out2.long().sum()), "out_sums": sums}), flush=True)
     return 0
 
 
