@@ -11,7 +11,7 @@ failure (so any failure exits non-zero):
 2. build the fifteen CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
    git-ignored ``build/``), with the ``-Xptxas -v`` report of the tile
-   kernels K1, K2, K5 (``csrc/rns_tile.cuh``) and K3
+   kernels K1, K2, K5 (``csrc/rns_tile.cuh``) and K3, K4, K7
    (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
    and their tensor-core (IMMA) instructions in the SASS where the
    toolkit has ``cuobjdump`` (none is a failure);
@@ -22,8 +22,12 @@ failure (so any failure exits non-zero):
    and 129 also at B=4095, 64, 1 and with b an (L, 1) broadcast, and at
    L=520, its largest, B=64; K9 and
    K10 at the fused CRT decrypt's shape, K10's eager twin alone ~32 s;
-   K9 on a weightless n^2 also against K3; K4 at n^2 and, where it squares
-   through K8's routine, at p^2, there also against K10; K6 at the
+   K9 on a weightless n^2 also against K3; K4 at n^2 (windows 3..8 at
+   B=4096; all 16 windows, every digit 0..15, at B=4095 and 1) and at
+   p^2, there also against K10, and at L=520, B=64; K7 at p^2 (4 windows
+   and the whole chain at B=4096, 4 windows at B=1), at a 4096-bit key's
+   p^2 (L=257) and at L=520, where its table entry is read from global
+   memory instead of staged; K6 at the
    decrypt chain's shape, K8 at L=257/129/65 also against K3(a, a),
    K11 at the limb encrypt chain's shape and per-element against a K9
    loop; the nibble kernels K12 at L=257/129
@@ -60,8 +64,8 @@ failure (so any failure exits non-zero):
    encrypt in 1, 2, 4 and 8 chunks), the host/device split after
    ``context.initializeContext`` (a tenth of the batch, and then 64
    values, go through Python's ``pow`` on the host thread), the K6
-   decrypt halves against K2's, the limb decrypt (K7, which squares
-   through K8's routine) against the fused K10 stage and K2, the fused
+   decrypt halves against K2's, the limb decrypt (K7) against the fused
+   K10 stage and K2, the fused
    encrypt chain (K11)
    against the streamed one, ``profile_stages`` under
    ``profiling.timed`` and one ``profiling.trace``, and the comb LRU
@@ -144,8 +148,9 @@ FIFTH_SLICE = ("mm2_mul", "mm2_sqr", "mm2_exp", "mm2_exp_shared", "mont_mul",
 # int8 operations over the int8 tensor-core rate, the larger of the two.
 # Work model: one RNS-Montgomery product of one column is two base
 # extensions of 4(k+1)k int8 multiply-adds each; one Montgomery product of
-# L 16-bit limbs is 2L^2 limb products of 4 int8 multiply-adds each; a
-# multiply-add is 2 operations.
+# L 16-bit limbs is 2L^2 limb products of 4 int8 multiply-adds each, a
+# square L(L+1)/2 + L^2 (the chains' squarings too, as the function's
+# work, whatever the kernel runs); a multiply-add is 2 operations.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
@@ -154,8 +159,9 @@ def rns_ops(k: int, products: int, B: int) -> int:
     return products * B * 2 * (2 * 4 * (k + 1) * k)
 
 
-def limb_ops(L: int, products: int, B: int) -> int:
-    return products * B * 2 * (4 * 2 * L * L)
+def limb_ops(L: int, products: int, B: int, squares: int = 0) -> int:
+    return B * 2 * 4 * (products * 2 * L * L
+                        + squares * (L * (L + 1) // 2 + L * L))
 
 
 def mm2_ops(L: int, products: int, B: int, square: bool = False) -> int:
@@ -264,12 +270,12 @@ def random_state(rng, base, B: int, dev):
 
 
 TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
-                "mm3_mul_kernel")
+                "mm3_mul_kernel", "mm3_exp_kernel", "mm3_exp_shared_kernel")
 
 
 def tile_kernel_report() -> None:
     """Phase 2, the tensor-core tile kernels (K1, K2, K5 on
-    ``csrc/rns_tile.cuh``, K3 on ``csrc/mm3_tile.cuh``): nvcc's -Xptxas
+    ``csrc/rns_tile.cuh``, K3, K4, K7 on ``csrc/mm3_tile.cuh``): nvcc's -Xptxas
     -v lines (registers, spills; their shared memory is dynamic, so the
     bytes each launch asks for at the main path's shape are printed
     beside), and, where the toolkit has cuobjdump, the tensor-core
@@ -293,7 +299,9 @@ def tile_kernel_report() -> None:
     # dynamic shared memory of a launch (rns.cu: states as uint16, the
     # digit tile of 32 rows of 2KP + 16 bytes, delta; K2 also W1 + W2
     # where they fit, K5 its 16 windows' digits; mm3_tile.cuh:
-    # two rows a column of 4L + 512 and 8L + 8 bytes, each 16 mod 32)
+    # two rows a column of 4L + 512 and 8L + 8 bytes, each 16 mod 32; K4
+    # adds a window's digits, K7 its staged table entry where it fits: the
+    # library's own count, mont3.cu mm3_smem)
     for CH, k in ((521, 260), (261, 130)):
         KP = -(-k // 16) * 16
         work = 32 * (2 * KP + 16) + 128
@@ -306,10 +314,11 @@ def tile_kernel_report() -> None:
         print(f"    CH={CH}: K1 asks {CH * 64 + work} B of shared memory, "
               f"K2 {k2 + w} B with W1 + W2 resident{fit(k2)}, K5 (16 "
               f"windows) {k5} B (W1 + W2 from global memory)")
-    s16 = lambda b: -(-(b - 16) // 32) * 32 + 16
     for L in (257, 129, 520):
-        print(f"    L={L}: K3 asks {32 * (s16(4 * L + 512) + s16(8 * L + 8))} "
-              f"B of shared memory")
+        k3, k4, k7 = (kernels.mm3_smem_bytes(k, L) for k in (
+            "mm3_mul", "mm3_exp", "mm3_exp_shared"))
+        print(f"    L={L}: K3 asks {k3} B of shared memory, K4 {k4} B, K7 "
+              f"{k7} B" + (" (its entry staged)" if k7 > k3 else ""))
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", kernels.LIB_PATH],
@@ -325,7 +334,7 @@ def tile_kernel_report() -> None:
                 if any(k in f for k in TILE_KERNELS)}
         print(f"    tensor-core instructions (IMMA/IGMMA) in SASS: {tile}")
         missing = [k for k in TILE_KERNELS if not any(k in f for f in tile)]
-        if missing or len(tile) < 5:    # K2 in two instantiations
+        if missing or len(tile) < 7:    # K2 in two instantiations
             raise AssertionError(f"tile kernels lack their IMMA instructions: "
                                  f"{missing or tile}")
 
@@ -391,9 +400,8 @@ def check_kernels(dev, kd) -> dict:
                            an, bn, ctx.wmu, ctx.wm, ctx.off1, ctx.off2), 1),
                        nbytes(an, bn, got, ctx.n_limbs), limb_ops(L, 1, Bn))
             # K4: short exponents (the exponent-alignment shape), win_start>0
-            # (host digits, as mul_pt passes them).  At n^2 (L=257) it
-            # squares through the product, at p^2 (L=129) through K8's
-            # routine: there also against K10 on the weightless context.
+            # (host digits, as mul_pt passes them); at p^2 (L=129) also
+            # against K10 on the weightless context.
             exps = [int(e) for e in rng.integers(1, 1 << 20, size=BATCH)]
             digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
             dig_dev = torch.from_numpy(digits).to(dev)
@@ -407,15 +415,31 @@ def check_kernels(dev, kd) -> dict:
                        a, dig_dev, ctx.wmu, ctx.wm, ctx.off1, ctx.off2,
                        ctx.one, ws), 1),
                    nbytes(a, dig_dev, got, ctx.one, ctx.n_limbs),
-                   limb_ops(L, 14 + (8 - ws) * 5, BATCH),
+                   limb_ops(L, 14 + 8 - ws, BATCH, (8 - ws) * 4),
                    headline=m == n * n)
+        if m == n * n:
+            # K4 on a ragged last tile and on one column, over all 16
+            # windows from win_start 0, the digits using every value 0..15
+            for Bn in (BATCH - 1, 1):
+                an = a[:, :Bn].contiguous()
+                d16 = rng.integers(0, 16, size=(16, Bn)).astype(np.int32)
+                d16.reshape(-1)[:16] = np.arange(16)
+                d16_dev = torch.from_numpy(d16).to(dev)
+                got = mont3.mm3_exp(an, d16, ctx, 0)
+                want, plain_ms = timed(lambda: mont3.mm3_exp_plain(
+                    an, d16_dev, ctx.wmu, ctx.wm, ctx.off1, ctx.off2,
+                    ctx.one, 0))
+                record("mm3_exp", got, want, f"L={L} B={Bn} win 0..16",
+                       ms_of(lambda: mont3.mm3_exp(an, d16, ctx, 0), 2),
+                       plain_ms, nbytes(an, d16_dev, got, ctx.one,
+                                        ctx.n_limbs),
+                       limb_ops(L, 14 + 16, Bn, 16 * 4))
         if m == p * p:
             c0 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
             if not torch.equal(got, mont.mont_exp_p(
                     a, digits, c0.n_limbs, c0.n0inv, c0.one, ws)):
                 raise AssertionError(f"K4 differs from K10 at L={L}")
-            print(f"  mm3_exp        equals mont_exp at L={L} (K4 squaring "
-                  f"through mont_sqr_col)", flush=True)
+            print(f"  mm3_exp        equals mont_exp at L={L}", flush=True)
         if m == n * n:
             # K9 on the weightless n^2 context: its twin, and K3's output
             c0 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
@@ -435,28 +459,18 @@ def check_kernels(dev, kd) -> dict:
         if m == p * p:
             # K7: the limb decrypt's shared exponent p-1, window 5 at
             # L=129: its first 4 windows, then all of them as the decrypt
-            # runs it (host digits, as the decrypt passes them)
+            # runs it (host digits, as the decrypt passes them), then the
+            # first 4 on one column
             window = mont3.shared_exp_window(L)
             e = p - 1
             nwd = -(-e.bit_length() // window)
             dig_all = mg.exponent_digits([e], nwd, window)[:, 0].astype(
                 np.int32)
-            tbl = (1 << window) - 2
-            for dig in (dig_all[:4], dig_all):
-                nw = len(dig)
-                dig_dev = torch.from_numpy(dig).to(dev)
-                got = mont3.mm3_exp_shared(a, dig, ctx, window)
-                want, plain_ms = timed(lambda: mont3.mm3_exp_shared_plain(
-                    a, dig_dev, ctx.wmu, ctx.wm, ctx.off1, ctx.off2,
-                    ctx.one, window))
-                record("mm3_exp_shared", got, want,
-                       f"L={L} B={BATCH} w={window} {nw} windows",
-                       ms_of(lambda: mont3.mm3_exp_shared(a, dig, ctx,
-                                                          window), 1),
-                       plain_ms, nbytes(a, dig_dev, got, ctx.one,
-                                        ctx.n_limbs),
-                       limb_ops(L, tbl + nw * (window + 1), BATCH),
-                       headline=nw == nwd)
+            for Bn, dig in ((BATCH, dig_all[:4]), (BATCH, dig_all),
+                            (1, dig_all[:4])):
+                an = a[:, :Bn].contiguous()
+                check_k7(record, an, dig, ctx, window,
+                         headline=len(dig) == nwd and Bn == BATCH)
     # K3 at its largest L (kMaxLimbs, 217,088 B of shared memory): a
     # random odd modulus the size of a 4096-bit key's n^2 context
     import random
@@ -473,6 +487,30 @@ def check_kernels(dev, kd) -> dict:
            ms_of(lambda: mont3.mm3_mul_plain(a, b, ctx.wmu, ctx.wm,
                                              ctx.off1, ctx.off2), 1),
            nbytes(a, b, got, ctx.n_limbs), limb_ops(L, 1, 64))
+    # K4 and K7 there too: K4's largest shared memory, and K7's table
+    # entry too large to stage beside the tile (read from global memory)
+    exps = [int(e) for e in rng.integers(1, 1 << 20, size=64)]
+    digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
+    dig_dev = torch.from_numpy(digits).to(dev)
+    got = mont3.mm3_exp(a, digits, ctx, 3)
+    want, plain_ms = timed(lambda: mont3.mm3_exp_plain(
+        a, dig_dev, ctx.wmu, ctx.wm, ctx.off1, ctx.off2, ctx.one, 3))
+    record("mm3_exp", got, want, f"L={L} B=64 win 3..8",
+           ms_of(lambda: mont3.mm3_exp(a, digits, ctx, 3), 2), plain_ms,
+           nbytes(a, dig_dev, got, ctx.one, ctx.n_limbs),
+           limb_ops(L, 14 + 5, 64, 5 * 4))
+    window = mont3.shared_exp_window(L)
+    dig = np.array([0, (1 << window) - 1, 1, 2], dtype=np.int32)
+    check_k7(record, a, dig, ctx, window)
+    # K7 at a 4096-bit key's p^2 (L=257, its entry staged), 4 windows
+    bits = 4096
+    m = random.Random(SEED + 1).getrandbits(bits) | (1 << (bits - 1)) | 1
+    ctx = mg.MontCtx.for_modulus(m, device=dev)
+    L = ctx.num_limbs
+    window = mont3.shared_exp_window(L)
+    dig = np.array([(1 << window) - 1, 0, 3, 1], dtype=np.int32)
+    check_k7(record, random_cols(rng, [m] * BATCH, L, dev), dig, ctx,
+             window)
     # K1 at the encrypt (n^2) and decrypt (p^2) bases: the main path's
     # width, a ragged batch and one column (the tile kernel masks the
     # last tile's columns)
@@ -613,7 +651,7 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
                ms_of(lambda: mont3.mm3_sqr(a, ctx), 5),
                ms_of(lambda: mont3.mm3_sqr_plain(a, ctx.wmu, ctx.wm,
                                                  ctx.off1, ctx.off2), 1),
-               nbytes(a, got, ctx.n_limbs), limb_ops(L, 1, BATCH),
+               nbytes(a, got, ctx.n_limbs), limb_ops(L, 0, BATCH, 1),
                headline=m == n * n)
         k3_ms = ms_of(lambda: mont3.mm3_mul(a, a, ctx), 5)
         if not torch.equal(got, mont3.mm3_mul(a, a, ctx)):
@@ -662,6 +700,25 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
         raise AssertionError("K11 differs from a K9 loop, per-element")
     print("  mont_chain     equals the streamed K3 chain (shared) and a K9 "
           "loop (per-element)", flush=True)
+
+
+def check_k7(record, a, dig, ctx, window: int, headline=False) -> None:
+    """K7 on (L, B) values `a` with the shared digits `dig` against its
+    twin (one timed call of each: the whole chain's twin takes ~13 s)."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import mont3
+    L, B = a.shape
+    dig_dev = torch.from_numpy(dig).to(a.device)
+    got = mont3.mm3_exp_shared(a, dig, ctx, window)
+    want, plain_ms = timed(lambda: mont3.mm3_exp_shared_plain(
+        a, dig_dev, ctx.wmu, ctx.wm, ctx.off1, ctx.off2, ctx.one, window))
+    nw = len(dig)
+    record("mm3_exp_shared", got, want,
+           f"L={L} B={B} w={window} {nw} windows",
+           ms_of(lambda: mont3.mm3_exp_shared(a, dig, ctx, window), 1),
+           plain_ms, nbytes(a, dig_dev, got, ctx.one, ctx.n_limbs),
+           limb_ops(L, (1 << window) - 2 + nw, B, nw * window),
+           headline=headline)
 
 
 def check_fifth_slice(dev, kd, rng, record) -> None:
@@ -724,7 +781,7 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         record("mm2_sqr", got, want, f"L={L} B={BATCH}",
                ms_of(lambda: mont2.mm2_sqr(a, *w), 3),
                ms_of(lambda: mont2.mm2_sqr_plain(a, *w), 1),
-               nbytes(a, got, mc.m_limbs), limb_ops(L, 1, BATCH),
+               nbytes(a, got, mc.m_limbs), limb_ops(L, 0, BATCH, 1),
                headline=head)
         same(got, mont3.mm3_sqr(a, ctx), f"K13 differs from K8 at L={L}")
         same(got, mont2.mm2_mul(a, a, *w), f"K13 differs from K12(a, a) at "
@@ -748,7 +805,7 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
                ms_of(lambda: mont2.mm2_exp_plain(a, dig_dev, *w, ctx.one,
                                                  ws), 1),
                nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
-               limb_ops(L, nsq + nmul, BATCH), headline=head)
+               limb_ops(L, nmul, BATCH, nsq), headline=head)
         same(got, mont3.mm3_exp(a, digits, ctx, ws),
              f"K14 differs from K4 at L={L}")
         beside("mm2_exp", "mm3_exp", L,
@@ -773,7 +830,7 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         record("mm2_exp_shared", got, want,
                f"L={L} B={BATCH} w={window} {nwd} windows", k_ms, plain_ms,
                nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
-               limb_ops(L, nmul + nsq, BATCH), headline=True)
+               limb_ops(L, nmul, BATCH, nsq), headline=True)
         k7, k7_ms = timed(lambda: mont3.mm3_exp_shared(a, dig, ctx, window))
         same(got, k7, f"K15 differs from K7 at L={L}")
         beside("mm2_exp_shared", "mm3_exp_shared", L,
@@ -821,7 +878,7 @@ def check_per_element(dev, kd, rng, record) -> None:
            ms_of(lambda: mont.mont_exp_p(a, dig, ctx.n_limbs, ctx.n0inv,
                                          ctx.one), 1),
            plain_ms, nbytes(a, dig_dev, got, ctx.one) + ctx_bytes,
-           limb_ops(L, 14 + nw * 5, B2), headline=True)
+           limb_ops(L, 14 + nw, B2, nw * 4), headline=True)
     # the keygen shape: 1024-bit odd moduli, digits of (c-1) >> tz
     import random
     r = random.Random(SEED)
@@ -843,7 +900,7 @@ def check_per_element(dev, kd, rng, record) -> None:
                                              ck.one, ws), 1),
                plain_ms, nbytes(ak, dk_dev, got, ck.one, ck.n_limbs,
                                 ck.n0inv),
-               limb_ops(Lk, 14 + (nwk - ws) * 5, 256))
+               limb_ops(Lk, 14 + nwk - ws, 256, (nwk - ws) * 4))
 
 
 def main_path(dev, kd, tag: str) -> dict:
@@ -1254,8 +1311,8 @@ def third_slice(dev, kd, tag: str, exps: list) -> dict:
 
 
 def fourth_slice(dev, kd, tag: str, mp: dict, limb) -> dict:
-    """Phase 8: the runtime controls, K6 on the decrypt halves, K8's
-    squaring in the limb decrypt, K11 on the encrypt chain, the profiling
+    """Phase 8: the runtime controls, K6 on the decrypt halves, K7 in the
+    limb decrypt, K8 against K3, K11 on the encrypt chain, the profiling
     hooks and the comb LRU registry, at 2048 bits, B=4096.  `mp` is phase
     4's result (its keys and ciphertexts) and `limb` phase 7's limb
     encrypt context."""
@@ -1401,9 +1458,8 @@ def fourth_slice(dev, kd, tag: str, mp: dict, limb) -> dict:
     print(f"  stage 2: K6 (window {priv.rns_window}, {len(priv.rdig_p)} "
           f"windows) equals K2 limb for limb; plaintexts equal", flush=True)
 
-    # 5. K8's squaring inside the limb decrypt (K7 at L=129 squares
-    # through mont_sqr_col), against the fused per-element stage (K10,
-    # which squares through the product) and K2
+    # 5. The limb decrypt's stage 2 (K7, the tile chain) against the
+    # fused per-element stage (K10) and K2; K8 against K3's product
     pt.set_config(decrypt_engine="limb")
     try:
         lpriv = sch.PrivateContext(pctx, kd["p"], kd["q"])
@@ -1419,8 +1475,8 @@ def fourth_slice(dev, kd, tag: str, mp: dict, limb) -> dict:
     if not torch.equal(mont3.mm3_sqr(a, lpriv._sq_p),
                        mg.mont_mul(a, a, lpriv._sq_p)):
         raise AssertionError("mm3_sqr differs from the product")
-    print("  limb stage 2: K7 (squaring through K8's routine) equals K10 "
-          "and K2 limb for limb", flush=True)
+    print("  limb stage 2: K7 equals K10 and K2 limb for limb; K8 equals "
+          "the product", flush=True)
 
     # 6. K11 on the encrypt chain: gather + one fused chain against the
     # streamed chain, the same digits

@@ -1,6 +1,7 @@
-// The CIOS column routines shared by every limb-Montgomery kernel:
-// K3/K4/K7/K8 (csrc/mont3.cu, one modulus for the batch) and K9/K10/K11
-// (csrc/mont.cu, a modulus per column).
+// The CIOS column routines of the limb-Montgomery kernels that own one
+// column a thread: K8 (csrc/mont3.cu, one modulus for the batch) and
+// K9/K10/K11 (csrc/mont.cu, a modulus per column or one shared); the
+// nibble kernels (mm2.cuh) borrow OneHot16 and kSqrMaxLimbs.
 //
 // Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs; one
 // thread owns one column (one big number) and walks its limbs at a row
@@ -141,37 +142,26 @@ __device__ __forceinline__ void mont_sqr_col(
   for (int j = 0; j < L; ++j) out[j * so] = t[L + j];   // < 2n < R: top == 0
 }
 
-// Largest L at which the fixed-window chains square through
-// mont_sqr_col (the TPU kernels' PRESHIFT_MAX_L, pallas_mont2.py:63):
-// 2L words then fit the product's scratch of every kernel built here.
+// Largest L at which the nibble chains (K14, K15, mm2.cuh) square
+// through their squaring routine (the TPU kernels' PRESHIFT_MAX_L,
+// pallas_mont2.py:63): 2L words then fit their product's scratch.
 constexpr int kSqrMaxLimbs = 192;
 
-// base^e of one column (column pointers with row stride B): table
-// T[0] = one, T[1] = base, T[d] = T[d-1] * base (2^window entries, entry
-// d at tab + d*L*B), acc = one, then per window from win_start to n_win:
-// `window` squarings and one product by T[digit].  dig points at this
-// column's digit of window 0; dstride is the step between windows (B for
-// per-element digits, 1 for a shared exponent).  n and one are read at
-// row stride sn (1 for a shared (L, 1) modulus, B for per-column moduli).
-//
-// kOneHot (window 4 only): the digit is secret (a plaintext, or a prime
-// candidate), so each window reads all 16 entries and keeps T[digit] by
-// mask (OneHot16), as the TPU kernels do.  Otherwise the digit indexes
-// the table: it is one key-derived exponent shared by the batch.
-//
-// kSqr: square through mont_sqr_col, as the TPU's mm3 chains do at
-// L <= kSqrMaxLimbs (pallas_mont3.py:317-322, 405-410); the caller picks
-// this instantiation only for such L.  The per-element-moduli chain
-// (K10) keeps the product routine, as the TPU's _mont_exp_kernel.  A
-// template parameter and no run-time test: the product-only chains then
-// compile to the code they had before the squaring routine existed (a
-// run-time flag here cost K4 18-23% at L=257 on the H100).
-template <int kMaxLimbs, bool kOneHot, bool kSqr>
-__device__ void exp_col(const uint32_t* bc, const int32_t* dig, int dstride,
+// base^e of one column with a 4-bit per-element exponent (column pointers
+// with row stride B; K10): table T[0] = one, T[1] = base, T[d] = T[d-1] *
+// base (16 entries, entry d at tab + d*L*B), acc = one, then per window
+// from win_start to n_win: 4 squarings (products acc*acc, as the TPU's
+// _mont_exp_kernel) and one product by T[digit].  dig points at this
+// column's digit of window 0 (windows B apart).  The digit is secret (a
+// plaintext, or a prime candidate), so each window reads all 16 entries
+// and keeps T[digit] by mask (OneHot16), as the TPU kernels do.  n and one
+// are read at row stride sn (1 for a shared (L, 1) modulus, B for
+// per-column moduli).
+template <int kMaxLimbs>
+__device__ void exp_col(const uint32_t* bc, const int32_t* dig,
                         const uint32_t* one, uint32_t* outc, uint32_t* tab,
                         const uint32_t* n, int sn, uint32_t n0, int L, int B,
-                        int window, int win_start, int n_win) {
-  static_assert(2 * kSqrMaxLimbs <= kMaxLimbs + 2, "square scratch");
+                        int win_start, int n_win) {
   uint32_t t[kMaxLimbs + 2];
   uint32_t acc[kMaxLimbs];
   const size_t plane = static_cast<size_t>(L) * B;
@@ -179,26 +169,15 @@ __device__ void exp_col(const uint32_t* bc, const int32_t* dig, int dstride,
     tab[j * B] = one[j * sn];
     tab[plane + j * B] = bc[j * B];
   }
-  for (int d = 2; d < (1 << window); ++d)    // T[d] = T[d-1] * base
+  for (int d = 2; d < 16; ++d)               // T[d] = T[d-1] * base
     mont_mul_col(Strided{tab + (d - 1) * plane, B}, bc, B, tab + d * plane,
                  B, n, sn, n0, L, t);
   for (int j = 0; j < L; ++j) acc[j] = one[j * sn];
   for (int w = win_start; w < n_win; ++w) {
-    for (int s = 0; s < window; ++s) {
-      if (kSqr) {
-        mont_sqr_col(acc, 1, acc, 1, n, sn, n0, L, t);
-      } else {
-        mont_mul_col(Strided{acc, 1}, acc, 1, acc, 1, n, sn, n0, L, t);
-      }
-    }
-    const int d = dig[static_cast<size_t>(w) * dstride];
-    if (kOneHot) {
-      mont_mul_col(OneHot16{tab, plane, B, d}, acc, 1, acc, 1, n, sn, n0, L,
-                   t);
-    } else {
-      mont_mul_col(Strided{acc, 1}, tab + d * plane, B, acc, 1, n, sn, n0, L,
-                   t);
-    }
+    for (int s = 0; s < 4; ++s)
+      mont_mul_col(Strided{acc, 1}, acc, 1, acc, 1, n, sn, n0, L, t);
+    mont_mul_col(OneHot16{tab, plane, B, dig[static_cast<size_t>(w) * B]},
+                 acc, 1, acc, 1, n, sn, n0, L, t);
   }
   for (int j = 0; j < L; ++j) outc[j * B] = acc[j];
 }

@@ -1,7 +1,9 @@
 // One shared-modulus Montgomery product a*b*R^-1 mod m for a tile of kNC
 // columns owned by one CTA, with the reduction as two u8 Toeplitz
-// products on the tensor cores.  Kernel K3 (mm3_mul, mont3.cu) runs on
-// it; K4, K7 and K8 keep the CIOS column routine of cios.cuh.
+// products on the tensor cores, and the fixed-window chain of such
+// products.  Kernels K3 (mm3_mul: one product), K4 (mm3_exp) and K7
+// (mm3_exp_shared: a chain each) in mont3.cu run on it; K8 keeps the
+// CIOS column routine of cios.cuh.
 //
 // The function is the TPU kernel's (pallas_mont3.py _mm3_reduce /
 // _mm3_val), R = 2^(16L), mu = -m^-1 mod R:
@@ -59,6 +61,30 @@
 // lane step; the reductions are ~(2L/16)(2L/32)/2 + (4L/16)(2L/32)/2
 // m16n8k32 instructions per 8 columns; the carry passes 5L/32 warp steps
 // per column.  The multiply-adds set the pace.
+//
+// Operands and result.  tile_mul takes a loader (r, col) -> limb for a
+// and one for b, and a store for the result's limbs: K3 passes loaders
+// of (L, B) arrays in global memory (Global) and a store into one.  The
+// result also stays where step 9 leaves it, row T at byte 4L (Acc reads
+// it), so a chain feeds it to the next product without a round trip
+// through global memory: step 1 reads both operands into row P before it
+// zeroes row T.
+//
+// The chain (tile_chain, K4 and K7).  One CTA runs a tile's whole
+// fixed-window exponentiation in the TPU kernels' order
+// (pallas_mont3.py _mm3_exp_kernel / _mm3_exp_shared_kernel): the table
+// T[0] = one, T[1] = base, T[t] = T[t-1]*base, then from acc = one per
+// window `window` squarings acc*acc and one product acc*T[d].  Every
+// product's result is unique, so the chain equals the plain twins, the
+// TPU kernels and the CIOS chains limb for limb, whichever way they
+// square.  The table lies in global scratch, tile by tile as (tiles,
+// 2^window, L, kNC) uint16 (33.7 MB at L=257, B=4096, 16 entries), each
+// entry written once by its CTA and read back through L2; base is read
+// from global memory for each table product.  On chip: the product's
+// shared memory (the accumulator in row T) and what the kernel stages
+// beside it (K4 one window's digits, K7 its next table entry).  The
+// chain's cost is its products': (2^window - 2) + windows * (window + 1)
+// tile products, each as K3's.
 
 #pragma once
 
@@ -199,12 +225,41 @@ __device__ __forceinline__ void add_pair(uint32_t* d, int j, uint32_t s0,
   if (mid) atomicAdd(d + j + 1, mid);
 }
 
-// The tile's product: out = a * b * R^-1 mod m for columns col0 ..
-// col0 + kNC - 1 of (L, B) int32 limb arrays (columns past B read as 0
-// and are not written).
-__device__ __forceinline__ void tile_mul(const uint32_t* a, const uint32_t* b,
-                                         uint32_t* out, const Ops& op,
-                                         int col0, int B,
+// Limb r of tile column col of an (L, B) int32 array in global memory
+// whose tile starts at column col0; columns past B read as 0.
+struct Global {
+  const uint32_t* p;
+  int col0, B;
+  __device__ __forceinline__ u16 operator()(int r, int col) const {
+    const int gc = col0 + col;
+    return gc < B ? static_cast<u16>(__ldg(p + static_cast<size_t>(r) * B
+                                           + gc))
+                  : u16{0};
+  }
+};
+
+// Limb r of tile column col of the last product's result, where step 9
+// of tile_mul leaves it (row T at byte 4L); at() also writes it.
+struct Acc {
+  unsigned char* smem;
+  int L;
+  __device__ __forceinline__ u16& at(int r, int col) const {
+    return reinterpret_cast<u16*>(smem + static_cast<size_t>(kNC) * row_p(L)
+                                  + col * row_t(L) + 4 * L)[r];
+  }
+  __device__ __forceinline__ u16 operator()(int r, int col) const {
+    return at(r, col);
+  }
+};
+
+// The tile's product a * b * R^-1 mod m: load_a(r, col), load_b(r, col)
+// give limb r < L of tile column col of each operand (each is called once
+// per limb and column, in step 1, before anything else of the product
+// touches shared memory); store(r, col, limb) takes the result's limbs,
+// which also stay in row T for Acc until the next product's step 1.
+template <class LoadA, class LoadB, class Store>
+__device__ __forceinline__ void tile_mul(LoadA load_a, LoadB load_b,
+                                         Store store, const Ops& op,
                                          unsigned char* smem) {
   const int L = op.L, RP = row_p(L), RT = row_t(L);
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -215,18 +270,16 @@ __device__ __forceinline__ void tile_mul(const uint32_t* a, const uint32_t* b,
   auto rowt = [&](int col) { return Tr + col * RT; };
   const int bo = L + kPad;                 // b[0] in row P, in limbs
 
-  // 1. a, b into row P (b between kPad zero limbs); T's slots to 0
+  // 1. a, b into row P (b between kPad zero limbs); then (the loaders may
+  // read the last result in row T) T's slots to 0
   for (int i = tid; i < kNC * (L + 2 * kPad); i += nt) {
     const int col = i & (kNC - 1), r = i / kNC - kPad;   // r in [-kPad, L+kPad)
     u16* rp = reinterpret_cast<u16*>(rowp(col));
-    const int gc = col0 + col;
-    const bool in = r >= 0 && r < L && gc < B;
-    rp[bo + r] = in ? static_cast<u16>(b[static_cast<size_t>(r) * B + gc])
-                    : u16{0};
-    if (r >= 0 && r < L)
-      rp[r] = gc < B ? static_cast<u16>(a[static_cast<size_t>(r) * B + gc])
-                     : u16{0};
+    const bool in = r >= 0 && r < L;
+    rp[bo + r] = in ? load_b(r, col) : u16{0};
+    if (in) rp[r] = load_a(r, col);
   }
+  __syncthreads();
   for (int i = tid; i < kNC * (2 * L + 2); i += nt)
     reinterpret_cast<uint32_t*>(rowt(i / (2 * L + 2)))[i % (2 * L + 2)] = 0u;
   __syncthreads();
@@ -352,10 +405,59 @@ __device__ __forceinline__ void tile_mul(const uint32_t* a, const uint32_t* b,
   }
   __syncthreads();
   for (int i = tid; i < kNC * L; i += nt) {
-    const int col = i & (kNC - 1), r = i / kNC, gc = col0 + col;
-    if (gc < B)
-      out[static_cast<size_t>(r) * B + gc] =
-          reinterpret_cast<const u16*>(rowt(col) + 4 * L)[r];
+    const int col = i & (kNC - 1), r = i / kNC;
+    store(r, col, reinterpret_cast<const u16*>(rowt(col) + 4 * L)[r]);
+  }
+}
+
+// One tile's fixed-window chain (the head of this file): base (L, B) and
+// one (L, 1) int32 in global memory; tb this tile's (2^window, L, kNC)
+// uint16 block of the table scratch; windows w0 .. n_win-1; the result
+// into out (L, B) int32.  before(w) runs on every thread at the top of
+// window w (K4 stages the window's digits, K7 starts the copy of its
+// entry); pick(r, col) loads the window product's b, after the squarings,
+// a cp.async.wait_all and a __syncthreads.
+template <class Before, class Pick>
+__device__ __forceinline__ void tile_chain(const uint32_t* base,
+                                           const uint32_t* one,
+                                           uint32_t* out, u16* tb,
+                                           const Ops& op, int col0, int B,
+                                           int window, int w0, int n_win,
+                                           Before before, Pick pick,
+                                           unsigned char* smem) {
+  const int L = op.L, tid = threadIdx.x, nt = blockDim.x;
+  const size_t SZ = static_cast<size_t>(L) * kNC;    // one table entry
+  const Global gb{base, col0, B};
+  const Acc acc{smem, L};
+  const auto keep = [](int, int, u16) {};
+  // T[0] = one, T[1] = base, and acc = base, T[2]'s first operand
+  for (int i = tid; i < L * kNC; i += nt) {
+    const int r = i / kNC, col = i & (kNC - 1);
+    const u16 b = gb(r, col);
+    tb[i] = static_cast<u16>(__ldg(one + r));
+    tb[SZ + i] = b;
+    acc.at(r, col) = b;
+  }
+  __syncthreads();
+  for (int t = 2; t < (1 << window); ++t) {          // T[t] = T[t-1] base
+    u16* e = tb + t * SZ;
+    tile_mul(acc, gb,
+             [&](int r, int col, u16 v) { e[r * kNC + col] = v; }, op, smem);
+  }
+  __syncthreads();
+  for (int i = tid; i < L * kNC; i += nt)            // acc = one
+    acc.at(i / kNC, i & (kNC - 1)) = static_cast<u16>(__ldg(one + i / kNC));
+  __syncthreads();
+  for (int w = w0; w < n_win; ++w) {
+    before(w);
+    for (int s = 0; s < window; ++s) tile_mul(acc, acc, keep, op, smem);
+    rns_tile::cp_async_wait_all();
+    __syncthreads();
+    tile_mul(acc, pick, keep, op, smem);             // acc * T[d]
+  }
+  for (int i = tid; i < L * kNC; i += nt) {
+    const int r = i / kNC, col = i & (kNC - 1), gc = col0 + col;
+    if (gc < B) out[static_cast<size_t>(r) * B + gc] = acc(r, col);
   }
 }
 

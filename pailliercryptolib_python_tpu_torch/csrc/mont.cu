@@ -87,10 +87,9 @@ __global__ void mont_exp_kernel(const uint32_t* base, const int32_t* digits,
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
   const int c = per_elem ? col : 0;
-  cios::exp_col<kMaxLimbs, true, false>(base + col, digits + col, B, one + c,
-                                        out + col, table + col, n + c,
-                                        per_elem ? B : 1, n0[c], L, B, 4,
-                                        win_start, n_win);
+  cios::exp_col<kMaxLimbs>(base + col, digits + col, one + c, out + col,
+                           table + col, n + c, per_elem ? B : 1, n0[c], L, B,
+                           win_start, n_win);
 }
 
 __global__ void mont_chain_kernel(const uint32_t* factors,

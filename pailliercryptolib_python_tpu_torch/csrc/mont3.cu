@@ -17,61 +17,58 @@
 //
 // Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs.
 //
-// K3 runs on the tile routine of mm3_tile.cuh: one CTA of 512 threads
-// owns 32 columns, spreads the schoolbook product a*b over its threads
-// by (column, block of 128 output limbs), and does the Montgomery
+// K3, K4 and K7 run on the tile routines of mm3_tile.cuh: one CTA of 512
+// threads owns 32 columns, spreads the schoolbook product over its
+// threads by (column, block of 128 output limbs), and does the Montgomery
 // reduction as the TPU kernel did, two Toeplitz byte products (q = T_lo
 // mu mod R, then T + q*m), here as mma.sync m16n8k32 u8 products of the
 // host-built W_mu, W_m (ops/mont3.py tile_weights, kept on the MontCtx)
-// with the tile's bytes, read from global memory in fragment order.
-// mm3_tile.cuh gives the shared-memory layout (115,712 B at L=257,
-// 217,088 B at L=520; the launcher refuses a shape that does not fit) and
-// what bounds it (the L^2 multiply-adds of the product per column).  The
-// result (a*b + q*m)/R with q = -a*b*m^-1 mod R is unique, so it equals
-// the TPU kernel, the plain twin and the CIOS kernels limb for limb.
+// with the tile's bytes, read from global memory in fragment order.  K3
+// is one product (mm3_tile::tile_mul with global operands); K4 and K7 are
+// a tile's whole chain (mm3_tile::tile_chain), the accumulator kept in
+// shared memory between products.  mm3_tile.cuh gives the shared-memory
+// layout (115,712 B at L=257, 217,088 B at L=520; the launchers refuse a
+// shape that does not fit) and what bounds a product (the L^2
+// multiply-adds of the product per column).  The result (a*b + q*m)/R
+// with q = -a*b*m^-1 mod R is unique, so every product equals the TPU
+// kernel's, the plain twins' and the CIOS kernels' limb for limb, and so
+// do the chains, which run the TPU kernels' order of products.
 //
-// K4, K7 and K8: one thread owns one column (one big number) and walks
-// its limbs with stride B, so a warp's loads of one limb row are
-// coalesced; CIOS with 16-bit digits (cios.cuh): every partial sum
-// t + a_i*b_j + carry stays below 2^32, so the carries are exact in one
-// 32-bit register.  Each product is L^2 (66k at L=257) dependent
-// multiply-adds per column, and the running sum lives in per-thread
-// local memory; with one thread per column a 4096-wide batch fills only
-// 128 warps on 132 SMs, so they are latency-bound.  They move onto the
-// tile routine next.
+// K4's table lies in global scratch the wrapper allocates, tile by tile
+// as (tiles, 16, L, 32) uint16 (33.7 MB at L=257, B=4096), and win_start
+// is honoured in the window loop.  Its digits are plaintext exponents:
+// the b-loader of each window product reads all 16 entries of the tile's
+// table for every (limb, column) and keeps the one whose index equals the
+// column's digit by mask (the TPU kernel's one-hot select,
+// pallas_mont3.py:329-336), so a digit never forms an address.  The
+// window's 32 digits are staged in shared memory at its top (all of them
+// at once would not fit beside the tile at L=513 with 1024 windows, a
+// 4096-bit key's r^n).
 //
-// K4 keeps its 16-entry table in a global scratch the wrapper allocates
-// ((16, L, B), coalesced like the operands; 67 MB at L=257, B=4096) and
-// honours win_start directly in the window loop.  Its digits are
-// plaintext exponents, so each window reads all 16 entries and keeps the
-// one whose index equals the digit by mask (cios::OneHot16, the TPU
-// kernel's one-hot select, pallas_mont3.py:329-336); the per-element
-// path of the shared column routine does this for K4 and K10 alike.
+// K7's table is (tiles, 2^w, L, 32) uint16 in global scratch (33.8 MB at
+// w=5, L=129, B=4096) and its exponent p-1 (q-1) one int32 digit vector
+// for the whole batch.  The digits are key-derived and every column reads
+// the same entry at the same step, so the entry read follows the key, as
+// on the TPU (pallas_mont3.py:422) and in K2 (README threat-model note,
+// ROADMAP C5): only T[d] is read, copied into shared memory by cp.async
+// while the window's squarings run, where it fits beside the tile (L <=
+// 480); above that the window product reads it from global memory.
+// Staging takes 2% off the chain at L=129, B=4096, w=5 (PERF.md, K7).
 //
-// The column routines (CIOS product, fixed-window chain) live in
-// cios.cuh, shared with K9/K10 (csrc/mont.cu).
-//
-// K7 runs the same column routine with a 2^w-entry table in global
-// scratch ((32, 129, B) u32 at w=5: 68 MB at B=4096) and the exponent
-// p-1 (q-1) as one int32 digit vector for the whole batch.  The TPU
-// kernel squared through K8's body at L <= 192; so do K4 and K7 here
-// (cios::mont_sqr_col at L <= cios::kSqrMaxLimbs, the product routine
-// above it): the Montgomery result is unique, so either squaring gives
-// the same limbs.  The digits are key-derived and every column reads the
-// same entry at the same step, so the table index follows the key, as
-// on the TPU and as in K2 (README threat-model note, ROADMAP C5).  Bound:
-// as K3, per-product latency; (2^w - 2) + n_win (w + 1) products of
-// 2 L^2 16x16-bit limb products each per column.
+// Work of a chain: (2^w - 2) + n_win tile products (K4: w=4) of 2 L^2
+// 16x16-bit limb products each per column, and n_win w squarings of
+// L(L+1)/2 + L^2 (the function's work; the chain runs each square as a
+// tile product); bound, as K3, by the product's multiply-adds, so a
+// chain costs its products' sum.
 //
 // K8 is one thread per column through cios::mont_sqr_col: the symmetric
 // product (each cross product once, one doubling pass, the diagonal) in
 // a 2L-word local array, then L REDC steps; K8(a) equals K3(a, a) limb
 // for limb.  L <= 520 as K3 (the local array is then ~4 KB per thread).
-// Work model: counted as K3's, one product's 2 L^2 16x16-bit limb
-// products, so both rows read the same bound for the same function
-// (the kernel itself runs L(L+1)/2 + L^2 multiplies); bytes: a read
-// once, the modulus, the output written once.  Bound by per-thread
-// latency: the 2L-word running array lives in local memory.
+// Work model: a square's L(L+1)/2 + L^2 16x16-bit limb products, what
+// the kernel runs; bytes: a read once, the modulus, the output written
+// once.  Bound by per-thread latency: the 2L-word running array lives in
+// local memory; one warp a block spreads a batch over more SMs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,41 +79,85 @@
 namespace {
 
 constexpr int kMaxLimbs = 520;      // MontCtx.MXU_MAX_LIMBS
-constexpr int kThreads = 32;        // one warp: spreads a batch over more SMs
+constexpr int kSqrThreads = 32;     // K8: one warp a block
 
+using mm3_tile::kNC;
+using mm3_tile::u16;
 using rns_tile::kMaxShared;
 
 __global__ void __launch_bounds__(mm3_tile::kThreads, 1)
 mm3_mul_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out,
                mm3_tile::Ops op, int B) {
   extern __shared__ __align__(16) unsigned char smem[];
-  mm3_tile::tile_mul(a, b, out, op, blockIdx.x * mm3_tile::kNC, B, smem);
+  const int col0 = blockIdx.x * kNC;
+  mm3_tile::tile_mul(
+      mm3_tile::Global{a, col0, B}, mm3_tile::Global{b, col0, B},
+      [&](int r, int col, u16 v) {
+        const int gc = col0 + col;
+        if (gc < B) out[static_cast<size_t>(r) * B + gc] = v;
+      },
+      op, smem);
 }
 
-template <bool kSqr>
-__global__ void mm3_exp_kernel(const uint32_t* base, const int32_t* digits,
-                               const uint32_t* one, uint32_t* out,
-                               uint32_t* table, const uint32_t* n,
-                               uint32_t n0, int L, int B, int n_win,
-                               int win_start) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  cios::exp_col<kMaxLimbs, true, kSqr>(base + col, digits + col, B, one,
-                                       out + col, table + col, n, 1, n0, L,
-                                       B, 4, win_start, n_win);
+// K4: the tile's 4-bit chain; digits (n_win, B); dig, the window's
+// digits, past the tile's shared memory.
+__global__ void __launch_bounds__(mm3_tile::kThreads, 1)
+mm3_exp_kernel(const uint32_t* base, const int32_t* digits,
+               const uint32_t* one, uint32_t* out, u16* tab,
+               mm3_tile::Ops op, int B, int n_win, int win_start) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = op.L, col0 = blockIdx.x * kNC;
+  const size_t SZ = static_cast<size_t>(L) * kNC;
+  u16* tb = tab + blockIdx.x * 16 * SZ;
+  int* dig = reinterpret_cast<int*>(smem + mm3_tile::smem_bytes(L));
+  mm3_tile::tile_chain(
+      base, one, out, tb, op, col0, B, 4, win_start, n_win,
+      [&](int w) {
+        for (int c = threadIdx.x; c < kNC; c += blockDim.x) {
+          const int gc = col0 + c;
+          dig[c] = gc < B ? __ldg(digits + static_cast<size_t>(w) * B + gc)
+                          : 0;
+        }
+      },
+      [&](int r, int col) -> u16 {           // one-hot: all 16 entries
+        const int d = dig[col];
+        const u16* e = tb + r * kNC + col;
+        uint32_t v = 0u;
+#pragma unroll
+        for (int t = 0; t < 16; ++t)
+          v |= e[t * SZ] & (0u - static_cast<uint32_t>(t == d));
+        return static_cast<u16>(v);
+      },
+      smem);
 }
 
-template <bool kSqr>
-__global__ void mm3_exp_shared_kernel(const uint32_t* base,
-                                      const int32_t* digits, int n_win,
-                                      const uint32_t* one, uint32_t* out,
-                                      uint32_t* table, const uint32_t* n,
-                                      uint32_t n0, int L, int B, int window) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  cios::exp_col<kMaxLimbs, false, kSqr>(base + col, digits, 1, one, out + col,
-                                        table + col, n, 1, n0, L, B, window,
-                                        0, n_win);
+// K7: the tile's w-bit chain of one shared exponent, digits (n_win,);
+// with `staged`, T[d] is copied past the tile's shared memory during the
+// squarings, else read from the table.
+__global__ void __launch_bounds__(mm3_tile::kThreads, 1)
+mm3_exp_shared_kernel(const uint32_t* base, const int32_t* digits,
+                      int n_win, const uint32_t* one, uint32_t* out,
+                      u16* tab, mm3_tile::Ops op, int B, int window,
+                      bool staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int L = op.L;
+  const size_t SZ = static_cast<size_t>(L) * kNC;
+  u16* tb = tab + blockIdx.x * (SZ << window);
+  u16* buf = reinterpret_cast<u16*>(smem + mm3_tile::smem_bytes(L));
+  const u16* src = buf;
+  mm3_tile::tile_chain(
+      base, one, out, tb, op, blockIdx.x * kNC, B, window, 0, n_win,
+      [&](int w) {
+        const u16* e = tb + static_cast<size_t>(__ldg(digits + w)) * SZ;
+        if (!staged) {
+          src = e;
+          return;
+        }
+        for (int i = threadIdx.x; i < 4 * L; i += blockDim.x)   // 64L B
+          rns_tile::cp_async16(buf + 8 * i, e + 8 * i);
+        rns_tile::cp_async_commit();
+      },
+      [&](int r, int col) -> u16 { return src[r * kNC + col]; }, smem);
 }
 
 __global__ void mm3_sqr_kernel(const uint32_t* a, uint32_t* out,
@@ -127,7 +168,34 @@ __global__ void mm3_sqr_kernel(const uint32_t* a, uint32_t* out,
   cios::mont_sqr_col(a + col, B, out + col, B, n, 1, n0, L, t);
 }
 
-inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
+mm3_tile::Ops tile_ops(const uint8_t* Wmu, const uint8_t* Wm, int L) {
+  return {reinterpret_cast<const uint4*>(Wmu),
+          reinterpret_cast<const uint4*>(Wm), L, (2 * L + 15) / 16,
+          (4 * L + 15) / 16, (2 * L + 31) / 32};
+}
+
+// Dynamic shared memory of a launch of K3 (kernel 0: the tile), K4
+// (1: the tile and one window's 32 digits) or K7 (2: the tile and, where
+// it fits, the staged table entry of 64L bytes).
+size_t mm3_smem(int L, int kernel) {
+  const size_t tile = mm3_tile::smem_bytes(L);
+  if (kernel == 1) return tile + kNC * sizeof(int);
+  const size_t entry = static_cast<size_t>(L) * kNC * sizeof(u16);
+  return kernel == 2 && tile + entry <= kMaxShared ? tile + entry : tile;
+}
+
+// Raises kernel's shared-memory limit once per device, then launches it
+// over the tiles of B columns with smem bytes, if they fit.
+template <typename Kernel, typename... Args>
+int launch_tiles(Kernel kernel, std::atomic<unsigned long long>& raised,
+                 size_t smem, int B, void* stream, Args... args) {
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  const cudaError_t e = rns_tile::allow_max_shared(kernel, raised);
+  if (e != cudaSuccess) return e;
+  kernel<<<(B + kNC - 1) / kNC, mm3_tile::kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -135,58 +203,52 @@ extern "C" int pct_mm3_mul(const uint32_t* a, const uint32_t* b,
                            uint32_t* out, const uint8_t* Wmu,
                            const uint8_t* Wm, int L, int B, void* stream) {
   if (L < 2 || L > kMaxLimbs || B < 1) return cudaErrorInvalidValue;
-  const size_t smem = mm3_tile::smem_bytes(L);
-  if (smem > kMaxShared) return cudaErrorInvalidValue;
   static std::atomic<unsigned long long> raised{0};
-  const cudaError_t e = rns_tile::allow_max_shared(mm3_mul_kernel, raised);
-  if (e != cudaSuccess) return e;
-  const mm3_tile::Ops op{reinterpret_cast<const uint4*>(Wmu),
-                         reinterpret_cast<const uint4*>(Wm), L,
-                         (2 * L + 15) / 16, (4 * L + 15) / 16,
-                         (2 * L + 31) / 32};
-  mm3_mul_kernel<<<(B + mm3_tile::kNC - 1) / mm3_tile::kNC,
-                   mm3_tile::kThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(a, b, out, op, B);
-  return cudaGetLastError();
+  return launch_tiles(mm3_mul_kernel, raised, mm3_smem(L, 0), B, stream, a,
+                      b, out, tile_ops(Wmu, Wm, L), B);
 }
 
 extern "C" int pct_mm3_exp(const uint32_t* base, const int32_t* digits,
                            const uint32_t* one, uint32_t* out,
-                           uint32_t* table, const uint32_t* n, unsigned n0,
-                           int L, int B, int n_win, int win_start,
-                           void* stream) {
+                           uint16_t* table, const uint8_t* Wmu,
+                           const uint8_t* Wm, int L, int B, int n_win,
+                           int win_start, void* stream) {
   if (L < 2 || L > kMaxLimbs || B < 1 || win_start < 0) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = L <= cios::kSqrMaxLimbs ? mm3_exp_kernel<true>
-                                              : mm3_exp_kernel<false>;
-  kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      base, digits, one, out, table, n, n0, L, B, n_win, win_start);
-  return cudaGetLastError();
+  static std::atomic<unsigned long long> raised{0};
+  return launch_tiles(mm3_exp_kernel, raised, mm3_smem(L, 1), B, stream,
+                      base, digits, one, out, table, tile_ops(Wmu, Wm, L), B,
+                      n_win, win_start);
 }
 
 extern "C" int pct_mm3_exp_shared(const uint32_t* base, const int32_t* digits,
                                   int n_win, const uint32_t* one,
-                                  uint32_t* out, uint32_t* table,
-                                  const uint32_t* n, unsigned n0, int L,
-                                  int B, int window, void* stream) {
+                                  uint32_t* out, uint16_t* table,
+                                  const uint8_t* Wmu, const uint8_t* Wm,
+                                  int L, int B, int window, void* stream) {
   if (L < 2 || L > kMaxLimbs || B < 1 || n_win < 0 || window < 1
       || window > 8) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = L <= cios::kSqrMaxLimbs
-                          ? mm3_exp_shared_kernel<true>
-                          : mm3_exp_shared_kernel<false>;
-  kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      base, digits, n_win, one, out, table, n, n0, L, B, window);
-  return cudaGetLastError();
+  const size_t smem = mm3_smem(L, 2);
+  static std::atomic<unsigned long long> raised{0};
+  return launch_tiles(mm3_exp_shared_kernel, raised, smem, B, stream, base,
+                      digits, n_win, one, out, table, tile_ops(Wmu, Wm, L),
+                      B, window, smem > mm3_smem(L, 0));
+}
+
+// The dynamic shared memory a launch of K3 (kernel 0), K4 (1) or K7 (2)
+// asks for at L limbs; the launchers refuse more than kMaxShared.
+extern "C" long long pct_mm3_smem(int L, int kernel) {
+  return static_cast<long long>(mm3_smem(L, kernel));
 }
 
 extern "C" int pct_mm3_sqr(const uint32_t* a, uint32_t* out,
                            const uint32_t* n, unsigned n0, int L, int B,
                            void* stream) {
   if (L < 2 || L > kMaxLimbs || B < 1) return cudaErrorInvalidValue;
-  mm3_sqr_kernel<<<blocks_for(B), kThreads, 0,
+  mm3_sqr_kernel<<<(B + kSqrThreads - 1) / kSqrThreads, kSqrThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(a, out, n, n0, L, B);
   return cudaGetLastError();
 }

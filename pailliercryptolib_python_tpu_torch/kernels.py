@@ -53,7 +53,7 @@ _U = ctypes.c_uint
 # 32 bits otherwise); the last argument of each is the CUDA stream.
 _SIGS = {
     "mm3_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "mm3_exp": [_P, _P, _P, _P, _P, _P, _U, _I, _I, _I, _I, _P],
+    "mm3_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mm3_sqr": [_P, _P, _P, _U, _I, _I, _P],
     "rns_mul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rns_exp_sched": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
@@ -62,7 +62,7 @@ _SIGS = {
                      _I, _I, _I, _I, _I, _I, _P],
     "rns_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
-    "mm3_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _U, _I, _I, _I, _P],
+    "mm3_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_mul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mont_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -143,10 +143,19 @@ def lib() -> ctypes.CDLL:
 
 
 def sqr_max_limbs() -> int:
-    """The largest L at which the exponentiation kernels square through
-    their squaring routine (``cios::kSqrMaxLimbs``), read from the built
-    library."""
+    """The largest L at which the nibble exponentiation kernels (K14,
+    K15) square through their squaring routine (``cios::kSqrMaxLimbs``),
+    read from the built library."""
     return int(lib().pct_sqr_max_limbs())
+
+
+def mm3_smem_bytes(name: str, L: int) -> int:
+    """The dynamic shared memory a launch of K3 (``mm3_mul``), K4
+    (``mm3_exp``) or K7 (``mm3_exp_shared``) asks for at L limbs, read
+    from the built library (``csrc/mont3.cu`` ``mm3_smem``)."""
+    fn = lib().pct_mm3_smem
+    fn.restype = ctypes.c_longlong
+    return int(fn(L, ("mm3_mul", "mm3_exp", "mm3_exp_shared").index(name)))
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -15,12 +15,13 @@ Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
 
 The plain twins keep the TPU kernel's algorithm: the schoolbook product,
 then the Montgomery reduction as two signed-byte Toeplitz matrix products
-(q = T*mu mod R, then T + q*m), here as exact float64 matmuls.  K3
-(``csrc/mm3_tile.cuh``) reduces with the same two Toeplitz products, on
-unsigned bytes (``tile_weights``) as u8 tensor-core products;
-``mm3_mul_tile`` is its arithmetic in plain PyTorch, for the CPU tests.
-K4, K7 and K8 use a CIOS reduction instead.  All give the unique
-(a*b + q*m)/R with q = -a*b*m^-1 mod R, so they agree limb for limb.
+(q = T*mu mod R, then T + q*m), here as exact float64 matmuls.  K3, K4
+and K7 (``csrc/mm3_tile.cuh``: one tile product, or a tile's whole
+chain of them) reduce with the same two Toeplitz products, on unsigned
+bytes (``tile_weights``) as u8 tensor-core products; ``mm3_mul_tile`` is
+the product's arithmetic in plain PyTorch, for the CPU tests.  K8 uses a
+CIOS reduction instead.  All give the unique (a*b + q*m)/R with
+q = -a*b*m^-1 mod R, so they agree limb for limb.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 
 from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, big_mul, idot,
                    int_to_limbs, normalize)
-from .rns_kernels import MMA_K, MMA_M, fragment_order
+from .rns_kernels import MMA_K, MMA_M, TILE_COLS, fragment_order
 from .. import kernels
 
 BIAS = 1 << 26          # per-limb slot bias: |signed slot| < 2^26
@@ -304,7 +305,7 @@ def mm3_exp(base: torch.Tensor, digits, ctx,
 
 
 def _mm3_exp_cuda(base, digits, ctx, win_start) -> torch.Tensor:
-    kernels.require_cuda(base, digits, ctx.n_limbs)
+    kernels.require_cuda(base, digits, ctx.wmu_f, ctx.wm_f)
     L = base.shape[0]
     n_win = digits.shape[0]
     B = max(base.shape[1], digits.shape[1])
@@ -312,9 +313,12 @@ def _mm3_exp_cuda(base, digits, ctx, win_start) -> torch.Tensor:
     digits = digits.expand(n_win, B).contiguous()
     one = ctx.one.contiguous()
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
-    table = torch.empty((16, L, B), dtype=LIMB_DTYPE, device=base.device)
-    kernels.launch("mm3_exp", base, digits, one, out, table, ctx.n_limbs,
-                   ctx.n0inv, L, B, n_win, int(win_start))
+    # the table, tile by tile: (tiles, 16, L, TILE_COLS) uint16 limbs
+    # (int16 storage)
+    table = torch.empty((-(-B // TILE_COLS), 16, L, TILE_COLS),
+                        dtype=torch.int16, device=base.device)
+    kernels.launch("mm3_exp", base, digits, one, out, table, ctx.wmu_f,
+                   ctx.wm_f, L, B, n_win, int(win_start))
     return out
 
 
@@ -331,15 +335,16 @@ def mm3_exp_shared(base: torch.Tensor, digits, ctx,
 
 
 def _mm3_exp_shared_cuda(base, digits, ctx, window) -> torch.Tensor:
-    kernels.require_cuda(base, digits, ctx.n_limbs)
+    kernels.require_cuda(base, digits, ctx.wmu_f, ctx.wm_f)
     L, B = base.shape
     base = _cols(base, L, B)
     one = ctx.one.contiguous()
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
-    table = torch.empty((1 << window, L, B), dtype=LIMB_DTYPE,
-                        device=base.device)
+    # (tiles, 2^window, L, TILE_COLS) uint16 limbs (int16 storage)
+    table = torch.empty((-(-B // TILE_COLS), 1 << window, L, TILE_COLS),
+                        dtype=torch.int16, device=base.device)
     kernels.launch("mm3_exp_shared", base, digits, digits.shape[0], one,
-                   out, table, ctx.n_limbs, ctx.n0inv, L, B, window)
+                   out, table, ctx.wmu_f, ctx.wm_f, L, B, window)
     return out
 
 

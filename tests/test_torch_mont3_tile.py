@@ -3,10 +3,13 @@ Toeplitz matrices W_mu, W_m and their mma fragment order, and the plain
 PyTorch version of the kernel's steps (``mont3.mm3_mul_tile``: product,
 slot sums, recombination), which must equal the port's twin, the JAX
 package's Pallas kernel (interpret mode) and Python's integers bit for
-bit; plus the K3 and K5 wrappers' calls into the C library."""
+bit; plus the K3, K4, K7 and K5 wrappers' calls into the C library, and
+the shared memory of a K3, K4 or K7 launch, read from the library."""
 
+import ctypes
 import dataclasses
 import random
+import types
 
 import numpy as np
 import pytest
@@ -162,7 +165,14 @@ def _fake(t):
     return t.as_subclass(_OnDevice)
 
 
-def _k3_call():
+def _fake_digits():
+    real = kernels.digit_tensor
+    return lambda d, w, dev, below=None: _fake(real(d, w, CPU, below))
+
+
+def _mm3_call(name):
+    """A call of the K3, K4 or K7 wrapper on operands that report a CUDA
+    device, and the digit_tensor stand-in it needs."""
     L = 17
     m = _modulus(L, 5)
     ctx = tmg.MontCtx.for_modulus(m, mxu=True, device=CPU)
@@ -171,7 +181,14 @@ def _k3_call():
                                   for f in dataclasses.fields(ctx))))
     xs, ys = _operands(L, m, 9)
     a, b = _fake(_limbs(xs, L)), _fake(_limbs(ys, L))
-    return lambda: mont3.mm3_mul(a, b, ctx)
+    if name == "mm3_mul":
+        return lambda: mont3.mm3_mul(a, b, ctx), kernels.digit_tensor
+    if name == "mm3_exp":
+        digits = np.arange(3 * B, dtype=np.int32).reshape(3, B) % 16
+        return lambda: mont3.mm3_exp(a, digits, ctx, 1), _fake_digits()
+    digits = np.array([31, 0, 7], dtype=np.int32)
+    return (lambda: mont3.mm3_exp_shared(a, digits, ctx, 5),
+            _fake_digits())
 
 
 def _k5_call():
@@ -184,12 +201,12 @@ def _k5_call():
                    for k, v in tk._dev_ops.items()}
     X = _fake(torch.zeros((tb.CH, B), dtype=torch.int32))
     digits = np.arange(3 * B, dtype=np.int32).reshape(3, B) % 16
-    real = kernels.digit_tensor
-    fake_digits = lambda d, w, dev, below=None: _fake(real(d, w, CPU, below))
-    return lambda: trk.rns_exp_elem_p(X, digits, tb, tk, 4), fake_digits
+    return (lambda: trk.rns_exp_elem_p(X, digits, tb, tk, 4),
+            _fake_digits())
 
 
-@pytest.mark.parametrize("name", ["mm3_mul", "rns_exp_elem"])
+@pytest.mark.parametrize("name", ["mm3_mul", "mm3_exp", "mm3_exp_shared",
+                                  "rns_exp_elem"])
 def test_wrapper_passes_its_signature_and_raises(name, monkeypatch):
     calls = []
 
@@ -199,11 +216,9 @@ def test_wrapper_passes_its_signature_and_raises(name, monkeypatch):
 
     monkeypatch.setattr(kernels, "_call", call)
     monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 4096)
-    if name == "mm3_mul":
-        run = _k3_call()
-    else:
-        run, fake_digits = _k5_call()
-        monkeypatch.setattr(kernels, "digit_tensor", fake_digits)
+    run, fake_digits = (_k5_call() if name == "rns_exp_elem"
+                        else _mm3_call(name))
+    monkeypatch.setattr(kernels, "digit_tensor", fake_digits)
     monkeypatch.setattr(torch, "empty",
                         lambda *s, **k: _fake(torch.zeros(*s, **{
                             key: v for key, v in k.items()
@@ -218,3 +233,24 @@ def test_wrapper_passes_its_signature_and_raises(name, monkeypatch):
     monkeypatch.setattr(kernels, "_call", lambda n, conv, dev: 1)
     with pytest.raises(RuntimeError, match=f"{name} failed to launch"):
         run()
+
+
+def test_shared_memory_is_read_from_the_library(monkeypatch):
+    """``kernels.mm3_smem_bytes`` asks the built library (``csrc/mont3.cu``
+    ``mm3_smem``) for the shared memory a launch of K3, K4 or K7 takes,
+    as a 64-bit count; nothing in Python recomputes it."""
+    asked = []
+
+    class Fn:
+        restype = ctypes.c_int
+
+        def __call__(self, L, kernel):
+            asked.append((L, kernel, self.restype))
+            return 217_088 + kernel
+
+    monkeypatch.setattr(kernels, "lib",
+                        lambda: types.SimpleNamespace(pct_mm3_smem=Fn()))
+    got = [kernels.mm3_smem_bytes(n, 520)
+           for n in ("mm3_mul", "mm3_exp", "mm3_exp_shared")]
+    assert got == [217_088, 217_089, 217_090]
+    assert asked == [(520, k, ctypes.c_longlong) for k in range(3)]

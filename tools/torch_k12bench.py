@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels K1 (``rns_mul``), K2 (``rns_exp_sched``), K5
-(``rns_exp_elem``) and K3 (``mm3_mul``) of the port in one checkout, at
-their main-path shapes, on one GPU.
+(``rns_exp_elem``), K3 (``mm3_mul``), K4 (``mm3_exp``) and K7
+(``mm3_exp_shared``) of the port in one checkout, at their main-path
+shapes, on one GPU.
 
     python3 tools/torch_k12bench.py [TREE]
 
@@ -15,7 +16,10 @@ base (CH=521), B=4096; K2 the decrypt chain of p-1 at the p^2 base
 (CH=261, window 6, 1195 schedule entries), B=4096; K5 the ct*pt chain
 at the n^2 base, window 4, 16 windows, B=4096, 4095 and 1; K3 one
 Montgomery product at n^2 (L=257) and p^2 (L=129), B=4096, 4095, 64
-and 1, and B=4096 with b an (L, 1) broadcast.  The inputs come from
+and 1, and B=4096 with b an (L, 1) broadcast; K4 the exponent
+alignment's chain (20-bit exponents, windows 3..8) at n^2 (L=257) and
+p^2 (L=129), B=4096; K7 the limb decrypt's chain of p-1 at p^2 (L=129,
+window 5, 205 windows), B=4096.  The inputs come from
 a fixed seed, so every tree gets the same ones, and the line printed
 carries sums of the outputs for a cross-check.  CUDA events, one warm-up
 call.  Prints one line ``K12BENCH {json}`` with the card's name and
@@ -116,11 +120,34 @@ def main(argv) -> int:
             tag = f"L={L} B={B}" + (" b (L, 1)" if bc else "")
             k3[tag] = ms_of(run, 50)
             sums["K3 " + tag] = int(run().long().sum())
+    k4, k7 = {}, {}
+    for m in (n * n, p * p):
+        ctx = mg.MontCtx.for_modulus(m, device=dev)
+        L = ctx.num_limbs
+        a = to_device(ints_to_limbs(
+            [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
+             for _ in range(4096)], L), dev)
+        exps = [int(e) for e in rng.integers(1, 1 << 20, size=4096)]
+        digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
+        run = lambda: mont3.mm3_exp(a, digits, ctx, 3)
+        tag = f"L={L} B=4096 win 3..8"
+        k4[tag] = ms_of(run, reps_of(ms_of(run, 1), 20))
+        sums["K4 " + tag] = int(run().long().sum())
+        if m == p * p:
+            window = mont3.shared_exp_window(L)
+            e = p - 1
+            nwd = -(-e.bit_length() // window)
+            dig = mg.exponent_digits([e], nwd, window)[:, 0].astype(
+                np.int32)
+            run = lambda: mont3.mm3_exp_shared(a, dig, ctx, window)
+            tag = f"L={L} B=4096 w={window} {nwd} windows"
+            k7[tag] = ms_of(run, reps_of(ms_of(run, 1), 10))
+            sums["K7 " + tag] = int(run().long().sum())
     print("K12BENCH " + json.dumps({
         "tree": tree, "card": card, "K1_ms": k1, "K1_shape": "CH=521 B=4096",
         "K2_ms": k2, "K2_shape": f"CH=261 B=4096 w={window} "
                                  f"{len(sched)} ops",
-        "K2_reps": reps, "K5_ms": k5, "K3_ms": k3,
+        "K2_reps": reps, "K5_ms": k5, "K3_ms": k3, "K4_ms": k4, "K7_ms": k7,
         "K1_out_sum": int(out1.long().sum()),
         "K2_out_sum": int(out2.long().sum()), "out_sums": sums}), flush=True)
     return 0
