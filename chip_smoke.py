@@ -11,24 +11,31 @@ failure (so any failure exits non-zero):
 2. build the fifteen CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
    git-ignored ``build/``), with the ``-Xptxas -v`` report of the tile
-   kernels K1, K2, K5 (``csrc/rns_tile.cuh``) and K3, K4, K7
+   kernels K1, K2, K5, K6 (``csrc/rns_tile.cuh``) and K3, K4, K7
    (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
    and their tensor-core (IMMA) instructions in the SASS where the
-   toolkit has ``cuobjdump`` (none is a failure);
+   toolkit has ``cuobjdump`` (none is a failure), and the report of K10's
+   instantiations (a spill in the one at the fused decrypt's or the
+   keygen's shape is a failure);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
    kernel's bound (K1, K2 and K5 also at a ragged batch and at one
    column, K2 also where W1, W2 do not fit shared memory; K3 at L=257
    and 129 also at B=4095, 64, 1 and with b an (L, 1) broadcast, and at
    L=520, its largest, B=64; K9 and
-   K10 at the fused CRT decrypt's shape, K10's eager twin alone ~32 s;
+   K10 at the fused CRT decrypt's shape, K10's eager twin alone ~32 s,
+   K10 also at the keygen shape (both window ranges), at B=1 and a ragged
+   B, with a shared (L, 1) modulus, and at L=520 and 1040 (its largest),
+   each with its integer-pipe floor beside;
    K9 on a weightless n^2 also against K3; K4 at n^2 (windows 3..8 at
    B=4096; all 16 windows, every digit 0..15, at B=4095 and 1) and at
    p^2, there also against K10, and at L=520, B=64; K7 at p^2 (4 windows
    and the whole chain at B=4096, 4 windows at B=1), at a 4096-bit key's
    p^2 (L=257) and at L=520, where its table entry is read from global
    memory instead of staged; K6 at the
-   decrypt chain's shape, K8 at L=257/129/65 also against K3(a, a),
+   decrypt chain's shape, a short chain at B=256, 4095 and 1, and where
+   W1, W2 are read from global memory (CH=521); K8 at L=257/129/65 also
+   against K3(a, a),
    K11 at the limb encrypt chain's shape and per-element against a K9
    loop; the nibble kernels K12 at L=257/129
    also against K3, K13 at L=257/129/65 also against K8 and K12(a, a),
@@ -270,22 +277,30 @@ def random_state(rng, base, B: int, dev):
 
 
 TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
-                "mm3_mul_kernel", "mm3_exp_kernel", "mm3_exp_shared_kernel")
+                "rns_exp_shared_kernel", "mm3_mul_kernel", "mm3_exp_kernel",
+                "mm3_exp_shared_kernel")
+# K10's instantiations (csrc/mont.cu mont_exp_kernel<K>) at the main
+# path's shapes: the fused CRT decrypt and the keygen window
+K10_SHAPES = ((129, 8192), (65, 256))
 
 
 def tile_kernel_report() -> None:
-    """Phase 2, the tensor-core tile kernels (K1, K2, K5 on
-    ``csrc/rns_tile.cuh``, K3, K4, K7 on ``csrc/mm3_tile.cuh``): nvcc's -Xptxas
-    -v lines (registers, spills; their shared memory is dynamic, so the
-    bytes each launch asks for at the main path's shape are printed
-    beside), and, where the toolkit has cuobjdump, the tensor-core
-    instructions (IMMA for mma.sync) in each kernel's SASS; fails when
-    one of them has none."""
+    """Phase 2, the tensor-core tile kernels (K1, K2, K5, K6 on
+    ``csrc/rns_tile.cuh``, K3, K4, K7 on ``csrc/mm3_tile.cuh``) and K10's
+    cooperative kernel: nvcc's -Xptxas -v lines (registers, spills; their
+    shared memory is dynamic, so the bytes each launch asks for at the
+    main path's shape are printed beside), and, where the toolkit has
+    cuobjdump, the tensor-core instructions (IMMA for mma.sync) in each
+    tile kernel's SASS; fails when one of them has none, or when K10's
+    instantiation at a shape of ``K10_SHAPES`` uses stack or local memory
+    (``cuobjdump -res-usage``: a spill)."""
+    import re
     from pailliercryptolib_python_tpu_torch import kernels
     lines, cur = {}, None
     for line in kernels.build_log.splitlines():
         if "Compiling entry function" in line:
-            cur = next((k for k in TILE_KERNELS if k in line), None)
+            cur = next((k for k in TILE_KERNELS + ("mont_exp_kernel",)
+                        if k in line), None)
             if cur:
                 cur = line.split("'")[1]
                 lines[cur] = []
@@ -312,7 +327,7 @@ def tile_kernel_report() -> None:
                          f" (over the 232448 B limit: W from global memory, "
                          f"{b} B)")
         print(f"    CH={CH}: K1 asks {CH * 64 + work} B of shared memory, "
-              f"K2 {k2 + w} B with W1 + W2 resident{fit(k2)}, K5 (16 "
+              f"K2 and K6 {k2 + w} B with W1 + W2 resident{fit(k2)}, K5 (16 "
               f"windows) {k5} B (W1 + W2 from global memory)")
     for L in (257, 129, 520):
         k3, k4, k7 = (kernels.mm3_smem_bytes(k, L) for k in (
@@ -320,6 +335,28 @@ def tile_kernel_report() -> None:
         print(f"    L={L}: K3 asks {k3} B of shared memory, K4 {k4} B, K7 "
               f"{k7} B" + (" (its entry staged)" if k7 > k3 else ""))
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    # K10: registers, stack and local memory of the instantiations at
+    # K10_SHAPES, read from the built library whichever process built it
+    usage = subprocess.run([cuobjdump, "-res-usage", kernels.LIB_PATH],
+                           capture_output=True, text=True,
+                           timeout=300).stdout
+    res, fn = {}, None
+    for line in usage.splitlines():
+        m = re.search(r"Function \S*mont_exp_kernelILi(\d+)E", line)
+        if m:
+            fn = int(m.group(1))
+        elif fn is not None and "REG:" in line:
+            res[fn] = dict(re.findall(r"(\w+):(\d+)", line))
+            fn = None
+    for L, B in K10_SHAPES:
+        g, K = kernels.mont_exp_shape(L, B)
+        r = res.get(K, {})
+        print(f"    K10 at L={L}, B={B}: {g} lanes a column, {K} words a "
+              f"lane, mont_exp_kernel<{K}>: registers {r.get('REG')}, "
+              f"stack {r.get('STACK')} B, local {r.get('LOCAL')} B")
+        if not r or r.get("STACK") != "0" or r.get("LOCAL") != "0":
+            raise AssertionError(f"K10's instantiation for L={L}, B={B} "
+                                 f"spills or is missing: {r}")
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", kernels.LIB_PATH],
                               capture_output=True, text=True,
@@ -334,7 +371,7 @@ def tile_kernel_report() -> None:
                 if any(k in f for k in TILE_KERNELS)}
         print(f"    tensor-core instructions (IMMA/IGMMA) in SASS: {tile}")
         missing = [k for k in TILE_KERNELS if not any(k in f for f in tile)]
-        if missing or len(tile) < 7:    # K2 in two instantiations
+        if missing or len(tile) < 9:    # K2, K6 in two instantiations
             raise AssertionError(f"tile kernels lack their IMMA instructions: "
                                  f"{missing or tile}")
 
@@ -609,7 +646,9 @@ def check_kernels(dev, kd) -> dict:
 def check_fourth_slice(dev, kd, rng, record) -> None:
     """Phase 3, K6, K8 and K11.  K6: the decrypt half's chain (CH=261,
     B=4096, window 5, the 205 windows of p-1) and a short one whose first
-    digit is 0 and last 2^w - 1.  K8: L=257, 129, 65 at B=4096, also
+    digit is 0 and last 2^w - 1 at B=256, 4095 and 1, and at the n^2 base
+    (CH=521), where W1, W2 do not fit beside the states and are read from
+    global memory.  K8: L=257, 129, 65 at B=4096, also
     against K3(a, a).  K11: the limb encrypt chain (86 factors, L=257,
     B=4096, shared n^2) and a per-element shape against a K9 loop."""
     import torch
@@ -621,24 +660,31 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
     m = p * p
     base = rns.RnsBase.for_bits(-(-m.bit_length() // 16) * 16, dev)
     key = rns.RnsModulus.build(base, m, (m.bit_length() + 2 + 15) // 16)
-    ops_t = rk.kernel_operands(base, key, dev)
-    const_bytes = nbytes(ops_t["vec"], ops_t["skc"], ops_t["E1"], ops_t["E2"])
     w = 5
     e = p - 1
     dig_all = mg.exponent_digits([e], -(-e.bit_length() // w), w)[:, 0].astype(
         np.int32)
     short = np.array([0, 7, 0, (1 << w) - 1], dtype=np.int32)
-    for dig, B in ((short, 256), (dig_all, BATCH)):
-        X = random_state(rng, base, B, dev)
+    b2 = rns.RnsBase.for_bits(-(-(2 * 2048 + 2) // 16) * 16, dev)
+    k2 = rns.RnsModulus.build(b2, n * n, (2 * 2048 + 2 + 15) // 16)
+    for bs, ky, dig, B, wg in ((base, key, short, 256, w),
+                               (base, key, short, BATCH - 1, w),
+                               (base, key, short, 1, w),
+                               (b2, k2, short[:3] & 15, 100, 4),
+                               (base, key, dig_all, BATCH, w)):
+        ops_t = rk.kernel_operands(bs, ky, dev)
+        X = random_state(rng, bs, B, dev)
         nw = len(dig)
-        got = rk.rns_exp_shared_p(X, dig, base, key, w)
+        got = rk.rns_exp_shared_p(X, dig, bs, ky, wg)
         want, plain_ms = timed(lambda: rns.rns_exp_shared_plain(
-            X, dig, base, key, w))
+            X, dig, bs, ky, wg))
         record("rns_exp_shared", got, want,
-               f"CH={base.CH} B={B} w={w} {nw} windows",
-               ms_of(lambda: rk.rns_exp_shared_p(X, dig, base, key, w), 1),
-               plain_ms, nbytes(X, got) + 4 * nw + const_bytes,
-               rns_ops(base.k, (1 << w) - 2 + nw * (w + 1), B),
+               f"CH={bs.CH} B={B} w={wg} {nw} windows"
+               + (", W global" if bs is b2 else ""),
+               ms_of(lambda: rk.rns_exp_shared_p(X, dig, bs, ky, wg), 1),
+               plain_ms, nbytes(X, got, ops_t["vec"], ops_t["skc"],
+                                ops_t["W1f"], ops_t["W2f"]) + 4 * nw,
+               rns_ops(bs.k, (1 << wg) - 2 + nw * (wg + 1), B),
                headline=B == BATCH)
     # K8
     for m in (n * n, p * p, p):
@@ -839,15 +885,52 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
                + mm2_ops(L, nsq, BATCH, square=L <= sqr_max), k7_ms)
 
 
+def k10_floor_ms(L: int, products: int, B: int, squares: int) -> float:
+    """K10's integer-pipe floor: a product of W = ceil(L/2) 32-bit words
+    is W^2 word products for a*b and W^2 for q*n, a square W(W+1)/2 + W^2,
+    each two IMAD (low and high word), over 132 SMs x 64 IMAD a clock at
+    the card's largest SM clock (nvidia-smi clocks.max.sm)."""
+    W = (L + 1) // 2
+    imad = 2 * B * (products * 2 * W * W + squares * (W * (W + 1) // 2
+                                                      + W * W))
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    return 1e3 * imad / (132 * 64 * mhz * 1e6)
+
+
 def check_per_element(dev, kd, rng, record) -> None:
     """Phase 3, K9 and K10 with a modulus per column: the fused CRT
     decrypt's shape ([p^2]*4096 ++ [q^2]*4096, L=129, B=8192; K10 over
     all 256 windows of p-1 | q-1, the headline), and the keygen shape
     (1024-bit odd moduli, L=65, B=256: all 256 windows, the chain
-    device_mr_base2 launches, then win_start=3 on the top 8)."""
+    device_mr_base2 launches, then win_start=3 on the top 8); K10 also at
+    B=1 and B=4095 (8 windows), with a shared (L, 1) modulus, and at
+    L=520, B=64 and L=1040, B=2 (4 windows), each printed with its
+    integer-pipe floor (``k10_floor_ms``)."""
     import torch
+    from pailliercryptolib_python_tpu_torch import kernels
     from pailliercryptolib_python_tpu_torch.ops import mont
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+
+    def k10(a, dig, n, n0, one, ws, shape, headline=False):
+        """K10 against its twin, with the floor and the (g, K) printed."""
+        L, B = a.shape
+        dig_dev = torch.from_numpy(dig).to(dev)
+        nw = dig.shape[0] - ws
+        got = mont.mont_exp_p(a, dig, n, n0, one, ws)
+        want, plain_ms = timed(lambda: mont.mont_exp_plain(
+            a, dig_dev, n, n0, one, ws))
+        record("mont_exp", got, want, shape,
+               ms_of(lambda: mont.mont_exp_p(a, dig, n, n0, one, ws), 1),
+               plain_ms, nbytes(a, dig_dev, got, one, n)
+               + (4 * B if isinstance(n0, torch.Tensor) else 4),
+               limb_ops(L, 14 + nw, B, nw * 4), headline=headline)
+        g, K = kernels.mont_exp_shape(L, B)
+        floor = k10_floor_ms(L, 14 + nw, B, nw * 4)
+        print(f"  {'':14s} integer-pipe floor {floor:.6f} ms; {g} lanes a "
+              f"column, {K} words a lane", flush=True)
     p, q = kd["p"], kd["q"]
     B2 = 2 * BATCH
     ms = [p * p] * BATCH + [q * q] * BATCH
@@ -870,15 +953,18 @@ def check_per_element(dev, kd, rng, record) -> None:
     dig = np.ascontiguousarray(np.concatenate(
         [np.broadcast_to(e[:, :1], (nw, BATCH)),
          np.broadcast_to(e[:, 1:], (nw, BATCH))], axis=1))
-    dig_dev = torch.from_numpy(dig).to(dev)
-    got = mont.mont_exp_p(a, dig, ctx.n_limbs, ctx.n0inv, ctx.one)
-    want, plain_ms = timed(lambda: mont.mont_exp_plain(
-        a, dig_dev, ctx.n_limbs, ctx.n0inv, ctx.one))
-    record("mont_exp", got, want, f"L={L} B={B2} per-element {nw} windows",
-           ms_of(lambda: mont.mont_exp_p(a, dig, ctx.n_limbs, ctx.n0inv,
-                                         ctx.one), 1),
-           plain_ms, nbytes(a, dig_dev, got, ctx.one) + ctx_bytes,
-           limb_ops(L, 14 + nw, B2, nw * 4), headline=True)
+    k10(a, dig, ctx.n_limbs, ctx.n0inv, ctx.one, 0,
+        f"L={L} B={B2} per-element {nw} windows", headline=True)
+    # one column, a ragged batch (8 windows), and a shared (L, 1) p^2
+    for Bn in (1, BATCH - 1):
+        c1 = mg.MontCtx.for_moduli(ms[-Bn:], L, dev)
+        k10(a[:, -Bn:].contiguous(), np.ascontiguousarray(dig[:8, -Bn:]),
+            c1.n_limbs, c1.n0inv, c1.one, 0,
+            f"L={L} B={Bn} per-element 8 windows")
+    sh = mg.MontCtx.for_modulus(p * p, mxu=False, device=dev)
+    k10(a[:, :BATCH].contiguous(), np.ascontiguousarray(dig[:8, :BATCH]),
+        sh.n_limbs, sh.n0inv, sh.one, 0, f"L={L} B={BATCH} shared (L, 1) "
+        f"8 windows")
     # the keygen shape: 1024-bit odd moduli, digits of (c-1) >> tz
     import random
     r = random.Random(SEED)
@@ -890,17 +976,16 @@ def check_per_element(dev, kd, rng, record) -> None:
     for nwk, ws in ((256, 0), (8, 3)):
         dk = mg.exponent_digits([d >> (4 * (256 - nwk)) for d in ds], nwk,
                                 4).astype(np.int32)
-        dk_dev = torch.from_numpy(dk).to(dev)
-        got = mont.mont_exp_p(ak, dk, ck.n_limbs, ck.n0inv, ck.one, ws)
-        want, plain_ms = timed(lambda: mont.mont_exp_plain(
-            ak, dk_dev, ck.n_limbs, ck.n0inv, ck.one, ws))
-        record("mont_exp", got, want,
-               f"L={Lk} B=256 per-element windows {ws}..{nwk}",
-               ms_of(lambda: mont.mont_exp_p(ak, dk, ck.n_limbs, ck.n0inv,
-                                             ck.one, ws), 1),
-               plain_ms, nbytes(ak, dk_dev, got, ck.one, ck.n_limbs,
-                                ck.n0inv),
-               limb_ops(Lk, 14 + nwk - ws, 256, (nwk - ws) * 4))
+        k10(ak, dk, ck.n_limbs, ck.n0inv, ck.one, ws,
+            f"L={Lk} B=256 per-element windows {ws}..{nwk}")
+    # large L: random odd moduli of 520 and 1040 limbs (R > 4n), 4 windows
+    for Lb, Bb in ((520, 64), (mont.MAX_LIMBS, 2)):
+        bits = 16 * Lb - 2
+        mb = [r.getrandbits(bits) | (1 << (bits - 1)) | 1 for _ in range(Bb)]
+        cb = mg.MontCtx.for_moduli(mb, Lb, dev)
+        db = rng.integers(0, 16, size=(4, Bb)).astype(np.int32)
+        k10(random_cols(rng, mb, Lb, dev), db, cb.n_limbs, cb.n0inv, cb.one,
+            0, f"L={Lb} B={Bb} per-element 4 windows")
 
 
 def main_path(dev, kd, tag: str) -> dict:

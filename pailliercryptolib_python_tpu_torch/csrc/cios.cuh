@@ -1,7 +1,9 @@
 // The CIOS column routines of the limb-Montgomery kernels that own one
-// column a thread: K8 (csrc/mont3.cu, one modulus for the batch) and
-// K9/K10/K11 (csrc/mont.cu, a modulus per column or one shared); the
-// nibble kernels (mm2.cuh) borrow OneHot16 and kSqrMaxLimbs.
+// column a thread: K8 (csrc/mont3.cu, mont_sqr_col, one modulus for the
+// batch) and K9/K11 (csrc/mont.cu, mont_mul_col, a modulus per column or
+// one shared); the nibble kernels (mm2.cuh) borrow Strided, OneHot16 and
+// kSqrMaxLimbs.  K10 runs on the cooperative 32-bit-word routine of
+// csrc/mont.cu instead.
 //
 // Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs; one
 // thread owns one column (one big number) and walks its limbs at a row
@@ -13,6 +15,13 @@
 // unique and symmetric in a and b, so every kernel built on it equals
 // the TPU kernels and the plain twins limb for limb, whichever operand
 // it walks in the outer loop.
+//
+// What bounds the kernels built on it: per-thread latency.  One thread
+// walks a product's 2L^2 dependent multiply-adds with its running sum
+// (L+2 words, 2L for the square) in local memory, and one thread per
+// column leaves most of the card idle at B=4096; both the int8 bound and
+// the integer pipes are 2-3 orders of magnitude away (PERF.md, K8, K9,
+// K11).
 
 #pragma once
 
@@ -146,40 +155,5 @@ __device__ __forceinline__ void mont_sqr_col(
 // through their squaring routine (the TPU kernels' PRESHIFT_MAX_L,
 // pallas_mont2.py:63): 2L words then fit their product's scratch.
 constexpr int kSqrMaxLimbs = 192;
-
-// base^e of one column with a 4-bit per-element exponent (column pointers
-// with row stride B; K10): table T[0] = one, T[1] = base, T[d] = T[d-1] *
-// base (16 entries, entry d at tab + d*L*B), acc = one, then per window
-// from win_start to n_win: 4 squarings (products acc*acc, as the TPU's
-// _mont_exp_kernel) and one product by T[digit].  dig points at this
-// column's digit of window 0 (windows B apart).  The digit is secret (a
-// plaintext, or a prime candidate), so each window reads all 16 entries
-// and keeps T[digit] by mask (OneHot16), as the TPU kernels do.  n and one
-// are read at row stride sn (1 for a shared (L, 1) modulus, B for
-// per-column moduli).
-template <int kMaxLimbs>
-__device__ void exp_col(const uint32_t* bc, const int32_t* dig,
-                        const uint32_t* one, uint32_t* outc, uint32_t* tab,
-                        const uint32_t* n, int sn, uint32_t n0, int L, int B,
-                        int win_start, int n_win) {
-  uint32_t t[kMaxLimbs + 2];
-  uint32_t acc[kMaxLimbs];
-  const size_t plane = static_cast<size_t>(L) * B;
-  for (int j = 0; j < L; ++j) {
-    tab[j * B] = one[j * sn];
-    tab[plane + j * B] = bc[j * B];
-  }
-  for (int d = 2; d < 16; ++d)               // T[d] = T[d-1] * base
-    mont_mul_col(Strided{tab + (d - 1) * plane, B}, bc, B, tab + d * plane,
-                 B, n, sn, n0, L, t);
-  for (int j = 0; j < L; ++j) acc[j] = one[j * sn];
-  for (int w = win_start; w < n_win; ++w) {
-    for (int s = 0; s < 4; ++s)
-      mont_mul_col(Strided{acc, 1}, acc, 1, acc, 1, n, sn, n0, L, t);
-    mont_mul_col(OneHot16{tab, plane, B, dig[static_cast<size_t>(w) * B]},
-                 acc, 1, acc, 1, n, sn, n0, L, t);
-  }
-  for (int j = 0; j < L; ++j) outc[j * B] = acc[j];
-}
 
 }  // namespace cios

@@ -14,53 +14,70 @@
 //    product of n_win pre-gathered factors, one Montgomery product per
 //    factor (the fused form of the limb comb encrypt chain).
 //
-// K9 and K10 serve every Montgomery context without the mm3 weights of K3/K4:
+// They serve every Montgomery context without the mm3 weights of K3/K4:
 // the per-element contexts of MontCtx.for_moduli (the device-batched
 // Miller-Rabin of keygen, one prime candidate per column, and the fused
 // CRT decrypt over [p^2]*B ++ [q^2]*B) and moduli whose L exceeds the
-// weights' 520 limbs (n^2 of keys past the RNS bound).
+// weights' 520 limbs (n^2 of keys past the RNS bound).  The modulus and
+// `one` are read at column stride 0 and row stride 1 when shared ((L,
+// 1)), or column stride 1 and row stride B when per-element ((L, B)); n0
+// (-n^-1 mod 2^16) from n0[col], or n0[0] when shared (per_elem selects).
+// Every product is the unique Montgomery result (a*b + q*n)/R, R =
+// 2^(16L), q = -a*b*n^-1 mod R, so the kernels equal the TPU kernels,
+// the plain twins and K3/K4 on a shared modulus limb for limb.
 //
-// Layout and arithmetic: cios.cuh (one thread per column, CIOS with
-// 16-bit digits; the unique Montgomery product, so K9 equals K3 and K10
-// equals K4 limb for limb on a shared modulus).  The modulus and `one`
-// are read at column stride 0 and row stride 1 when shared ((L, 1)), or
-// column stride 1 and row stride B when per-element ((L, B)); n0 is read
-// from n0[col], or n0[0] when shared (per_elem selects).
+// K9 and K11 own one column a thread (cios.cuh, CIOS with 16-bit
+// digits): the running sum and K11's accumulator live in local memory,
+// and a K11 factor (n_win, L, B) streams from global memory once per
+// product; they are bound by that per-thread latency (cios.cuh).
 //
-// K10's table: T[0] = one, T[1] = base, T[d] = T[d-1]*base for d = 2..15,
-// in wrapper-allocated global scratch (16, L, B) (67.6 MB at L=129,
-// B=8192).  Per window: 4 squarings through the product routine, then a
-// product by the entry whose index equals the digit, selected by mask
-// after reading all 16 (cios::OneHot16): the digits include every keygen
-// candidate's (c-1)>>tz, and the secret primes are among the candidates.
+// K10 runs on the cooperative routine below: a group of g threads (8,
+// 16 or 32 lanes of one warp) owns one column, each thread K consecutive
+// 32-bit words of it (the 16-bit limbs paired at load, split again at
+// the store; K in {3, 5, 9, 17}, picked with g by the launcher from W =
+// ceil(L/2) and B, g*K > W: the least padding where the batch fills the
+// card, g=8, K=9 at L=129, B=8192; else the least K, g=16, K=3 at L=65,
+// B=256; up to g=32, K=17 at L=1040).  A product is W
+// word steps of CIOS: word i of the outer operand comes from its owner
+// by __shfl_sync, each thread adds a_i * b and then q * n over its K
+// words with 64-bit multiply-adds (the carry out of its top word kept
+// in a 64-bit th, which belongs to the next thread's word 0),
+// q = t_0 * n' mod 2^32 comes from the group's first thread by
+// __shfl_sync, and the group shifts t down one word, the neighbour's
+// word 0 arriving by __shfl_down_sync; th is folded in there, so it
+// stays below 2^34, and the last carries resolve once at the product's
+// end.  n' = -n^-1 mod 2^32 is one Newton step from the 16-bit n0:
+// n' = n0 (2 + n n0) mod 2^32.  R stays 2^(16L): for odd L (129 and 65
+// are both odd) W full word steps divide by 2^(32W) = 2^16 R, so the
+// outer operand enters shifted by 16 bits (word i is a_i << 16 |
+// a_(i-1) >> 16, made from the broadcast words): (a 2^16 b + q' n) /
+// (2^16 R) with q' = 2^16 q is the same unique result.  acc, the
+// operand b and the modulus stay in registers; the 16-entry table lies
+// in shared memory, each thread's K words of an entry at stride
+// blockDim.x (16 K blockDim.x words a block: 73,728 B at K=9, 128
+// threads), written and read by its own thread only.  The digits are
+// secret (a plaintext, or a keygen candidate's (c-1)>>tz, among which
+// are the primes), so each window reads all 16 entries and keeps
+// T[digit] by mask: a digit never forms an address (the TPU's one-hot
+// select).
 //
-// K11 is one thread per column: the accumulator stays in the thread's
-// local memory between products and only the factors (n_win, L, B)
-// stream from global memory, each limb once per product (362 MB at
-// n_win=86, L=257, B=4096).  The TPU kernel revisited its output block
-// over a (batch tile, window) grid instead.  Products run in the order
-// j = 0..n_win-1, so the result equals the streamed chain of K3/K9
-// products limb for limb.  Work: n_win products of 2L^2 limb products;
-// bytes: the factor array, acc0, the modulus and n0 read once, the
-// output written once.  The gather that builds the factor array from
-// the comb is eager PyTorch in the wrapper's caller.
-//
-// What bounds it on the H100.  Work: K9 is one product and K10
-// (2^4 - 2) + n_win*5 products per column, each 2L^2 16x16-bit limb
-// products (counted as 4 int8 multiply-adds each, as for K3); bytes: the
-// inputs read once (operands, per-column moduli, n0, one, digits) and the
-// output written once.  Like K3 the kernels are latency-bound, far from
-// either bound: one thread per column walks L^2 dependent multiply-adds
-// with its running sum t (L+2 words) and accumulator in local memory.
-// The limit is L <= 1040 (n^2 of an 8192-bit key has L = 1025): the two
-// local arrays then take ~8 KB per thread.  Later work: 32-bit digits
-// with __umulhi, the running sum in registers or shared memory, several
-// threads per column.
+// What bounds K10.  Per column (2^4 - 2) + n_win*5 products (one in five
+// a square), each W^2 32x32-bit word products of two multiply-adds (low
+// and high word) for a*b and W^2 for q*n: 4W^2 IMAD a product, the
+// integer pipes' floor (per-element moduli rule out K3's Toeplitz
+// reduction on the tensor cores, whose int8 count sets the table's
+// bound).  At L=129, B=8192, 256 windows: 1,294 products x 4 x 65^2 x
+// 8192 = 1.8e11 IMAD over 132 SMs x 64 IMAD/clk.  The latency of a word
+// step (two shuffles and the q multiply on its chain) is hidden by the
+// other groups of the SM when B is large, not at the keygen shape (B=256,
+// 64 warps on 132 SMs).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "cios.cuh"
+#include "rns_tile.cuh"   // allow_max_shared
 
 namespace {
 
@@ -77,19 +94,6 @@ __global__ void mont_mul_kernel(const uint32_t* a, const uint32_t* b,
   uint32_t t[kMaxLimbs + 2];
   cios::mont_mul_col(cios::Strided{a + col, B}, b + col, B, out + col, B,
                      n + c, per_elem ? B : 1, n0[c], L, t);
-}
-
-__global__ void mont_exp_kernel(const uint32_t* base, const int32_t* digits,
-                                const uint32_t* one, uint32_t* out,
-                                uint32_t* table, const uint32_t* n,
-                                const uint32_t* n0, int per_elem, int L,
-                                int B, int n_win, int win_start) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  const int c = per_elem ? col : 0;
-  cios::exp_col<kMaxLimbs>(base + col, digits + col, one + c, out + col,
-                           table + col, n + c, per_elem ? B : 1, n0[c], L, B,
-                           win_start, n_win);
 }
 
 __global__ void mont_chain_kernel(const uint32_t* factors,
@@ -111,6 +115,209 @@ __global__ void mont_chain_kernel(const uint32_t* factors,
   for (int j = 0; j < L; ++j) out[static_cast<size_t>(j) * B + col] = acc[j];
 }
 
+// ---------------------------------------------------------------------------
+// K10: the cooperative 32-bit-word routine (see the header).
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Words jK .. jK+K-1 of a column of 16-bit limbs at row stride s (limbs
+// at or past L read as 0).
+template <int K>
+__device__ __forceinline__ void load_words(uint32_t (&w)[K], const uint32_t* p,
+                                           size_t s, int L, int j) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    const int l = 2 * (j * K + kk);
+    const uint32_t lo = l < L ? p[l * s] & 0xFFFFu : 0u;
+    const uint32_t hi = l + 1 < L ? p[(l + 1) * s] & 0xFFFFu : 0u;
+    w[kk] = lo | (hi << 16);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_words(const uint32_t (&w)[K], uint32_t* p,
+                                            size_t s, int L, int j) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    const int l = 2 * (j * K + kk);
+    if (l < L) p[l * s] = w[kk] & 0xFFFFu;
+    if (l + 1 < L) p[(l + 1) * s] = w[kk] >> 16;
+  }
+}
+
+// r = a * b * 2^(-16L) mod n for the column of a group of g lanes (lane
+// j of the group holds words jK .. jK+K-1 of a, b and n); a, b < 2n,
+// 4n < 2^(16L).  W = ceil(L/2) word steps; `shift` (L odd) feeds the
+// outer operand in as a * 2^16.  r may alias a or b: it is written
+// after the last step.  Every lane of the warp calls it together.
+template <int K>
+__device__ __forceinline__ void coop_mul(uint32_t (&r)[K], const uint32_t (&a)[K],
+                                         const uint32_t (&b)[K],
+                                         const uint32_t (&n)[K], uint32_t np,
+                                         int W, bool shift, int j, int g) {
+  uint32_t t[K];
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) t[kk] = 0u;
+  uint64_t th = 0;          // carry into word (j+1)K: the next lane's word 0
+  uint32_t prev = 0u;       // word i-1 of a (for the shifted operand)
+  const bool top = j == g - 1;
+  for (int o = 0; o * K < W; ++o) {
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      if (o * K + kk >= W) break;            // the same in every lane
+      const uint32_t w = __shfl_sync(kFull, a[kk], o, g);
+      const uint32_t ai = shift ? __funnelshift_l(prev, w, 16) : w;
+      prev = w;
+      uint64_t c = 0;                         // t += ai * b
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const uint64_t s = static_cast<uint64_t>(ai) * b[m] + t[m] + c;
+        t[m] = static_cast<uint32_t>(s);
+        c = s >> 32;
+      }
+      th += c;
+      // q = t_0 n' mod 2^32 makes word 0 vanish: t += q * n
+      const uint32_t q = __shfl_sync(kFull, t[0] * np, 0, g);
+      c = 0;
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const uint64_t s = static_cast<uint64_t>(q) * n[m] + t[m] + c;
+        t[m] = static_cast<uint32_t>(s);
+        c = s >> 32;
+      }
+      th += c;
+      // t >>= 32: the next lane's word 0 and th become word K-1
+      const uint32_t up = __shfl_down_sync(kFull, t[0], 1, g);
+#pragma unroll
+      for (int m = 0; m + 1 < K; ++m) t[m] = t[m + 1];
+      const uint64_t s = th + (top ? 0u : up);
+      t[K - 1] = static_cast<uint32_t>(s);
+      th = s >> 32;
+    }
+  }
+  // th < 4: ripple it (and any carry it makes) up the group.  The top
+  // lane's carry is 0 (g*K > W words hold t < b + n).
+  uint32_t carry = top ? 0u : static_cast<uint32_t>(th);
+  while (__any_sync(kFull, carry != 0u)) {
+    const uint32_t up = __shfl_up_sync(kFull, carry, 1, g);
+    uint64_t c = j == 0 ? 0u : up;
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      const uint64_t s = t[m] + c;
+      t[m] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    carry = top ? 0u : static_cast<uint32_t>(c);
+  }
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) r[kk] = t[kk];
+}
+
+// K10: one group of g lanes per column (columns past B compute column B-1
+// and store nothing, so every lane of a warp takes part in the
+// shuffles).  tab: (16, K, blockDim.x) words of dynamic shared memory.
+template <int K>
+__global__ void __launch_bounds__(128, 1)
+mont_exp_kernel(const uint32_t* base, const int32_t* digits,
+                const uint32_t* one, uint32_t* out, const uint32_t* n,
+                const uint32_t* n0, int per_elem, int L, int B, int n_win,
+                int win_start, int g) {
+  extern __shared__ uint32_t tab[];
+  const int nt = blockDim.x;
+  const long long gid = static_cast<long long>(blockIdx.x) * nt + threadIdx.x;
+  const int j = static_cast<int>(gid & (g - 1));
+  const long long col_id = gid / g;
+  const bool live = col_id < B;
+  const int col = live ? static_cast<int>(col_id) : B - 1;
+  const int c = per_elem ? col : 0;
+  const size_t sn = per_elem ? static_cast<size_t>(B) : 1u;
+  const int W = (L + 1) / 2;
+  const bool shift = (L & 1) != 0;
+  uint32_t nn[K], x[K], acc[K];
+  load_words(nn, n + c, sn, L, j);
+  const uint32_t nw0 = __shfl_sync(kFull, nn[0], 0, g);
+  const uint32_t h = n0[c];                       // -n^-1 mod 2^16
+  const uint32_t np = h * (2u + nw0 * h);         // -n^-1 mod 2^32
+  load_words(x, base + col, B, L, j);
+  load_words(acc, one + c, sn, L, j);
+  uint32_t* te = tab + threadIdx.x;
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    te[kk * nt] = acc[kk];                        // T[0] = one
+    te[(K + kk) * nt] = x[kk];                    // T[1] = base
+    acc[kk] = x[kk];
+  }
+  for (int d = 2; d < 16; ++d) {                  // T[d] = T[d-1] * base
+    coop_mul(acc, acc, x, nn, np, W, shift, j, g);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) te[(d * K + kk) * nt] = acc[kk];
+  }
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) acc[kk] = te[kk * nt];   // acc = one
+  for (int w = win_start; w < n_win; ++w) {
+    for (int s = 0; s < 4; ++s) coop_mul(acc, acc, acc, nn, np, W, shift, j, g);
+    const int d = __ldg(digits + static_cast<size_t>(w) * B + col);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {              // x = T[d], all 16 read
+      uint32_t v = 0u;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        v |= te[(e * K + kk) * nt] & (0u - static_cast<uint32_t>(e == d));
+      x[kk] = v;
+    }
+    coop_mul(acc, acc, x, nn, np, W, shift, j, g);
+  }
+  if (live) store_words(acc, out + col, B, L, j);
+}
+
+// (g, K) for W words and B columns, g in {8, 16, 32}, K in {3, 5, 9,
+// 17}, g*K >= W+1 (a spare word for t < b + n): the least padding g*K
+// when the batch fills the card (at least 4 warps an SM), else the least
+// K: a small batch leaves too few warps to hide a word step's latency,
+// and a shorter step has less of it.
+struct ExpShape {
+  int g, K;
+};
+
+inline ExpShape exp_shape(int W, int B) {
+  ExpShape pad{0, 0}, lat{0, 0};
+  for (int K : {3, 5, 9, 17}) {
+    int g = 8;
+    while (g * K < W + 1) g *= 2;
+    if (g > 32) continue;
+    if (pad.g == 0 || g * K < pad.g * pad.K) pad = {g, K};
+    if (lat.g == 0) lat = {g, K};
+  }
+  const long long warps = static_cast<long long>(B) * pad.g / 32;
+  return warps >= 4 * 132 ? pad : lat;
+}
+
+// 128 threads a block (64 at K=17), so a block's table stays under 74 KB
+// and three blocks share an SM.
+inline int exp_threads(int K) { return K == 17 ? 64 : 128; }
+
+inline size_t exp_smem(int K) {
+  return static_cast<size_t>(16) * K * exp_threads(K) * sizeof(uint32_t);
+}
+
+template <int K>
+cudaError_t launch_exp(const uint32_t* base, const int32_t* digits,
+                       const uint32_t* one, uint32_t* out, const uint32_t* n,
+                       const uint32_t* n0, int per_elem, int L, int B,
+                       int n_win, int win_start, int g, cudaStream_t stream) {
+  static std::atomic<unsigned long long> raised{0};
+  const cudaError_t e =
+      rns_tile::allow_max_shared(mont_exp_kernel<K>, raised);
+  if (e != cudaSuccess) return e;
+  const int nt = exp_threads(K);
+  const long long threads = static_cast<long long>(B) * g;
+  const int blocks = static_cast<int>((threads + nt - 1) / nt);
+  mont_exp_kernel<K><<<blocks, nt, exp_smem(K), stream>>>(
+      base, digits, one, out, n, n0, per_elem, L, B, n_win, win_start, g);
+  return cudaGetLastError();
+}
+
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -128,17 +335,37 @@ extern "C" int pct_mont_mul(const uint32_t* a, const uint32_t* b,
 
 extern "C" int pct_mont_exp(const uint32_t* base, const int32_t* digits,
                             const uint32_t* one, uint32_t* out,
-                            uint32_t* table, const uint32_t* n,
-                            const uint32_t* n0, int per_elem, int L, int B,
-                            int n_win, int win_start, void* stream) {
+                            const uint32_t* n, const uint32_t* n0,
+                            int per_elem, int L, int B, int n_win,
+                            int win_start, void* stream) {
   if (L < 2 || L > kMaxLimbs || B < 1 || n_win < 0 || win_start < 0) {
     return cudaErrorInvalidValue;
   }
-  mont_exp_kernel<<<blocks_for(B), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      base, digits, one, out, table, n, n0, per_elem, L, B, n_win,
-      win_start);
-  return cudaGetLastError();
+  const ExpShape sh = exp_shape((L + 1) / 2, B);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (sh.K) {
+    case 3:
+      return launch_exp<3>(base, digits, one, out, n, n0, per_elem, L, B,
+                           n_win, win_start, sh.g, st);
+    case 5:
+      return launch_exp<5>(base, digits, one, out, n, n0, per_elem, L, B,
+                           n_win, win_start, sh.g, st);
+    case 9:
+      return launch_exp<9>(base, digits, one, out, n, n0, per_elem, L, B,
+                           n_win, win_start, sh.g, st);
+    case 17:
+      return launch_exp<17>(base, digits, one, out, n, n0, per_elem, L, B,
+                            n_win, win_start, sh.g, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The group width g and words a lane K that K10 runs at for L limbs and
+// B columns, as g * 100 + K.
+extern "C" int pct_mont_exp_shape(int L, int B) {
+  const ExpShape sh = exp_shape((L + 1) / 2, B);
+  return sh.g * 100 + sh.K;
 }
 
 extern "C" int pct_mont_chain(const uint32_t* factors, const uint32_t* acc0,

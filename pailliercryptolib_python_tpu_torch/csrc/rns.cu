@@ -16,12 +16,14 @@
 //    rns_exp_shared_p :639): the fixed-window chain c^e * M with one
 //    exponent shared by the batch (a CRT half of decrypt).
 //
-// K1, K2 and K5 run on the tile routine of rns_tile.cuh: one CTA owns
+// All four run on the tile routine of rns_tile.cuh: one CTA owns
 // rns_tile::kNC = 32 columns, its states lie in shared memory as uint16,
 // and both base extensions of every product are int8 tensor-core
 // products (mma.sync m16n8k32 u8) of the host-built extension matrices
 // W1, W2 with the tile's digits.  rns_tile.cuh says what bounds a product
-// and what the design does about it.
+// and what the design does about it: its elementwise passes over the
+// tile's CH x 32 states set the pace, not the tensor-core products; a
+// chain costs the sum of its products.
 //
 // K1 (one product): W1 and W2 (287 KB together at CH=521) do not fit a
 // block's shared memory beside the state, so every warp reads its A
@@ -52,6 +54,23 @@
 // table step, 32 times the table traffic; the README records the
 // key-derived index.
 //
+// K6 (the fixed-window chain of a CRT half): the same CTA layout as K2,
+// W1, W2 resident in shared memory where they fit (CH <= ~280, the
+// 2048-bit key's p^2 base), else read from global memory.  X stays in
+// the operand buffer while the table [one, X, X^2, ..., X^(2^w-1)] is
+// built by T[t] = T[t-1] X (2^w - 2 products) into global scratch the
+// wrapper allocates, tile by tile ((tiles, 2^w, CH, 32) uint16: 68 MB at
+// CH=261, B=4096, w=5); then from acc = one, per window w squarings and
+// one product by T[d] (a zero digit multiplies by `one`), the plain
+// twin's order of products, so every state equals it.  The digit is one
+// key-derived value (p-1 or q-1) shared by the batch: it indexes the
+// table, as in the TPU kernel (:374-375) and in K2 (README threat-model
+// note, ROADMAP C5), and T[d] of the next window is copied into the
+// operand buffer by cp.async while the squarings run.  The TPU kernel's
+// table had to fit a VMEM tile; here it lies in global memory and no
+// such limit applies.  Work: (2^w - 2) + n_win (w + 1) products, each
+// K1's two extensions.
+//
 // K5 (the per-element chain of ct*pt): one CTA runs every product of
 // its tile's chain, 2^w - 2 to build the table and w + 1 a window (94 at
 // w=4 and 16 windows), each one tile_mul, in the TPU kernel's order so
@@ -71,44 +90,6 @@
 // by mask; the digit never forms an address.  Bound: the chain's
 // products, each K1's work; the select reads 2^w x CH x 64 B per tile and
 // window (1.1 GB at CH=521, B=4096, 16 windows, from L2 and HBM).
-//
-// The per-column routine below (K6): one thread owns one column.
-// One product (see ops/rns.py rns_mont_mul, its plain twin):
-//   S   = cmul(X, Y)                       all CH channels
-//   xi  = shoup(S[B])                      k digits
-//   S_A, S_B = E1 . xi  (centred int8)     first base extension
-//   Rp  = cmul2(S, u5, combine(S_A,S_B), v5)   on B' and m_r
-//   xi' = shoup(Rp[B'])
-//   T_A, T_B = E2 . xi'                    second base extension
-//   Zh  = combine(T_A, T_B)                on B and m_r
-//   delta from the redundant channel; Z = cmul2(Zh, w9b, delta, w9n)
-//   out = [Z | Rp]
-// Operands come packed as in the JAX package (ops/rns_kernels.py pack):
-// vec (CHP, 16) uint32 columns 0 mods, 1 n0, 2 n032, 3 Shoup constant,
-// 4 u5, 5 v5, 6 w9n, 7 w9b, 8 Shoup companion, 9 one, 10 CS1, 11 CS2;
-// skc[0..1] the SK constants; E1/E2 (4(k+1), KP) int8 stacks
-// [C_lo; C_hi; D_lo; D_hi] - 128, zero-padded from k to KP columns.
-// The thread packs its k digits as centred int8 words into shared memory
-// and runs the dots with __dp4a (4 int8 MACs per instruction); every
-// thread of a warp reads the same E row, so each 16-byte E load is one
-// broadcast transaction.  The state is updated in place in the output
-// column.  E is read through L1/L2.  With one thread per column a
-// 4096-wide batch fills only 128 warps on 132 SMs, so the kernel is
-// bound by instruction latency, 2-3 orders of magnitude above its
-// bound; ROADMAP R1 moves it onto rns_tile.cuh next.
-//
-// K6 keeps a table [one, X, X^2, ..., X^(2^w-1)] ((32, CH, B) at w=5:
-// 137 MB at CH=261, B=4096) in global scratch the wrapper allocates,
-// built in K5's order, and the accumulator in the output column.
-// Per window: w squarings, then one product by T[digit], a zero digit
-// multiplying by `one`, so every state equals the plain twin's.  The
-// digit is one key-derived value (p-1 or q-1) shared by the batch: it
-// indexes the table, as in the TPU kernel (:374-375) and in K2.  The
-// TPU kernel's table had to fit a VMEM tile; here it lies in global
-// memory and no such limit applies.  Work: (2^w - 2) + n_win (w + 1)
-// products per column, each two extensions of 4(k+1)k int8 MACs; bytes:
-// X, the digits and the constants read once, the output written once.
-// Bound: the same per-product latency as K1.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -118,150 +99,9 @@
 namespace {
 
 using rns_tile::cmul;
-using rns_tile::cmul2;
-using rns_tile::cmul_shoup;
-using rns_tile::combine_dual;
-using rns_tile::submod;
 using rns_tile::kNC;
 using rns_tile::TileOps;
 using rns_tile::u16;
-
-constexpr int kThreads = 32;
-
-struct Ops {
-  const uint32_t* vec;   // (CHP, 16)
-  const uint32_t* skc;   // (8,)
-  const int8_t* E1;      // (4(k+1), KP)
-  const int8_t* E2;
-  int k, CH, KP, nlev;
-};
-
-__device__ __forceinline__ uint32_t V(const Ops& o, int row, int col) {
-  return o.vec[row * 16 + col];
-}
-
-// Centred-int8 digit words of one column in shared memory: word w of the
-// low-byte plane at xs[w*nt + tid], of the high-byte plane at
-// xs[(KW + w)*nt + tid] (KW = KP/4; digits past k are 0).
-__device__ __forceinline__ void put_digit_word(uint32_t* xs, int KW, int w,
-                                               int tid, int nt, uint32_t w0,
-                                               uint32_t w1) {
-  xs[w * nt + tid] = w0;
-  xs[(KW + w) * nt + tid] = w1;
-}
-
-// Dots of row j of the stacked E (o = k+1 output rows) with the packed
-// digits: S_A = E[j].x0 + E[2o+j].x1, S_B = E[o+j].x0 + E[3o+j].x1
-// (centred parts only; the caller adds the static corrections).
-__device__ __forceinline__ void ext_dots(const int8_t* E, int o, int KP,
-                                         int j, const uint32_t* xs, int tid,
-                                         int nt, int& SA, int& SB) {
-  const int KW = KP / 4;
-  const int4* a0 = reinterpret_cast<const int4*>(E + static_cast<size_t>(j) * KP);
-  const int4* a1 =
-      reinterpret_cast<const int4*>(E + static_cast<size_t>(2 * o + j) * KP);
-  const int4* b0 =
-      reinterpret_cast<const int4*>(E + static_cast<size_t>(o + j) * KP);
-  const int4* b1 =
-      reinterpret_cast<const int4*>(E + static_cast<size_t>(3 * o + j) * KP);
-  int sa = 0, sb = 0;
-  for (int q = 0; q < KP / 16; ++q) {
-    const int4 ea0 = __ldg(a0 + q), ea1 = __ldg(a1 + q);
-    const int4 eb0 = __ldg(b0 + q), eb1 = __ldg(b1 + q);
-    const uint32_t* x0 = xs + (4 * q) * nt + tid;
-    const uint32_t* x1 = xs + (KW + 4 * q) * nt + tid;
-    const int p0 = x0[0], p1 = x0[nt], p2 = x0[2 * nt], p3 = x0[3 * nt];
-    const int h0 = x1[0], h1 = x1[nt], h2 = x1[2 * nt], h3 = x1[3 * nt];
-    sa = __dp4a(ea0.x, p0, sa); sb = __dp4a(eb0.x, p0, sb);
-    sa = __dp4a(ea0.y, p1, sa); sb = __dp4a(eb0.y, p1, sb);
-    sa = __dp4a(ea0.z, p2, sa); sb = __dp4a(eb0.z, p2, sb);
-    sa = __dp4a(ea0.w, p3, sa); sb = __dp4a(eb0.w, p3, sb);
-    sa = __dp4a(ea1.x, h0, sa); sb = __dp4a(eb1.x, h0, sb);
-    sa = __dp4a(ea1.y, h1, sa); sb = __dp4a(eb1.y, h1, sb);
-    sa = __dp4a(ea1.z, h2, sa); sb = __dp4a(eb1.z, h2, sb);
-    sa = __dp4a(ea1.w, h3, sa); sb = __dp4a(eb1.w, h3, sb);
-  }
-  SA = sa;
-  SB = sb;
-}
-
-// Shoup-multiply k channels of a column (rows r0..r0+k-1 of `st`, stride
-// s) by the vec column-3/8 constants and pack the results as centred
-// digit words.  Returns sum(x0 - 128) + sum(x1 - 128) over the k digits.
-__device__ __forceinline__ int pack_digits(const uint32_t* st, int s, int r0,
-                                           const Ops& op, uint32_t* xs,
-                                           int tid, int nt) {
-  const int KW = op.KP / 4;
-  int sum = 0;
-  for (int w = 0; w < KW; ++w) {
-    uint32_t w0 = 0u, w1 = 0u;
-    for (int b = 0; b < 4; ++b) {
-      const int i = 4 * w + b;
-      if (i < op.k) {
-        const int r = r0 + i;
-        const uint32_t v = cmul_shoup(st[r * s], V(op, r, 3), V(op, r, 8),
-                                      V(op, r, 0));
-        const int c0 = static_cast<int>(v & 0xFFu) - 128;
-        const int c1 = static_cast<int>(v >> 8) - 128;
-        sum += c0 + c1;
-        w0 |= (static_cast<uint32_t>(c0) & 0xFFu) << (8 * b);
-        w1 |= (static_cast<uint32_t>(c1) & 0xFFu) << (8 * b);
-      }
-    }
-    put_digit_word(xs, KW, w, tid, nt, w0, w1);
-  }
-  return sum;
-}
-
-// The rest of one RNS-Montgomery product of a column, once o (row
-// stride s) holds S = cmul(x, y) on all CH channels: the two base
-// extensions and the Shenoy-Kumaresan correction, in place.
-__device__ void rns_mul_finish(uint32_t* o, int s, const Ops& op,
-                               uint32_t* xs, int tid, int nt) {
-  const int k = op.k, ob = k + 1;
-  // first extension: B -> B' and m_r, then r' on those channels
-  int corr = 128 * pack_digits(o, s, 0, op, xs, tid, nt);
-  for (int j = 0; j <= k; ++j) {
-    int SA, SB;
-    ext_dots(op.E1, ob, op.KP, j, xs, tid, nt, SA, SB);
-    SA += corr + static_cast<int>(V(op, j, 10));
-    SB += corr + static_cast<int>(V(op, ob + j, 10));
-    const int c = k + j;
-    const uint32_t m = V(op, c, 0), n0 = V(op, c, 1);
-    const uint32_t q = combine_dual(SA, SB, m, n0, op.nlev);
-    o[c * s] = cmul2(o[c * s], V(op, c, 4), q, V(op, c, 5), m, n0);
-  }
-  // second extension: B' -> B and m_r (Shenoy-Kumaresan)
-  corr = 128 * pack_digits(o, s, k, op, xs, tid, nt);
-  uint32_t zr = 0u;
-  for (int j = 0; j <= k; ++j) {
-    int SA, SB;
-    ext_dots(op.E2, ob, op.KP, j, xs, tid, nt, SA, SB);
-    SA += corr + static_cast<int>(V(op, j, 11));
-    SB += corr + static_cast<int>(V(op, ob + j, 11));
-    const int c = j < k ? j : 2 * k;
-    const uint32_t zh = combine_dual(SA, SB, V(op, c, 0), V(op, c, 1),
-                                     op.nlev);
-    if (j < k) o[c * s] = zh; else zr = zh;
-  }
-  const uint32_t mr = V(op, 2 * k, 0), n0r = V(op, 2 * k, 1);
-  const uint32_t delta = submod(cmul(zr, op.skc[0], mr, n0r),
-                                cmul(o[2 * k * s], op.skc[1], mr, n0r), mr);
-  for (int i = 0; i < k; ++i)
-    o[i * s] = cmul2(o[i * s], V(op, i, 7), delta, V(op, i, 6), V(op, i, 0),
-                     V(op, i, 1));
-}
-
-// One RNS-Montgomery product of a column: o = x*y*M^-1.  x, y, o are
-// column pointers with row stride s; o may alias x and/or y (each
-// channel of x, y is read once, before o's channel is written).
-__device__ void rns_mul_col(const uint32_t* x, const uint32_t* y, uint32_t* o,
-                            int s, const Ops& op, uint32_t* xs, int tid,
-                            int nt) {
-  for (int c = 0; c < op.CH; ++c)
-    o[c * s] = cmul(x[c * s], y[c * s], V(op, c, 0), V(op, c, 1));
-  rns_mul_finish(o, s, op, xs, tid, nt);
-}
 
 // State copies between global (CH, B) int32 and a tile's (CH, kNC)
 // uint16 shared state; columns past B read as 0 and are not written.
@@ -296,7 +136,7 @@ __device__ __forceinline__ void prefetch_state(u16* dst, const u16* src,
   rns_tile::cp_async_commit();
 }
 
-// W1, W2 for K2's chain: with kSharedW copied once into shared
+// W1, W2 for K2's and K6's chains: with kSharedW copied once into shared
 // memory at p (W1, W2 then point there), else left in global memory.
 // Returns the first byte past them.
 template <bool kSharedW>
@@ -500,41 +340,78 @@ rns_exp_elem_kernel(const uint32_t* x, const int32_t* digits, int n_win,
   store_tile(acc, out, CH, col0, B);
 }
 
-__global__ void rns_exp_shared_kernel(const uint32_t* x,
-                                      const int32_t* digits, int n_win,
-                                      uint32_t* out, uint32_t* tab, Ops op,
-                                      int window, int B) {
-  extern __shared__ uint32_t xs[];
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  const int tid = threadIdx.x, nt = blockDim.x, CH = op.CH;
-  const size_t plane = static_cast<size_t>(CH) * B;
-  const uint32_t* xc = x + col;
-  uint32_t* tb = tab + col;
-  uint32_t* acc = out + col;
+// K6: the whole fixed-window chain of a tile, W1, W2 staged as in K2.
+// tab: (tiles, 2^w, CH, kNC) uint16, written and read by this CTA alone.
+template <bool kSharedW>
+__global__ void __launch_bounds__(rns_tile::kThreads, 1)
+rns_exp_shared_kernel(const uint32_t* x, const int32_t* digits, int n_win,
+                      uint32_t* out, u16* tab, TileOps op, int window,
+                      int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int CH = op.CH, SZ = CH * kNC;
+  const uint4* W1 = op.W1;
+  const uint4* W2 = op.W2;
+  unsigned char* p = stage_w<kSharedW>(op, smem, W1, W2);
+  u16* acc = reinterpret_cast<u16*>(p);
+  u16* opb = acc + SZ;
+  uint8_t* xs = reinterpret_cast<uint8_t*>(opb + SZ);
+  uint32_t* delta = reinterpret_cast<uint32_t*>(xs + kNC * op.XS);
+  const int col0 = blockIdx.x * kNC;
   const int tsize = 1 << window;
-  for (int c = 0; c < CH; ++c) {
-    tb[c * B] = V(op, c, 9);                              // T[0] = one
-    tb[plane + c * B] = xc[c * B];                        // T[1] = X
+  u16* tb = tab + static_cast<size_t>(blockIdx.x) * tsize * SZ;
+  constexpr int NTU = kSharedW ? 1 : 4;
+  const auto none = [] {};
+
+  load_tile(x, opb, CH, col0, B);                          // X
+  for (int i = threadIdx.x; i < SZ; i += blockDim.x)       // T[0] = one
+    tb[i] = static_cast<u16>(rns_tile::V(op, i / kNC, 9));
+  __syncthreads();
+  copy_state(reinterpret_cast<uint4*>(tb + SZ),            // T[1] = X
+             reinterpret_cast<const uint4*>(opb), CH);
+  for (int t = 2; t < tsize; ++t) {                        // T[t] = T[t-1] X
+    const u16* prev = t == 2 ? opb : acc;
+    rns_tile::tile_mul<NTU, !kSharedW>(
+        acc,
+        [&](int c, int, int i) -> uint32_t {
+          return cmul(prev[i], opb[i], rns_tile::V(op, c, 0),
+                      rns_tile::V(op, c, 1));
+        },
+        none, W1, W2, op, xs, delta);
+    copy_state(reinterpret_cast<uint4*>(tb + static_cast<size_t>(t) * SZ),
+               reinterpret_cast<const uint4*>(acc), CH);
+    __syncthreads();
   }
-  for (int t = 2; t < tsize; ++t)                         // T[t] = T[t-1] X
-    rns_mul_col(tb + (t - 1) * plane, xc, tb + t * plane, B, op, xs, tid,
-                nt);
-  for (int c = 0; c < CH; ++c) acc[c * B] = V(op, c, 9);
+  for (int i = threadIdx.x; i < SZ; i += blockDim.x)       // acc = one
+    acc[i] = static_cast<u16>(rns_tile::V(op, i / kNC, 9));
+  __syncthreads();               // X's last reader is done: opb is free
+  if (n_win > 0)
+    prefetch_state(opb, tb + static_cast<size_t>(__ldg(digits)) * SZ, CH);
   for (int j = 0; j < n_win; ++j) {
     for (int r = 0; r < window; ++r)
-      rns_mul_col(acc, acc, acc, B, op, xs, tid, nt);
-    rns_mul_col(acc, tb + digits[j] * plane, acc, B, op, xs, tid, nt);
+      rns_tile::tile_mul<NTU, !kSharedW>(
+          acc,
+          [&](int c, int, int i) -> uint32_t {
+            return cmul(acc[i], acc[i], rns_tile::V(op, c, 0),
+                        rns_tile::V(op, c, 1));
+          },
+          none, W1, W2, op, xs, delta);
+    rns_tile::cp_async_wait_all();
+    __syncthreads();
+    rns_tile::tile_mul<NTU, !kSharedW>(                    // acc * T[d]
+        acc,
+        [&](int c, int, int i) -> uint32_t {
+          return cmul(acc[i], opb[i], rns_tile::V(op, c, 0),
+                      rns_tile::V(op, c, 1));
+        },
+        [&] {
+          if (j + 1 < n_win)
+            prefetch_state(
+                opb, tb + static_cast<size_t>(__ldg(digits + j + 1)) * SZ,
+                CH);
+        },
+        W1, W2, op, xs, delta);
   }
-}
-
-inline size_t shared_bytes(int KP) {
-  return static_cast<size_t>(2 * (KP / 4)) * kThreads * sizeof(uint32_t);
-}
-
-inline bool bad_shape(int k, int CH, int KP, int B) {
-  return k < 1 || CH != 2 * k + 1 || KP % 16 != 0 || KP < k || B < 1
-         || shared_bytes(KP) > 48 * 1024;
+  store_tile(acc, out, CH, col0, B);
 }
 
 // The tile kernels' operands: MT m-tiles of 16 rows over the 2(k+1)
@@ -629,18 +506,28 @@ extern "C" int pct_rns_exp_elem(const uint32_t* x, const int32_t* digits,
 }
 
 extern "C" int pct_rns_exp_shared(const uint32_t* x, const int32_t* digits,
-                                  int n_win, uint32_t* out, uint32_t* tab,
+                                  int n_win, uint32_t* out, uint16_t* tab,
                                   const uint32_t* vec, const uint32_t* skc,
-                                  const int8_t* E1, const int8_t* E2, int k,
+                                  const uint8_t* W1, const uint8_t* W2, int k,
                                   int CH, int KP, int nlev, int window, int B,
                                   void* stream) {
-  if (bad_shape(k, CH, KP, B) || window < 1 || window > 8 || n_win < 0) {
+  if (bad_tile_shape(k, CH, KP, B) || window < 1 || window > 8
+      || n_win < 0) {
     return cudaErrorInvalidValue;
   }
-  const Ops op{vec, skc, E1, E2, k, CH, KP, nlev};
-  rns_exp_shared_kernel<<<(B + kThreads - 1) / kThreads, kThreads,
-                          shared_bytes(KP),
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, digits, n_win, out, tab, op, window, B);
+  const TileOps op = tile_ops(vec, skc, W1, W2, k, CH, KP, nlev);
+  const size_t smem = 2 * state_bytes(CH) + rns_tile::work_bytes(KP);
+  const size_t smem_w = smem + 2 * rns_tile::w_bytes(op.MT, op.KS);
+  const bool shared_w = smem_w <= kMaxShared;
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> raised[2] = {{0}, {0}};
+  const auto kernel = shared_w ? rns_exp_shared_kernel<true>
+                               : rns_exp_shared_kernel<false>;
+  const size_t bytes = shared_w ? smem_w : smem;
+  const cudaError_t e = rns_tile::allow_max_shared(kernel, raised[shared_w]);
+  if (e != cudaSuccess) return e;
+  kernel<<<(B + kNC - 1) / kNC, rns_tile::kThreads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(x, digits, n_win, out, tab,
+                                                op, window, B);
   return cudaGetLastError();
 }

@@ -1,11 +1,11 @@
 // One RNS-Montgomery product for a tile of kNC columns owned by one CTA,
 // with both base extensions as int8 tensor-core products.  Kernels K1
-// (rns_mul), K2 (rns_exp_sched) and K5 (rns_exp_elem) in rns.cu run on
-// it, and K3's reduction (mm3_tile.cuh) uses its mma_u8; K6 keeps the
-// per-column routine of rns.cu.
+// (rns_mul), K2 (rns_exp_sched), K5 (rns_exp_elem) and K6
+// (rns_exp_shared) in rns.cu run on it, and K3's reduction (mm3_tile.cuh)
+// uses its mma_u8.
 //
-// The function is rns_mul_col's (see ops/rns.py rns_mont_mul), limb for
-// limb:
+// The function is ops/rns.py rns_mont_mul's (the JAX package's _mul_val),
+// limb for limb:
 //   S   = cmul(X, Y)                       all CH channels
 //   xi  = shoup(S[B])                      k digits
 //   S_A, S_B = W1 . [xi_lo; xi_hi]         first base extension

@@ -64,7 +64,7 @@ _SIGS = {
                        _I, _I, _I, _I, _I, _I, _P],
     "mm3_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_mul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mont_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mont_exp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "mont_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mm2_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mm2_sqr": [_P, _P, _P, _P, _I, _I, _P],
@@ -147,6 +147,14 @@ def sqr_max_limbs() -> int:
     K15) square through their squaring routine (``cios::kSqrMaxLimbs``),
     read from the built library."""
     return int(lib().pct_sqr_max_limbs())
+
+
+def mont_exp_shape(L: int, B: int) -> tuple:
+    """(g, K) of kernel K10 at L limbs and B columns: a group of g lanes
+    per column, K 32-bit words a lane (``csrc/mont.cu`` ``exp_shape``),
+    read from the built library."""
+    v = int(lib().pct_mont_exp_shape(L, B))
+    return v // 100, v % 100
 
 
 def mm3_smem_bytes(name: str, L: int) -> int:

@@ -13,7 +13,10 @@ of -n^-1 mod 2^16; ``one`` (the Montgomery one) shaped like n.
 * ``mont_exp_p(base, digits, n, n0, one, win_start)`` -- kernel K10 on a
   CUDA tensor, ``mont_exp_plain`` on a CPU tensor: the table
   ``[one, base, base^2, ...]`` by successive products, then per 4-bit
-  window four squarings and one product by the selected entry.
+  window four squarings and one product by the selected entry.  K10
+  multiplies in 32-bit words, a group of lanes per column;
+  ``cios32_mul`` and ``mont_exp_words`` are its arithmetic in plain
+  PyTorch, for the CPU tests.
 * ``mont_chain_p(factors, acc0, n, n0)`` -- kernel K11 on a CUDA tensor,
   ``mont_chain_plain`` on a CPU tensor: ``acc0 * prod_j factors[j]``, one
   product per pre-gathered factor (the fused form of the limb comb
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from .limb import LIMB_DTYPE
+from .limb import LIMB_DTYPE, LIMB_MASK
 from .montgomery import cios_mul, fixed_window_exp
 from .. import kernels
 
@@ -40,6 +43,76 @@ def mont_exp_plain(base, digits, n, n0, one,
     """Plain twin of K10 (digits a CPU or device tensor)."""
     return fixed_window_exp(base, digits, one,
                             lambda x, y: cios_mul(x, y, n, n0), 4,
+                            win_start)
+
+
+_M32 = (1 << 32) - 1
+
+
+def _words(x: torch.Tensor, W: int) -> torch.Tensor:
+    """(L, B) 16-bit limbs -> (W, B) 32-bit words (int64), limb pairs."""
+    L, B = x.shape
+    x = x.to(torch.int64)
+    if 2 * W > L:
+        x = torch.cat([x, x.new_zeros((2 * W - L, B))])
+    return x[0::2] | (x[1::2] << 16)
+
+
+def _mul_lo_hi(x: torch.Tensor, y: torch.Tensor):
+    """Low and high 32-bit words of x*y for x, y in [0, 2^32), exact in
+    int64 (x split into 16-bit halves)."""
+    p0 = (x & LIMB_MASK) * y                    # < 2^48
+    p1 = (x >> 16) * y                          # < 2^48
+    lo = p0 + ((p1 & LIMB_MASK) << 16)          # < 2^49
+    return lo & _M32, (lo >> 32) + (p1 >> 16)
+
+
+def cios32_mul(a, b, n, n0) -> torch.Tensor:
+    """a*b*R^-1 mod n (R = 2^(16L)) as kernel K10 computes it, in plain
+    PyTorch: the limbs paired into W = ceil(L/2) 32-bit words, W word
+    steps t = (t + a_i b + q n) / 2^32 with q = t_0 n' mod 2^32 and
+    n' = -n^-1 mod 2^32 from the 16-bit n0 by one Newton step,
+    n' = n0 (2 + n n0).  For odd L the outer operand enters as a 2^16
+    (word i = a_i << 16 | a_(i-1) >> 16), so the W steps divide by
+    2^(32W) = 2^16 R and the result is the unique (a b + q n)/R, equal
+    to ``cios_mul`` limb for limb.  The running sum is carry-save in
+    int64.  Shapes as ``cios_mul``."""
+    L = a.shape[0]
+    B = max(a.shape[1], b.shape[1], n.shape[1])
+    W = (L + 1) // 2
+    A = _words(a, W).expand(W, B)
+    if L % 2:
+        A = ((A << 16) & _M32) | torch.cat([A.new_zeros((1, B)),
+                                           A[:-1] >> 16])
+    Bw = _words(b, W).expand(W, B)
+    Nw = _words(n, W)
+    h = torch.as_tensor(n0, dtype=torch.int64).reshape(-1).to(a.device)
+    np_ = _mul_lo_hi(h, (2 + _mul_lo_hi(Nw[0], h)[0]) & _M32)[0]
+    t = torch.zeros((W + 2, B), dtype=torch.int64, device=a.device)
+    for i in range(W):
+        lo, hi = _mul_lo_hi(A[i], Bw)
+        t[:W] += lo
+        t[1:W + 1] += hi
+        q = _mul_lo_hi(t[0] & _M32, np_)[0]
+        lo, hi = _mul_lo_hi(q, Nw)
+        t[:W] += lo
+        t[1:W + 1] += hi
+        t[1] += t[0] >> 32                       # word 0 is now 0 mod 2^32
+        t = torch.cat([t[1:], t.new_zeros((1, B))])
+    for i in range(W + 1):                       # resolve the carries
+        t[i + 1] += t[i] >> 32
+        t[i] &= _M32
+    limbs = torch.stack([t[:W] & LIMB_MASK, t[:W] >> 16], 1).reshape(2 * W, B)
+    return limbs[:L].to(LIMB_DTYPE)
+
+
+def mont_exp_words(base, digits, n, n0, one,
+                   win_start: int = 0) -> torch.Tensor:
+    """K10's chain over ``cios32_mul`` (the kernel's order of products:
+    the table by T[d] = T[d-1] base, then four squarings and one product
+    by T[digit] a window); equals ``mont_exp_plain``."""
+    return fixed_window_exp(base, torch.as_tensor(digits), one,
+                            lambda x, y: cios32_mul(x, y, n, n0), 4,
                             win_start)
 
 
@@ -123,9 +196,8 @@ def _mont_exp_cuda(base, digits, n, n0, one, win_start) -> torch.Tensor:
     base = base.to(LIMB_DTYPE).expand(L, B).contiguous()
     digits = digits.expand(n_win, B).contiguous()
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
-    table = torch.empty((16, L, B), dtype=LIMB_DTYPE, device=base.device)
-    kernels.launch("mont_exp", base, digits, one, out, table, n, n0,
-                   per_elem, L, B, n_win, int(win_start))
+    kernels.launch("mont_exp", base, digits, one, out, n, n0, per_elem, L,
+                   B, n_win, int(win_start))
     return out
 
 

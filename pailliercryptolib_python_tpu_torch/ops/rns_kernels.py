@@ -2,12 +2,12 @@
 K5 (``rns_exp_elem_p``) and K6 (``rns_exp_shared_p``) and the packing of
 their operands.
 
-K1, K2 and K5 run on the tile routine ``csrc/rns_tile.cuh``: both base
+All four run on the tile routine ``csrc/rns_tile.cuh``: both base
 extensions of a product are int8 tensor-core products of the extension
 matrices W1, W2 (``tile_weights``) with a tile of digits.
-``rns_mul_tile``, ``rns_exp_sched_tile`` and ``rns_exp_elem_tile`` are
-that routine's arithmetic in plain PyTorch, matrix product included, for
-the CPU tests.
+``rns_mul_tile``, ``rns_exp_sched_tile``, ``rns_exp_elem_tile`` and
+``rns_exp_shared_tile`` are that routine's arithmetic in plain PyTorch,
+matrix product included, for the CPU tests.
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_rns.py``.  The
 packing is ported from the code, not from its comments (which misstate
@@ -150,9 +150,10 @@ def _pack(mbits: int, m: int) -> dict:
 
 
 def _unpack_c(vec, skc, E1, E2):
-    """vec columns + stacks -> the product's constant tuple (the layout
-    the CUDA kernels read): mods, n0, n032, ximul, u5, v5, w9n, w9b,
-    ximulh, skc, E1, CS1, E2, CS2."""
+    """vec columns + stacks -> the product's constant tuple: mods, n0,
+    n032, ximul, u5, v5, w9n, w9b, ximulh, skc, E1, CS1, E2, CS2 (the
+    vec and skc columns are what the CUDA kernels read; their W1, W2 are
+    ``tile_weights`` of E1, E2)."""
     o2 = E1.shape[0] // 2
     return (vec[:, 0:1], vec[:, 1:2], vec[:, 2:3], vec[:, 3:4], vec[:, 4:5],
             vec[:, 5:6], vec[:, 6:7], vec[:, 7:8], vec[:, 8:9], skc,
@@ -204,33 +205,24 @@ def kernel_operands(base: rns.RnsBase, key: rns.RnsModulus,
                     device: torch.device) -> dict:
     """Device copy of the operand bundle, memoized on the key.
 
-    The E stacks (K6) are zero-padded along k to KP, a multiple of
-    16, so the kernel reads each row in 16-byte vectors (the pad columns
-    meet zero digits and add nothing).  W1, W2 are ``tile_weights`` of
-    the stacks (uint8 (Mp, 2KP), what ``rns_mul_tile`` multiplies) and
-    W1f, W2f the same bytes in ``fragment_order`` (what K1 and K2 read).
-    The stacks are key-independent, so the p^2 and q^2 bundles of one
-    base hold equal W."""
+    KP is k rounded up to a multiple of 16.  W1, W2 are ``tile_weights``
+    of the packed E stacks (uint8 (Mp, 2KP), what ``rns_mul_tile``
+    multiplies) and W1f, W2f the same bytes in ``fragment_order`` (what
+    the kernels read).  The stacks are key-independent, so the p^2 and
+    q^2 bundles of one base hold equal W."""
     ops = key._dev_ops
     if ops is not None and ops["vec"].device == device:
         return ops
     p = key.packed or pack(base.mbits, key.m)
-    k = base.k
-    KP = -(-k // 16) * 16
-
-    def stack(E):
-        Ep = np.zeros((E.shape[0], KP), dtype=np.int8)
-        Ep[:, :k] = E
-        return torch.from_numpy(Ep).to(device)
-
+    KP = -(-base.k // 16) * 16
     u32 = lambda x: torch.from_numpy(
         np.ascontiguousarray(np.asarray(x, dtype=np.uint32)).view(np.int32)
     ).to(device)
     W1, W2 = (tile_weights(np.asarray(p[f]), KP) for f in ("E1", "E2"))
     dev = lambda a: torch.from_numpy(a).to(device)
-    ops = dict(vec=u32(p["vec"]), skc=u32(p["skc"]), E1=stack(p["E1"]),
-               E2=stack(p["E2"]), KP=KP, W1=dev(W1), W2=dev(W2),
-               W1f=dev(fragment_order(W1)), W2f=dev(fragment_order(W2)))
+    ops = dict(vec=u32(p["vec"]), skc=u32(p["skc"]), KP=KP, W1=dev(W1),
+               W2=dev(W2), W1f=dev(fragment_order(W1)),
+               W2f=dev(fragment_order(W2)))
     key._dev_ops = ops
     return ops
 
@@ -300,25 +292,22 @@ def rns_exp_sched_tile(X, sched, base: rns.RnsBase, key: rns.RnsModulus,
 
 
 def elem_table_index(t, c, col, CH: int, window: int):
-    """Flat index of entry t, channel c, column col in K5's table, laid
-    out tile by tile as (tiles, 2^window, CH, TILE_COLS): one entry of
-    one tile is one contiguous block.  Works on ints and on tensors."""
+    """Flat index of entry t, channel c, column col in K5's and K6's
+    table, laid out tile by tile as (tiles, 2^window, CH, TILE_COLS): one
+    entry of one tile is one contiguous block.  Works on ints and on
+    tensors."""
     return (((col // TILE_COLS) * (1 << window) + t) * CH + c) * TILE_COLS \
         + col % TILE_COLS
 
 
-def rns_exp_elem_tile(X, digits, base: rns.RnsBase, key: rns.RnsModulus,
-                      window: int, ops: dict) -> torch.Tensor:
-    """K5's chain over ``rns_mul_tile`` in the kernel's order: the table
-    T[0] = one, T[1] = X, T[t] = T[t-1] X, kept flat in the kernel's
-    tile-by-tile layout (``elem_table_index``); from `one`, per window
-    `window` squarings, then the product by T[d], chosen by the one-hot
-    select (every entry read, the one whose index equals the column's
-    digit kept by mask).  digits (n_win, B)."""
+def _tile_table(X, base: rns.RnsBase, key: rns.RnsModulus, window: int,
+                mul):
+    """The table of K5's and K6's chains as their kernels build it:
+    T[0] = one, T[1] = X, T[t] = T[t-1] X, kept flat in the tile-by-tile
+    layout (``elem_table_index``).  Returns (table, at, one), at(t) the
+    indices of entry t's (CH, B) state."""
     CH, B = base.CH, X.shape[1]
-    tsize = 1 << window
-    mul = lambda a, b: rns_mul_tile(a, b, base, key, ops)
-    tab = torch.zeros(-(-B // TILE_COLS) * tsize * CH * TILE_COLS,
+    tab = torch.zeros(-(-B // TILE_COLS) * (1 << window) * CH * TILE_COLS,
                       dtype=torch.int64)
     c = torch.arange(CH)[:, None]
     col = torch.arange(B)[None, :]
@@ -327,19 +316,46 @@ def rns_exp_elem_tile(X, digits, base: rns.RnsBase, key: rns.RnsModulus,
     entry = X.to(LIMB_DTYPE)
     tab[at(0)] = one.to(torch.int64)
     tab[at(1)] = entry.to(torch.int64)
-    for t in range(2, tsize):
+    for t in range(2, 1 << window):
         entry = mul(entry, X)
         tab[at(t)] = entry.to(torch.int64)
+    return tab, at, one
+
+
+def rns_exp_elem_tile(X, digits, base: rns.RnsBase, key: rns.RnsModulus,
+                      window: int, ops: dict) -> torch.Tensor:
+    """K5's chain over ``rns_mul_tile`` in the kernel's order: the table
+    (``_tile_table``); from `one`, per window `window` squarings, then
+    the product by T[d], chosen by the one-hot select (every entry read,
+    the one whose index equals the column's digit kept by mask).
+    digits (n_win, B)."""
+    CH, B = base.CH, X.shape[1]
+    mul = lambda a, b: rns_mul_tile(a, b, base, key, ops)
+    tab, at, acc = _tile_table(X, base, key, window, mul)
     digits = torch.as_tensor(np.asarray(digits)).to(torch.int64)
-    acc = one
     for j in range(digits.shape[0]):
         for _ in range(window):
             acc = mul(acc, acc)
         sel = torch.zeros((CH, B), dtype=torch.int64)
-        for t in range(tsize):
+        for t in range(1 << window):
             mask = -(digits[j] == t).to(torch.int64)[None, :]
             sel = sel | (tab[at(t)] & mask)
         acc = mul(acc, sel)
+    return acc
+
+
+def rns_exp_shared_tile(X, digits, base: rns.RnsBase, key: rns.RnsModulus,
+                        window: int, ops: dict) -> torch.Tensor:
+    """K6's chain over ``rns_mul_tile`` in the kernel's order: the table
+    (``_tile_table``); from `one`, per window `window` squarings, then
+    the product by T[d] of the batch's shared digit d (one (CH, B) entry
+    gathered tile by tile).  digits (n_win,)."""
+    mul = lambda a, b: rns_mul_tile(a, b, base, key, ops)
+    tab, at, acc = _tile_table(X, base, key, window, mul)
+    for d in np.asarray(digits).reshape(-1).tolist():
+        for _ in range(window):
+            acc = mul(acc, acc)
+        acc = mul(acc, tab[at(d)])
     return acc
 
 
@@ -453,9 +469,9 @@ def rns_exp_shared_p(X: torch.Tensor, digits, base: rns.RnsBase,
     entered state, digits (n_win,) MSB-first base-2^window digits on the
     host (numpy or a CPU tensor).  Returns the state of c^e * M.  Raises
     on a digit outside [0, 2^window).  The 2^window-entry table lies in
-    global memory the wrapper allocates ((2^window, CH, B) int32), so the
-    tile-memory limit that bounds the TPU kernel's window does not apply
-    here."""
+    global memory the wrapper allocates, tile by tile (``elem_table_index``),
+    so the tile-memory limit that bounds the TPU kernel's window does not
+    apply here."""
     digits = kernels.digit_tensor(digits, window, X.device).reshape(-1)
     if X.device.type == "cpu":
         return rns.rns_exp_shared_plain(X, digits.numpy(), base, key, window)
@@ -468,9 +484,11 @@ def _rns_exp_shared_cuda(X, digits, base, key, window) -> torch.Tensor:
     x = _state(X, CH, B)
     p = kernel_operands(base, key, x.device)
     out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
-    tab = torch.empty((1 << window, CH, B), dtype=LIMB_DTYPE,
-                      device=x.device)
+    # the table, tile by tile: (tiles, 2^window, CH, TILE_COLS) uint16
+    # states (int16 storage; elem_table_index)
+    tab = torch.empty((-(-B // TILE_COLS), 1 << window, CH, TILE_COLS),
+                      dtype=torch.int16, device=x.device)
     kernels.launch("rns_exp_shared", x, digits, digits.shape[0], out, tab,
-                   p["vec"], p["skc"], p["E1"], p["E2"], base.k, CH, p["KP"],
-                   rns.combine_levels(base.mbits), window, B)
+                   p["vec"], p["skc"], p["W1f"], p["W2f"], base.k, CH,
+                   p["KP"], rns.combine_levels(base.mbits), window, B)
     return out

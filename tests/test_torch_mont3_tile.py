@@ -3,7 +3,7 @@ Toeplitz matrices W_mu, W_m and their mma fragment order, and the plain
 PyTorch version of the kernel's steps (``mont3.mm3_mul_tile``: product,
 slot sums, recombination), which must equal the port's twin, the JAX
 package's Pallas kernel (interpret mode) and Python's integers bit for
-bit; plus the K3, K4, K7 and K5 wrappers' calls into the C library, and
+bit; plus the K3, K4, K7, K5 and K6 wrappers' calls into the C library, and
 the shared memory of a K3, K4 or K7 launch, read from the library."""
 
 import ctypes
@@ -191,7 +191,9 @@ def _mm3_call(name):
             _fake_digits())
 
 
-def _k5_call():
+def _rns_call(name):
+    """A call of the K5 or K6 wrapper on a state that reports a CUDA
+    device."""
     KD = fixed_key_ints(256)
     m = KD["p"] ** 2
     tb = rns.RnsBase.for_bits(256, CPU)
@@ -200,13 +202,17 @@ def _k5_call():
     tk._dev_ops = {k: (_fake(v) if isinstance(v, torch.Tensor) else v)
                    for k, v in tk._dev_ops.items()}
     X = _fake(torch.zeros((tb.CH, B), dtype=torch.int32))
+    if name == "rns_exp_shared":
+        digits = np.array([31, 0, 7], dtype=np.int32)
+        return (lambda: trk.rns_exp_shared_p(X, digits, tb, tk, 5),
+                _fake_digits())
     digits = np.arange(3 * B, dtype=np.int32).reshape(3, B) % 16
     return (lambda: trk.rns_exp_elem_p(X, digits, tb, tk, 4),
             _fake_digits())
 
 
 @pytest.mark.parametrize("name", ["mm3_mul", "mm3_exp", "mm3_exp_shared",
-                                  "rns_exp_elem"])
+                                  "rns_exp_elem", "rns_exp_shared"])
 def test_wrapper_passes_its_signature_and_raises(name, monkeypatch):
     calls = []
 
@@ -216,18 +222,25 @@ def test_wrapper_passes_its_signature_and_raises(name, monkeypatch):
 
     monkeypatch.setattr(kernels, "_call", call)
     monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 4096)
-    run, fake_digits = (_k5_call() if name == "rns_exp_elem"
+    run, fake_digits = (_rns_call(name) if name.startswith("rns")
                         else _mm3_call(name))
     monkeypatch.setattr(kernels, "digit_tensor", fake_digits)
+    made = []
     monkeypatch.setattr(torch, "empty",
-                        lambda *s, **k: _fake(torch.zeros(*s, **{
+                        lambda *s, **k: made.append(_fake(torch.zeros(*s, **{
                             key: v for key, v in k.items()
-                            if key != "device"})))
+                            if key != "device"}))) or made[-1])
     before = kernels.COUNTS[name]
     run()
     assert [n for n, _ in calls] == [name]
     # the stream is appended by _call: the wrapper passes all but it
     assert len(calls[0][1]) == len(kernels._SIGS[name]) - 1
+    if name.startswith("rns"):
+        # the tile kernels' W1f / W2f, never the per-column E stacks, and
+        # the table scratch tile by tile: (tiles, 2^w, CH, 32) uint16
+        assert len(made) == 2 and made[1].dtype == torch.int16
+        assert made[1].shape[0] == -(-B // trk.TILE_COLS)
+        assert made[1].shape[3] == trk.TILE_COLS
     assert kernels.COUNTS[name] == before + 1
     # a launch error propagates; nothing falls back to the twin
     monkeypatch.setattr(kernels, "_call", lambda n, conv, dev: 1)

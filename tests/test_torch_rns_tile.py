@@ -1,10 +1,11 @@
-"""The tile layout of kernels K1, K2 and K5 (``csrc/rns_tile.cuh``) on the
-CPU: the extension matrices W1, W2 and their mma fragment order, and the
-plain PyTorch version of the tile product (``rns_kernels.rns_mul_tile``,
-its chains ``rns_exp_sched_tile`` and ``rns_exp_elem_tile``), which must
-equal the port's RNS product and the JAX package's bit for bit; K5's
-tile-by-tile table index; plus the device-kept digits and schedules
-(``kernels.digit_tensor``, ``PrivateContext.device_digits``)."""
+"""The tile layout of kernels K1, K2, K5 and K6 (``csrc/rns_tile.cuh``) on
+the CPU: the extension matrices W1, W2 and their mma fragment order, and
+the plain PyTorch version of the tile product (``rns_kernels.rns_mul_tile``,
+its chains ``rns_exp_sched_tile``, ``rns_exp_elem_tile`` and
+``rns_exp_shared_tile``), which must equal the port's RNS product and the
+JAX package's bit for bit; K5's and K6's tile-by-tile table index; plus
+the device-kept digits and schedules (``kernels.digit_tensor``,
+``PrivateContext.device_digits``)."""
 
 import numpy as np
 import pytest
@@ -143,6 +144,56 @@ def test_tile_elem_chain_equals_both_packages(mbits, m, monkeypatch):
     # the wrapper's CPU route is the plain twin and agrees
     _same(trk.rns_exp_elem_p(torch.from_numpy(X), digits, tb, tk, window),
           got)
+
+
+@pytest.mark.parametrize("window,digits", [(4, [0, 15, 3]), (5, [31, 0, 7])],
+                         ids=["w4", "w5"])
+def test_tile_shared_chain_equals_both_packages(window, digits,
+                                                monkeypatch):
+    """K6's chain over the tile product (``rns_exp_shared_tile``: the
+    table tile by tile, the shared digit indexing it) equals the port's
+    plain twin, the JAX package's jnp chain and its Pallas kernel
+    (``_exp_call`` through ``rns_exp_shared_p``, interpret mode)."""
+    monkeypatch.setattr(jpr, "INTERPRET", True)
+    jb, jk, tb, tk = _setup(*CASES[0])
+    ops = trk.kernel_operands(tb, tk, CPU)
+    X = _states(np.random.default_rng(window), tb, B)
+    dig = np.array(digits, dtype=np.int32)
+    got = trk.rns_exp_shared_tile(torch.from_numpy(X), dig, tb, tk, window,
+                                  ops)
+    assert got.dtype == torch.int32 and got.shape == (tb.CH, B)
+    _same(got, tr.rns_exp_shared_plain(torch.from_numpy(X), dig, tb, tk,
+                                       window))
+    jX = jnp.asarray(X.astype(np.uint32))
+    _same(got, jr.rns_exp_shared(jX, jnp.asarray(dig), jb, jk, window))
+    _same(got, jpr.rns_exp_shared_p(jX, jnp.asarray(dig), jb, jk, window))
+    # the wrapper's CPU route is the plain twin and agrees
+    _same(trk.rns_exp_shared_p(torch.from_numpy(X), dig, tb, tk, window),
+          got)
+
+
+def test_shared_chain_reads_its_table_tile_by_tile(monkeypatch):
+    """K6's model places and reads every entry through
+    ``elem_table_index``, the layout of the kernel's scratch: all 2^w
+    entries, each (channel, column) inside its own column's tile."""
+    jb, jk, tb, tk = _setup(*CASES[0])
+    ops = trk.kernel_operands(tb, tk, CPU)
+    X = torch.from_numpy(_states(np.random.default_rng(3), tb, B))
+    dig = np.array([2, 3], dtype=np.int32)
+    want = trk.rns_exp_shared_tile(X, dig, tb, tk, 2, ops)
+    real = trk.elem_table_index
+    seen = []
+
+    def record(t, c, col, CH, window):
+        idx = real(t, c, col, CH, window)
+        seen.append((t, idx // ((1 << window) * CH * trk.TILE_COLS), col))
+        return idx
+
+    monkeypatch.setattr(trk, "elem_table_index", record)
+    _same(trk.rns_exp_shared_tile(X, dig, tb, tk, 2, ops), want)
+    assert sorted({t for t, _, _ in seen}) == [0, 1, 2, 3]
+    for _, tile, col in seen:
+        assert bool((tile == col // trk.TILE_COLS).all())
 
 
 def test_elem_table_index_is_tile_by_tile():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels K1 (``rns_mul``), K2 (``rns_exp_sched``), K5
-(``rns_exp_elem``), K3 (``mm3_mul``), K4 (``mm3_exp``) and K7
-(``mm3_exp_shared``) of the port in one checkout, at their main-path
-shapes, on one GPU.
+(``rns_exp_elem``), K6 (``rns_exp_shared``), K3 (``mm3_mul``), K4
+(``mm3_exp``), K7 (``mm3_exp_shared``) and K10 (``mont_exp``) of the port
+in one checkout, at their main-path shapes, on one GPU.
 
     python3 tools/torch_k12bench.py [TREE]
 
@@ -19,7 +19,11 @@ Montgomery product at n^2 (L=257) and p^2 (L=129), B=4096, 4095, 64
 and 1, and B=4096 with b an (L, 1) broadcast; K4 the exponent
 alignment's chain (20-bit exponents, windows 3..8) at n^2 (L=257) and
 p^2 (L=129), B=4096; K7 the limb decrypt's chain of p-1 at p^2 (L=129,
-window 5, 205 windows), B=4096.  The inputs come from
+window 5, 205 windows), B=4096; K6 the fixed-window decrypt chain of p-1
+at the p^2 base (CH=261, window 5, 205 windows), B=4096; K10 the fused
+decrypt's chain over [p^2]*4096 ++ [q^2]*4096 (L=129, B=8192, the 256
+windows of p-1 | q-1) and the keygen window's (256 random 1024-bit odd
+moduli, L=65, 256 windows).  The inputs come from
 a fixed seed, so every tree gets the same ones, and the line printed
 carries sums of the outputs for a cross-check.  CUDA events, one warm-up
 call.  Prints one line ``K12BENCH {json}`` with the card's name and
@@ -40,7 +44,7 @@ def main(argv) -> int:
         os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, tree)
     from pailliercryptolib_python_tpu_torch import kernels
-    from pailliercryptolib_python_tpu_torch.ops import mont3, rns
+    from pailliercryptolib_python_tpu_torch.ops import mont, mont3, rns
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
     from pailliercryptolib_python_tpu_torch.ops.limb import (ints_to_limbs,
                                                              to_device)
@@ -143,11 +147,45 @@ def main(argv) -> int:
             tag = f"L={L} B=4096 w={window} {nwd} windows"
             k7[tag] = ms_of(run, reps_of(ms_of(run, 1), 10))
             sums["K7 " + tag] = int(run().long().sum())
+    # K6: the fixed-window decrypt chain of p-1 at the p^2 base
+    base, key = setup(p * p, (p * p).bit_length())
+    e = p - 1
+    dig6 = mg.exponent_digits([e], -(-e.bit_length() // 5), 5)[:, 0].astype(
+        np.int32)
+    X6 = state(rng, base, 4096)
+    run = lambda: rk.rns_exp_shared_p(X6, dig6, base, key, 5)
+    tag = f"CH={base.CH} B=4096 w=5 {len(dig6)} windows"
+    k6 = {tag: ms_of(run, reps_of(ms_of(run, 1), 10))}
+    sums["K6 " + tag] = int(run().long().sum())
+    # K10: the fused decrypt's per-element chain and the keygen window's
+    k10 = {}
+    q = kd["q"]
+    ms10 = [p * p] * 4096 + [q * q] * 4096
+    e10 = mg.exponent_digits([p - 1, q - 1], 256, 4).astype(np.int32)
+    dig10 = np.ascontiguousarray(np.concatenate(
+        [np.broadcast_to(e10[:, :1], (256, 4096)),
+         np.broadcast_to(e10[:, 1:], (256, 4096))], axis=1))
+    r = np.random.default_rng(7)
+    cands = [int.from_bytes(r.bytes(128), "little") | (1 << 1023) | 1
+             for _ in range(256)]
+    for mods, L, dig in ((ms10, 129, dig10),
+                         (cands, 65, rng.integers(0, 16, size=(256, 256))
+                          .astype(np.int32))):
+        ctx = mg.MontCtx.for_moduli(mods, L, dev)
+        a = to_device(ints_to_limbs(
+            [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
+             for m in mods], L), dev)
+        run = lambda: mont.mont_exp_p(a, dig, ctx.n_limbs, ctx.n0inv,
+                                      ctx.one)
+        tag = f"L={L} B={len(mods)} 256 windows"
+        k10[tag] = ms_of(run, reps_of(ms_of(run, 1), 10))
+        sums["K10 " + tag] = int(run().long().sum())
     print("K12BENCH " + json.dumps({
         "tree": tree, "card": card, "K1_ms": k1, "K1_shape": "CH=521 B=4096",
         "K2_ms": k2, "K2_shape": f"CH=261 B=4096 w={window} "
                                  f"{len(sched)} ops",
         "K2_reps": reps, "K5_ms": k5, "K3_ms": k3, "K4_ms": k4, "K7_ms": k7,
+        "K6_ms": k6, "K10_ms": k10,
         "K1_out_sum": int(out1.long().sum()),
         "K2_out_sum": int(out2.long().sum()), "out_sums": sums}), flush=True)
     return 0
