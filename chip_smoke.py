@@ -14,9 +14,10 @@ failure (so any failure exits non-zero):
    kernels K1, K2, K5, K6 (``csrc/rns_tile.cuh``) and K3, K4, K7
    (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
    and their tensor-core (IMMA) instructions in the SASS where the
-   toolkit has ``cuobjdump`` (none is a failure), and the report of K10's
-   instantiations (a spill in the one at the fused decrypt's or the
-   keygen's shape is a failure);
+   toolkit has ``cuobjdump`` (none is a failure), and the registers,
+   stack and local memory of the instantiations of K9, K10 and K11 (the
+   cooperative routine of ``csrc/mont.cu``) at the main path's shapes
+   (a spill in one of them is a failure);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
    kernel's bound (K1, K2 and K5 also at a ragged batch and at one
@@ -24,11 +25,12 @@ failure (so any failure exits non-zero):
    and 129 also at B=4095, 64, 1 and with b an (L, 1) broadcast, and at
    L=520, its largest, B=64; K9 and
    K10 at the fused CRT decrypt's shape, K10's eager twin alone ~32 s,
-   K10 also at the keygen shape (both window ranges), at B=1 and a ragged
-   B, with a shared (L, 1) modulus, and at L=520 and 1040 (its largest),
-   each with its integer-pipe floor beside;
-   K9 on a weightless n^2 also against K3; K4 at n^2 (windows 3..8 at
-   B=4096; all 16 windows, every digit 0..15, at B=4095 and 1) and at
+   K9 and K10 also at the keygen shape (K10 both window ranges), K10 at
+   B=1 and a ragged B, with a shared (L, 1) modulus, and at L=520 and
+   1040 (its largest); K9 on a weightless n^2 also against K3; every K9,
+   K10 and K11 row with its integer-pipe floor and (g, K) beside; K4 at
+   n^2 (windows 3..8 at B=4096; all 16 windows, every digit 0..15, at
+   B=4095 and 1) and at
    p^2, there also against K10, and at L=520, B=64; K7 at p^2 (4 windows
    and the whole chain at B=4096, 4 windows at B=1), at a 4096-bit key's
    p^2 (L=257) and at L=520, where its table entry is read from global
@@ -36,8 +38,9 @@ failure (so any failure exits non-zero):
    decrypt chain's shape, a short chain at B=256, 4095 and 1, and where
    W1, W2 are read from global memory (CH=521); K8 at L=257/129/65 also
    against K3(a, a),
-   K11 at the limb encrypt chain's shape and per-element against a K9
-   loop; the nibble kernels K12 at L=257/129
+   K11 at the limb encrypt chain's shape also against the streamed K3
+   chain (both timed), at B=4095 and 1 (8 factors), and per-element
+   against a K9 loop; the nibble kernels K12 at L=257/129
    also against K3, K13 at L=257/129/65 also against K8 and K12(a, a),
    K14 at L=257 and 129 (windows 3..8) also against K4, K15 at K7's
    decrypt shape also against K7, each with the bound of K3's work model
@@ -279,9 +282,15 @@ def random_state(rng, base, B: int, dev):
 TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
                 "rns_exp_shared_kernel", "mm3_mul_kernel", "mm3_exp_kernel",
                 "mm3_exp_shared_kernel")
-# K10's instantiations (csrc/mont.cu mont_exp_kernel<K>) at the main
-# path's shapes: the fused CRT decrypt and the keygen window
-K10_SHAPES = ((129, 8192), (65, 256))
+# The cooperative kernels' instantiations (csrc/mont.cu, <K> from
+# coop_shape) at the main path's shapes: K10 at the fused CRT decrypt and
+# the keygen window, K9 at the fused decrypt's exit and the keygen's
+# Miller-Rabin ladder, K11 at the limb encrypt chain
+COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
+               ("K10", "mont_exp_kernel", 65, 256),
+               ("K9", "mont_mul_kernel", 129, 8192),
+               ("K9", "mont_mul_kernel", 65, 256),
+               ("K11", "mont_chain_kernel", 257, 4096))
 
 
 def tile_kernel_report() -> None:
@@ -291,9 +300,9 @@ def tile_kernel_report() -> None:
     shared memory is dynamic, so the bytes each launch asks for at the
     main path's shape are printed beside), and, where the toolkit has
     cuobjdump, the tensor-core instructions (IMMA for mma.sync) in each
-    tile kernel's SASS; fails when one of them has none, or when K10's
-    instantiation at a shape of ``K10_SHAPES`` uses stack or local memory
-    (``cuobjdump -res-usage``: a spill)."""
+    tile kernel's SASS; fails when one of them has none, or when an
+    instantiation of K9, K10 or K11 at a shape of ``COOP_SHAPES`` uses
+    stack or local memory (``cuobjdump -res-usage``: a spill)."""
     import re
     from pailliercryptolib_python_tpu_torch import kernels
     lines, cur = {}, None
@@ -335,27 +344,29 @@ def tile_kernel_report() -> None:
         print(f"    L={L}: K3 asks {k3} B of shared memory, K4 {k4} B, K7 "
               f"{k7} B" + (" (its entry staged)" if k7 > k3 else ""))
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    # K10: registers, stack and local memory of the instantiations at
-    # K10_SHAPES, read from the built library whichever process built it
+    # K9, K10, K11: registers, stack and local memory of the
+    # instantiations at COOP_SHAPES, read from the built library whichever
+    # process built it
     usage = subprocess.run([cuobjdump, "-res-usage", kernels.LIB_PATH],
                            capture_output=True, text=True,
                            timeout=300).stdout
     res, fn = {}, None
     for line in usage.splitlines():
-        m = re.search(r"Function \S*mont_exp_kernelILi(\d+)E", line)
+        m = re.search(r"Function \S*\d(mont_(?:mul|exp|chain)_kernel)ILi(\d+)E",
+                      line)
         if m:
-            fn = int(m.group(1))
+            fn = (m.group(1), int(m.group(2)))
         elif fn is not None and "REG:" in line:
             res[fn] = dict(re.findall(r"(\w+):(\d+)", line))
             fn = None
-    for L, B in K10_SHAPES:
+    for tag, kern, L, B in COOP_SHAPES:
         g, K = kernels.mont_exp_shape(L, B)
-        r = res.get(K, {})
-        print(f"    K10 at L={L}, B={B}: {g} lanes a column, {K} words a "
-              f"lane, mont_exp_kernel<{K}>: registers {r.get('REG')}, "
+        r = res.get((kern, K), {})
+        print(f"    {tag} at L={L}, B={B}: {g} lanes a column, {K} words a "
+              f"lane, {kern}<{K}>: registers {r.get('REG')}, "
               f"stack {r.get('STACK')} B, local {r.get('LOCAL')} B")
         if not r or r.get("STACK") != "0" or r.get("LOCAL") != "0":
-            raise AssertionError(f"K10's instantiation for L={L}, B={B} "
+            raise AssertionError(f"{tag}'s instantiation for L={L}, B={B} "
                                  f"spills or is missing: {r}")
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", kernels.LIB_PATH],
@@ -488,6 +499,7 @@ def check_kernels(dev, kd) -> dict:
                    ms_of(lambda: mg.cios_mul(a, b, c0.n_limbs, c0.n0inv), 1),
                    nbytes(a, b, got, c0.n_limbs) + 4,
                    limb_ops(L, 1, BATCH))
+            coop_note(L, BATCH, 1)
             k3 = mont3.mm3_mul(a, b, ctx)
             if not torch.equal(got, k3):
                 raise AssertionError("K9 differs from K3 on a shared n^2")
@@ -650,7 +662,9 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
     (CH=521), where W1, W2 do not fit beside the states and are read from
     global memory.  K8: L=257, 129, 65 at B=4096, also
     against K3(a, a).  K11: the limb encrypt chain (86 factors, L=257,
-    B=4096, shared n^2) and a per-element shape against a K9 loop."""
+    B=4096, shared n^2) against the streamed K3 chain (both timed), 8
+    factors at B=4095 and B=1 (padding columns), and a per-element shape
+    against a K9 loop; each K11 row with its integer-pipe floor."""
     import torch
     from pailliercryptolib_python_tpu_torch.ops import (mont, mont3, rns,
                                                         rns_kernels as rk,
@@ -718,12 +732,32 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
                                            ctx.n0inv), 2),
            plain_ms, nbytes(fac, acc0, got, ctx.n_limbs) + 4,
            limb_ops(L, n_win, BATCH), headline=True)
-    acc = acc0
-    for j in range(n_win):
-        acc = mont3.mm3_mul(acc, fac[j], ctx)
-    if not torch.equal(got, acc):
+    coop_note(L, BATCH, n_win)
+
+    def streamed():
+        acc = acc0
+        for j in range(n_win):
+            acc = mont3.mm3_mul(acc, fac[j], ctx)
+        return acc
+    k3_ms = ms_of(streamed, 2)
+    if not torch.equal(got, streamed()):
         raise AssertionError("K11 differs from the streamed K3 chain")
-    del fac
+    print(f"  mont_chain     equals the streamed K3 chain ({n_win} K3 "
+          f"launches, {k3_ms:.3f} ms)", flush=True)
+    # padding columns: a ragged last group of columns, and one column
+    for Bn in (BATCH - 1, 1):
+        fb = fac[:8, :, :Bn].contiguous()
+        ab = acc0[:, :Bn].contiguous()
+        got = mont.mont_chain_p(fb, ab, ctx.n_limbs, ctx.n0inv)
+        want, plain_ms = timed(lambda: mont.mont_chain_plain(
+            fb, ab, ctx.n_limbs, ctx.n0inv))
+        record("mont_chain", got, want, f"n_win=8 L={L} B={Bn} shared",
+               ms_of(lambda: mont.mont_chain_p(fb, ab, ctx.n_limbs,
+                                               ctx.n0inv), 5),
+               plain_ms, nbytes(fb, ab, got, ctx.n_limbs) + 4,
+               limb_ops(L, 8, Bn))
+        coop_note(L, Bn, 8)
+    del fac, fb
     # K11, a modulus per column, against a K9 loop
     ms = [p * p] * 128 + [q * q] * 128
     Lh = (max(v.bit_length() for v in ms) + 2 + 15) // 16
@@ -739,13 +773,13 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
                                            pc.n0inv), 2),
            plain_ms, nbytes(fac, acc0, got, pc.n_limbs, pc.n0inv),
            limb_ops(Lh, 8, 256))
+    coop_note(Lh, 256, 8)
     acc = acc0
     for j in range(8):
         acc = mont.mont_mul_p(acc, fac[j], pc.n_limbs, pc.n0inv)
     if not torch.equal(got, acc):
         raise AssertionError("K11 differs from a K9 loop, per-element")
-    print("  mont_chain     equals the streamed K3 chain (shared) and a K9 "
-          "loop (per-element)", flush=True)
+    print("  mont_chain     equals a K9 loop (per-element)", flush=True)
 
 
 def check_k7(record, a, dig, ctx, window: int, headline=False) -> None:
@@ -885,8 +919,9 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
                + mm2_ops(L, nsq, BATCH, square=L <= sqr_max), k7_ms)
 
 
-def k10_floor_ms(L: int, products: int, B: int, squares: int) -> float:
-    """K10's integer-pipe floor: a product of W = ceil(L/2) 32-bit words
+def coop_floor_ms(L: int, products: int, B: int, squares: int = 0) -> float:
+    """The integer-pipe floor of K9, K10 and K11 (the cooperative
+    routine of csrc/mont.cu): a product of W = ceil(L/2) 32-bit words
     is W^2 word products for a*b and W^2 for q*n, a square W(W+1)/2 + W^2,
     each two IMAD (low and high word), over 132 SMs x 64 IMAD a clock at
     the card's largest SM clock (nvidia-smi clocks.max.sm)."""
@@ -900,6 +935,15 @@ def k10_floor_ms(L: int, products: int, B: int, squares: int) -> float:
     return 1e3 * imad / (132 * 64 * mhz * 1e6)
 
 
+def coop_note(L: int, B: int, products: int, squares: int = 0) -> None:
+    """Print a K9 / K10 / K11 row's integer-pipe floor and its (g, K)."""
+    from pailliercryptolib_python_tpu_torch import kernels
+    g, K = kernels.mont_exp_shape(L, B)
+    print(f"  {'':14s} integer-pipe floor "
+          f"{coop_floor_ms(L, products, B, squares):.6f} ms; {g} lanes a "
+          f"column, {K} words a lane", flush=True)
+
+
 def check_per_element(dev, kd, rng, record) -> None:
     """Phase 3, K9 and K10 with a modulus per column: the fused CRT
     decrypt's shape ([p^2]*4096 ++ [q^2]*4096, L=129, B=8192; K10 over
@@ -908,9 +952,8 @@ def check_per_element(dev, kd, rng, record) -> None:
     device_mr_base2 launches, then win_start=3 on the top 8); K10 also at
     B=1 and B=4095 (8 windows), with a shared (L, 1) modulus, and at
     L=520, B=64 and L=1040, B=2 (4 windows), each printed with its
-    integer-pipe floor (``k10_floor_ms``)."""
+    integer-pipe floor (``coop_floor_ms``); K9 at both shapes too."""
     import torch
-    from pailliercryptolib_python_tpu_torch import kernels
     from pailliercryptolib_python_tpu_torch.ops import mont
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
 
@@ -927,10 +970,7 @@ def check_per_element(dev, kd, rng, record) -> None:
                plain_ms, nbytes(a, dig_dev, got, one, n)
                + (4 * B if isinstance(n0, torch.Tensor) else 4),
                limb_ops(L, 14 + nw, B, nw * 4), headline=headline)
-        g, K = kernels.mont_exp_shape(L, B)
-        floor = k10_floor_ms(L, 14 + nw, B, nw * 4)
-        print(f"  {'':14s} integer-pipe floor {floor:.6f} ms; {g} lanes a "
-              f"column, {K} words a lane", flush=True)
+        coop_note(L, B, 14 + nw, nw * 4)
     p, q = kd["p"], kd["q"]
     B2 = 2 * BATCH
     ms = [p * p] * BATCH + [q * q] * BATCH
@@ -946,6 +986,7 @@ def check_per_element(dev, kd, rng, record) -> None:
            ms_of(lambda: mg.cios_mul(a, b, ctx.n_limbs, ctx.n0inv), 1),
            nbytes(a, b, got) + ctx_bytes, limb_ops(L, 1, B2),
            headline=True)
+    coop_note(L, B2, 1)
     # the headline: the eager twin runs ~1,294 products of L CIOS steps
     # (~32 s on an H100)
     nw = 256
@@ -972,6 +1013,15 @@ def check_per_element(dev, kd, rng, record) -> None:
     Lk = (1024 + 2 + 15) // 16
     ck = mg.MontCtx.for_moduli(cands, Lk, dev)
     ak = random_cols(rng, cands, Lk, dev)
+    # K9 at the keygen ladder's shape (device_mr_base2's squarings)
+    bk = random_cols(rng, cands, Lk, dev)
+    got = mont.mont_mul_p(ak, bk, ck.n_limbs, ck.n0inv)
+    record("mont_mul", got, mg.cios_mul(ak, bk, ck.n_limbs, ck.n0inv),
+           f"L={Lk} B=256 per-element",
+           ms_of(lambda: mont.mont_mul_p(ak, bk, ck.n_limbs, ck.n0inv), 20),
+           ms_of(lambda: mg.cios_mul(ak, bk, ck.n_limbs, ck.n0inv), 1),
+           nbytes(ak, bk, got, ck.n_limbs, ck.n0inv), limb_ops(Lk, 1, 256))
+    coop_note(Lk, 256, 1)
     ds = [(c - 1) >> (((c - 1) & -(c - 1)).bit_length() - 1) for c in cands]
     for nwk, ws in ((256, 0), (8, 3)):
         dk = mg.exponent_digits([d >> (4 * (256 - nwk)) for d in ds], nwk,

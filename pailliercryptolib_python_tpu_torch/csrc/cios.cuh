@@ -1,27 +1,25 @@
-// The CIOS column routines of the limb-Montgomery kernels that own one
-// column a thread: K8 (csrc/mont3.cu, mont_sqr_col, one modulus for the
-// batch) and K9/K11 (csrc/mont.cu, mont_mul_col, a modulus per column or
-// one shared); the nibble kernels (mm2.cuh) borrow Strided, OneHot16 and
-// kSqrMaxLimbs.  K10 runs on the cooperative 32-bit-word routine of
-// csrc/mont.cu instead.
+// The CIOS column routine of K8 (csrc/mont3.cu, mont_sqr_col: one
+// thread owns one column, one modulus for the batch), and the helpers
+// the nibble kernels borrow (mm2.cuh, mont2.cu: Strided, OneHot16,
+// kSqrMaxLimbs).  K9, K10 and K11 run on the cooperative 32-bit-word
+// routine of csrc/mont.cu (a group of lanes a column, words in
+// registers); K3, K4 and K7 on the tile of csrc/mm3_tile.cuh.
 //
 // Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs; one
 // thread owns one column (one big number) and walks its limbs at a row
 // stride, so a warp's loads of one limb row are coalesced.
 //
-// The product is CIOS with 16-bit digits: every partial sum
-// t + a_i*b_j + carry stays below 2^32, so the carries are exact in one
-// 32-bit register.  The result (a*b + q*m)/R with q = -a*b*m^-1 mod R is
-// unique and symmetric in a and b, so every kernel built on it equals
-// the TPU kernels and the plain twins limb for limb, whichever operand
-// it walks in the outer loop.
+// The square is CIOS with 16-bit digits: every partial sum
+// t + a_i*a_j + carry stays below 2^32, so the carries are exact in one
+// 32-bit register.  The result (T + q*m)/R with q = -T*m^-1 mod R is
+// unique, so K8 equals the TPU kernel, the plain twin and K3(a, a) limb
+// for limb.
 //
-// What bounds the kernels built on it: per-thread latency.  One thread
-// walks a product's 2L^2 dependent multiply-adds with its running sum
-// (L+2 words, 2L for the square) in local memory, and one thread per
-// column leaves most of the card idle at B=4096; both the int8 bound and
-// the integer pipes are 2-3 orders of magnitude away (PERF.md, K8, K9,
-// K11).
+// What bounds K8: per-thread latency.  One thread walks a square's
+// L(L+1)/2 + L^2 dependent multiply-adds with its 2L-word running sum
+// in local memory, and one thread per column leaves most of the card
+// idle at B=4096; both the int8 bound and the integer pipes are 2-3
+// orders of magnitude away (PERF.md, K8).
 
 #pragma once
 
@@ -59,41 +57,6 @@ struct OneHot16 {
   }
 };
 
-// out = a*b*R^-1 mod n for one column.  a(i) yields limb i of the outer
-// operand (read L times); b is read at row stride sb (L^2 times) and out
-// written at stride so; b and out may alias: out is written only after
-// the last read.  n: limbs at row stride sn; n0 = -n^-1 mod 2^16;
-// t: scratch of L+2 words.
-template <class A>
-__device__ __forceinline__ void mont_mul_col(
-    const A& a, const uint32_t* b, int sb, uint32_t* out, int so,
-    const uint32_t* n, int sn, uint32_t n0, int L, uint32_t* t) {
-  for (int j = 0; j < L + 2; ++j) t[j] = 0u;
-  for (int i = 0; i < L; ++i) {
-    const uint32_t ai = a(i);
-    uint32_t c = 0u;
-    for (int j = 0; j < L; ++j) {            // t += a_i * b
-      const uint32_t s = t[j] + ai * b[j * sb] + c;   // <= 2^32 - 1
-      t[j] = s & 0xFFFFu;
-      c = s >> 16;
-    }
-    uint32_t s = t[L] + c;
-    t[L] = s & 0xFFFFu;
-    t[L + 1] = s >> 16;
-    const uint32_t m = (t[0] * n0) & 0xFFFFu;  // t + m*n = 0 mod 2^16
-    c = (t[0] + m * n[0]) >> 16;
-    for (int j = 1; j < L; ++j) {            // (t + m*n) / 2^16
-      const uint32_t s2 = t[j] + m * n[j * sn] + c;
-      t[j - 1] = s2 & 0xFFFFu;
-      c = s2 >> 16;
-    }
-    s = t[L] + c;
-    t[L - 1] = s & 0xFFFFu;
-    t[L] = t[L + 1] + (s >> 16);
-  }
-  for (int j = 0; j < L; ++j) out[j * so] = t[j];   // < 2m < R: t[L] == 0
-}
-
 // out = a*a*R^-1 mod n for one column, by the symmetric product: each
 // cross product a_i*a_j (i < j) is formed once, the whole array is
 // doubled in one carry pass, the diagonal a_i^2 is added, and L REDC
@@ -103,7 +66,7 @@ __device__ __forceinline__ void mont_mul_col(
 // 2^32.  a is read at row stride sa (about L^2/2 times), out written at
 // stride so after the last read of a (they may alias).  t: scratch of
 // 2L words.  (T + q*n)/R with q = -T*n^-1 mod R is unique, so the result
-// equals mont_mul_col(a, a) limb for limb; the multiplies are
+// equals a product a*a limb for limb; the multiplies are
 // L(L+1)/2 + L^2 instead of 2L^2.
 __device__ __forceinline__ void mont_sqr_col(
     const uint32_t* a, int sa, uint32_t* out, int so, const uint32_t* n,

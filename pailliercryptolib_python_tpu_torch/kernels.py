@@ -150,9 +150,9 @@ def sqr_max_limbs() -> int:
 
 
 def mont_exp_shape(L: int, B: int) -> tuple:
-    """(g, K) of kernel K10 at L limbs and B columns: a group of g lanes
-    per column, K 32-bit words a lane (``csrc/mont.cu`` ``exp_shape``),
-    read from the built library."""
+    """(g, K) of kernels K9, K10 and K11 at L limbs and B columns: a
+    group of g lanes per column, K 32-bit words a lane (``csrc/mont.cu``
+    ``coop_shape``), read from the built library."""
     v = int(lib().pct_mont_exp_shape(L, B))
     return v // 100, v % 100
 

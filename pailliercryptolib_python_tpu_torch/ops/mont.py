@@ -13,14 +13,18 @@ of -n^-1 mod 2^16; ``one`` (the Montgomery one) shaped like n.
 * ``mont_exp_p(base, digits, n, n0, one, win_start)`` -- kernel K10 on a
   CUDA tensor, ``mont_exp_plain`` on a CPU tensor: the table
   ``[one, base, base^2, ...]`` by successive products, then per 4-bit
-  window four squarings and one product by the selected entry.  K10
-  multiplies in 32-bit words, a group of lanes per column;
-  ``cios32_mul`` and ``mont_exp_words`` are its arithmetic in plain
-  PyTorch, for the CPU tests.
+  window four squarings and one product by the selected entry.
 * ``mont_chain_p(factors, acc0, n, n0)`` -- kernel K11 on a CUDA tensor,
   ``mont_chain_plain`` on a CPU tensor: ``acc0 * prod_j factors[j]``, one
   product per pre-gathered factor (the fused form of the limb comb
   encrypt chain, ``montgomery.mont_exp_fixed_base``).
+
+K9, K10 and K11 multiply on one routine: 32-bit words, a group of 8-32
+lanes per column, the words in registers, (g, K) picked from L and B
+(``kernels.mont_exp_shape``).  ``cios32_mul`` is that product's
+arithmetic in plain PyTorch, and ``mont_exp_words`` K10's chain over it,
+for the CPU tests.  The wrappers copy a broadcast (L, 1) operand out to
+(L, B) before the launch; only the modulus is read at column stride 0.
 
 Digits are MSB-first 4-bit windows (n_win, B) or (n_win, 1), given on
 the host (numpy or a CPU tensor) and range-checked there
@@ -68,8 +72,8 @@ def _mul_lo_hi(x: torch.Tensor, y: torch.Tensor):
 
 
 def cios32_mul(a, b, n, n0) -> torch.Tensor:
-    """a*b*R^-1 mod n (R = 2^(16L)) as kernel K10 computes it, in plain
-    PyTorch: the limbs paired into W = ceil(L/2) 32-bit words, W word
+    """a*b*R^-1 mod n (R = 2^(16L)) as kernels K9, K10 and K11 compute
+    it, in plain PyTorch: the limbs paired into W = ceil(L/2) 32-bit words, W word
     steps t = (t + a_i b + q n) / 2^32 with q = t_0 n' mod 2^32 and
     n' = -n^-1 mod 2^32 from the 16-bit n0 by one Newton step,
     n' = n0 (2 + n n0).  For odd L the outer operand enters as a 2^16

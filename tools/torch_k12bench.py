@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time kernels K1 (``rns_mul``), K2 (``rns_exp_sched``), K5
 (``rns_exp_elem``), K6 (``rns_exp_shared``), K3 (``mm3_mul``), K4
-(``mm3_exp``), K7 (``mm3_exp_shared``) and K10 (``mont_exp``) of the port
-in one checkout, at their main-path shapes, on one GPU.
+(``mm3_exp``), K7 (``mm3_exp_shared``), K9 (``mont_mul``), K10
+(``mont_exp``) and K11 (``mont_chain``) of the port in one checkout, at
+their main-path shapes, on one GPU.
 
     python3 tools/torch_k12bench.py [TREE]
 
@@ -23,7 +24,11 @@ window 5, 205 windows), B=4096; K6 the fixed-window decrypt chain of p-1
 at the p^2 base (CH=261, window 5, 205 windows), B=4096; K10 the fused
 decrypt's chain over [p^2]*4096 ++ [q^2]*4096 (L=129, B=8192, the 256
 windows of p-1 | q-1) and the keygen window's (256 random 1024-bit odd
-moduli, L=65, 256 windows).  The inputs come from
+moduli, L=65, 256 windows); K9 one product at the fused decrypt's
+exit ([p^2]*4096 ++ [q^2]*4096, L=129, B=8192) and on a shared n^2
+(L=257, B=4096); K11 the limb encrypt chain (86 factors, L=257, B=4096,
+shared n^2), beside one pass of ``torch.sum`` over its 362 MB of
+factors (the memory side of its time).  The inputs come from
 a fixed seed, so every tree gets the same ones, and the line printed
 carries sums of the outputs for a cross-check.  CUDA events, one warm-up
 call.  Prints one line ``K12BENCH {json}`` with the card's name and
@@ -180,12 +185,37 @@ def main(argv) -> int:
         tag = f"L={L} B={len(mods)} 256 windows"
         k10[tag] = ms_of(run, reps_of(ms_of(run, 1), 10))
         sums["K10 " + tag] = int(run().long().sum())
+    # K9: the fused decrypt's exit product and a shared n^2 product
+    k9 = {}
+    c9 = mg.MontCtx.for_moduli(ms10, 129, dev)
+    cn = mg.MontCtx.for_modulus(n * n, mxu=False, device=dev)
+    for ctx, mods, L, tag in ((c9, ms10, 129, "L=129 B=8192 per-element"),
+                              (cn, [n * n] * 4096, 257,
+                               "L=257 B=4096 shared")):
+        a, b = (to_device(ints_to_limbs(
+            [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
+             for m in mods], L), dev) for _ in range(2))
+        run = lambda: mont.mont_mul_p(a, b, ctx.n_limbs, ctx.n0inv)
+        k9[tag] = ms_of(run, 50)
+        sums["K9 " + tag] = int(run().long().sum())
+    # K11: the limb encrypt chain, 86 pre-gathered factors at n^2
+    fac = torch.stack([to_device(ints_to_limbs(
+        [int.from_bytes(rng.bytes(2 * 257), "little") % (2 * n * n)
+         for _ in range(4096)], 257), dev) for _ in range(86)])
+    acc0 = fac[0].clone()
+    run = lambda: mont.mont_chain_p(fac, acc0, cn.n_limbs, cn.n0inv)
+    tag = "n_win=86 L=257 B=4096 shared"
+    k11 = {tag: ms_of(run, reps_of(ms_of(run, 1), 10))}
+    sums["K11 " + tag] = int(run().long().sum())
+    # the memory side of K11's time: one pass over the same factor bytes
+    k11["factor bytes read once (torch sum)"] = ms_of(
+        lambda: fac.sum(dtype=torch.int64), 10)
     print("K12BENCH " + json.dumps({
         "tree": tree, "card": card, "K1_ms": k1, "K1_shape": "CH=521 B=4096",
         "K2_ms": k2, "K2_shape": f"CH=261 B=4096 w={window} "
                                  f"{len(sched)} ops",
         "K2_reps": reps, "K5_ms": k5, "K3_ms": k3, "K4_ms": k4, "K7_ms": k7,
-        "K6_ms": k6, "K10_ms": k10,
+        "K6_ms": k6, "K10_ms": k10, "K9_ms": k9, "K11_ms": k11,
         "K1_out_sum": int(out1.long().sum()),
         "K2_out_sum": int(out2.long().sum()), "out_sums": sums}), flush=True)
     return 0
