@@ -15,9 +15,9 @@ failure (so any failure exits non-zero):
    (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
    and their tensor-core (IMMA) instructions in the SASS where the
    toolkit has ``cuobjdump`` (none is a failure), and the registers,
-   stack and local memory of the instantiations of K9, K10 and K11 (the
-   cooperative routine of ``csrc/mont.cu``) at the main path's shapes
-   (a spill in one of them is a failure);
+   stack and local memory of the instantiations of K8, K9, K10, K11 and
+   K15 (the cooperative routine of ``csrc/coop.cuh``) at the main path's
+   shapes (a spill in one of them is a failure);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
    kernel's bound (K1, K2 and K5 also at a ragged batch and at one
@@ -43,8 +43,9 @@ failure (so any failure exits non-zero):
    against a K9 loop; the nibble kernels K12 at L=257/129
    also against K3, K13 at L=257/129/65 also against K8 and K12(a, a),
    K14 at L=257 and 129 (windows 3..8) also against K4, K15 at K7's
-   decrypt shape also against K7, each with the bound of K3's work model
-   beside its own);
+   decrypt shape, at L=257 and at L=520, B=64 also against K7, each with
+   the bound of K3's work model beside its own; every K8 and K15 row
+   with its integer-pipe floor and (g, K) beside);
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
@@ -282,15 +283,20 @@ def random_state(rng, base, B: int, dev):
 TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
                 "rns_exp_shared_kernel", "mm3_mul_kernel", "mm3_exp_kernel",
                 "mm3_exp_shared_kernel")
-# The cooperative kernels' instantiations (csrc/mont.cu, <K> from
+# The cooperative kernels' instantiations (csrc/coop.cuh, <K> from
 # coop_shape) at the main path's shapes: K10 at the fused CRT decrypt and
 # the keygen window, K9 at the fused decrypt's exit and the keygen's
-# Miller-Rabin ladder, K11 at the limb encrypt chain
+# Miller-Rabin ladder, K11 at the limb encrypt chain, K8 at n^2 and p^2,
+# K15 at the limb decrypt's p^2 and a 4096-bit key's
 COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K10", "mont_exp_kernel", 65, 256),
                ("K9", "mont_mul_kernel", 129, 8192),
                ("K9", "mont_mul_kernel", 65, 256),
-               ("K11", "mont_chain_kernel", 257, 4096))
+               ("K11", "mont_chain_kernel", 257, 4096),
+               ("K8", "mm3_sqr_kernel", 257, 4096),
+               ("K8", "mm3_sqr_kernel", 129, 4096),
+               ("K15", "mm2_exp_shared_kernel", 129, 4096),
+               ("K15", "mm2_exp_shared_kernel", 257, 4096))
 
 
 def tile_kernel_report() -> None:
@@ -301,8 +307,9 @@ def tile_kernel_report() -> None:
     main path's shape are printed beside), and, where the toolkit has
     cuobjdump, the tensor-core instructions (IMMA for mma.sync) in each
     tile kernel's SASS; fails when one of them has none, or when an
-    instantiation of K9, K10 or K11 at a shape of ``COOP_SHAPES`` uses
-    stack or local memory (``cuobjdump -res-usage``: a spill)."""
+    instantiation of K8, K9, K10, K11 or K15 at a shape of
+    ``COOP_SHAPES`` uses stack or local memory (``cuobjdump -res-usage``:
+    a spill)."""
     import re
     from pailliercryptolib_python_tpu_torch import kernels
     lines, cur = {}, None
@@ -344,7 +351,7 @@ def tile_kernel_report() -> None:
         print(f"    L={L}: K3 asks {k3} B of shared memory, K4 {k4} B, K7 "
               f"{k7} B" + (" (its entry staged)" if k7 > k3 else ""))
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    # K9, K10, K11: registers, stack and local memory of the
+    # K8-K11, K15: registers, stack and local memory of the
     # instantiations at COOP_SHAPES, read from the built library whichever
     # process built it
     usage = subprocess.run([cuobjdump, "-res-usage", kernels.LIB_PATH],
@@ -352,8 +359,8 @@ def tile_kernel_report() -> None:
                            timeout=300).stdout
     res, fn = {}, None
     for line in usage.splitlines():
-        m = re.search(r"Function \S*\d(mont_(?:mul|exp|chain)_kernel)ILi(\d+)E",
-                      line)
+        m = re.search(r"Function \S*\d(mont_(?:mul|exp|chain)_kernel|"
+                      r"mm3_sqr_kernel|mm2_exp_shared_kernel)ILi(\d+)E", line)
         if m:
             fn = (m.group(1), int(m.group(2)))
         elif fn is not None and "REG:" in line:
@@ -660,9 +667,10 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
     B=4096, window 5, the 205 windows of p-1) and a short one whose first
     digit is 0 and last 2^w - 1 at B=256, 4095 and 1, and at the n^2 base
     (CH=521), where W1, W2 do not fit beside the states and are read from
-    global memory.  K8: L=257, 129, 65 at B=4096, also
-    against K3(a, a).  K11: the limb encrypt chain (86 factors, L=257,
-    B=4096, shared n^2) against the streamed K3 chain (both timed), 8
+    global memory.  K8: L=257, 129, 65 at B=4096, also against K3(a, a),
+    with its integer-pipe floor.  K11: the limb encrypt chain (86
+    factors, L=257, B=4096, shared n^2) against the streamed K3 chain
+    (both timed), 8
     factors at B=4095 and B=1 (padding columns), and a per-element shape
     against a K9 loop; each K11 row with its integer-pipe floor."""
     import torch
@@ -713,6 +721,7 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
                                                  ctx.off1, ctx.off2), 1),
                nbytes(a, got, ctx.n_limbs), limb_ops(L, 0, BATCH, 1),
                headline=m == n * n)
+        coop_note(L, BATCH, 0, 1)
         k3_ms = ms_of(lambda: mont3.mm3_mul(a, a, ctx), 5)
         if not torch.equal(got, mont3.mm3_mul(a, a, ctx)):
             raise AssertionError(f"K8 differs from K3(a, a) at L={L}")
@@ -807,10 +816,12 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
     L=257 (n^2) and 129 (p^2) against K3; K13 at L=257, 129, 65 against
     K8 and K12(a, a); K14 at L=257 and 129, windows 3..8, against K4; K15
     at the limb decrypt's shape (p^2, L=129, window 5, the 205 windows of
-    p-1) against K7.  The bound is the function's (K3's work model over
-    the inputs, the modulus and the output), as the CIOS kernels' rows
-    count it; beside each row: the CIOS kernel's time and the bound of the
-    nibble algorithm's own int8 work (``mm2_ops``, weights read once)."""
+    p-1), at a 4096-bit key's p^2 (L=257, 4 windows) and at L=520, B=64
+    (w=3, 4 windows) against K7, with its integer-pipe floor.  The bound
+    is the function's (K3's work model over the inputs, the modulus and
+    the output), as the CIOS kernels' rows count it; beside each K12-K14
+    row: the CIOS kernel's time and the bound of the nibble algorithm's
+    own int8 work (``mm2_ops``, weights read once)."""
     import torch
     from pailliercryptolib_python_tpu_torch import kernels
     from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
@@ -832,6 +843,30 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
     def same(got, want, what):
         if not torch.equal(got, want):
             raise AssertionError(what)
+
+    def k15(a, dig, m, ctx, window, headline=False):
+        """K15 against its twin (one timed call: the twin takes seconds)
+        and K7 on the same inputs, with its integer-pipe floor."""
+        L, Bn = a.shape
+        mc = mm.MatmulMontCtx(m, L, device=dev)
+        w = (mc.W_mu, mc.W_m)
+        nwd = len(dig)
+        dig_dev = torch.from_numpy(dig).to(dev)
+        got = mont2.mm2_exp_shared(a, dig, *w, ctx.one, window)
+        want, plain_ms = timed(lambda: mont2.mm2_exp_shared_plain(
+            a, dig_dev, *w, ctx.one, window))
+        nmul, nsq = (1 << window) - 2 + nwd, nwd * window
+        record("mm2_exp_shared", got, want,
+               f"L={L} B={Bn} w={window} {nwd} windows",
+               ms_of(lambda: mont2.mm2_exp_shared(a, dig, *w, ctx.one,
+                                                  window), 2), plain_ms,
+               nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
+               limb_ops(L, nmul, Bn, nsq), headline=headline)
+        coop_note(L, Bn, nmul, nsq)
+        k7, k7_ms = timed(lambda: mont3.mm3_exp_shared(a, dig, ctx, window))
+        same(got, k7, f"K15 differs from K7 at L={L}")
+        print(f"  mm2_exp_shared equals mm3_exp_shared at L={L} (K7 on the "
+              f"same input {k7_ms:.3f} ms)", flush=True)
 
     for m in (n * n, p * p, p):
         ctx = mg.MontCtx.for_modulus(m, device=dev)
@@ -895,33 +930,28 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
                ms_of(lambda: mont3.mm3_exp(a, digits, ctx, ws), 2))
         if m != p * p:
             continue
-        # K15: the limb decrypt's chain of p-1 at window 5 (one timed call
-        # each: the kernel takes seconds, the twin tens of seconds)
+        # K15: the limb decrypt's chain of p-1 at window 5
         window = mont3.shared_exp_window(L)
         e = p - 1
         nwd = -(-e.bit_length() // window)
         dig = mg.exponent_digits([e], nwd, window)[:, 0].astype(np.int32)
-        dig_dev = torch.from_numpy(dig).to(dev)
-        got, k_ms = timed(lambda: mont2.mm2_exp_shared(a, dig, *w, ctx.one,
-                                                       window))
-        want, plain_ms = timed(lambda: mont2.mm2_exp_shared_plain(
-            a, dig_dev, *w, ctx.one, window))
-        nmul, nsq = (1 << window) - 2 + nwd, nwd * window
-        record("mm2_exp_shared", got, want,
-               f"L={L} B={BATCH} w={window} {nwd} windows", k_ms, plain_ms,
-               nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
-               limb_ops(L, nmul, BATCH, nsq), headline=True)
-        k7, k7_ms = timed(lambda: mont3.mm3_exp_shared(a, dig, ctx, window))
-        same(got, k7, f"K15 differs from K7 at L={L}")
-        beside("mm2_exp_shared", "mm3_exp_shared", L,
-               nbytes(a, dig_dev, got, ctx.one, *w),
-               mm2_ops(L, nmul, BATCH)
-               + mm2_ops(L, nsq, BATCH, square=L <= sqr_max), k7_ms)
+        k15(a, dig, m, ctx, window, headline=True)
+    # K15 at a 4096-bit key's p^2 (L=257, K=17) and at L=520, B=64 (its
+    # largest), 4 windows each, the digits covering 0 and 2^w - 1
+    import random
+    for bits, Bn, window, seed in ((4096, BATCH, 5, 2), (16 * 520 - 2, 64,
+                                                           3, 3)):
+        m = random.Random(SEED + seed).getrandbits(bits)
+        m |= (1 << (bits - 1)) | 1
+        ctx = mg.MontCtx.for_modulus(m, device=dev)
+        dig = np.array([(1 << window) - 1, 0, 1, 2], dtype=np.int32)
+        k15(random_cols(rng, [m] * Bn, ctx.num_limbs, dev), dig, m, ctx,
+            window)
 
 
 def coop_floor_ms(L: int, products: int, B: int, squares: int = 0) -> float:
-    """The integer-pipe floor of K9, K10 and K11 (the cooperative
-    routine of csrc/mont.cu): a product of W = ceil(L/2) 32-bit words
+    """The integer-pipe floor of K8-K11 and K15 (the cooperative
+    routine of csrc/coop.cuh): a product of W = ceil(L/2) 32-bit words
     is W^2 word products for a*b and W^2 for q*n, a square W(W+1)/2 + W^2,
     each two IMAD (low and high word), over 132 SMs x 64 IMAD a clock at
     the card's largest SM clock (nvidia-smi clocks.max.sm)."""
@@ -936,12 +966,15 @@ def coop_floor_ms(L: int, products: int, B: int, squares: int = 0) -> float:
 
 
 def coop_note(L: int, B: int, products: int, squares: int = 0) -> None:
-    """Print a K9 / K10 / K11 row's integer-pipe floor and its (g, K)."""
+    """Print a cooperative kernel's integer-pipe floor (with squarings,
+    also the floor of running them as products) and its (g, K)."""
     from pailliercryptolib_python_tpu_torch import kernels
     g, K = kernels.mont_exp_shape(L, B)
+    as_products = (f" ({coop_floor_ms(L, products + squares, B):.6f} ms "
+                   f"with the squarings as products)" if squares else "")
     print(f"  {'':14s} integer-pipe floor "
-          f"{coop_floor_ms(L, products, B, squares):.6f} ms; {g} lanes a "
-          f"column, {K} words a lane", flush=True)
+          f"{coop_floor_ms(L, products, B, squares):.6f} ms{as_products}; "
+          f"{g} lanes a column, {K} words a lane", flush=True)
 
 
 def check_per_element(dev, kd, rng, record) -> None:

@@ -1,5 +1,5 @@
 // The matmul-Montgomery (nibble, "v2") column routines of kernels
-// K12-K15 (csrc/mont2.cu): one thread owns one column (one big number)
+// K12-K14 (csrc/mont2.cu): one thread owns one column (one big number)
 // of a limbs-major (L, B) uint32 tensor of 16-bit limbs.
 //
 // A Montgomery product here is the TPU's _mm2_val
@@ -176,21 +176,20 @@ __device__ __forceinline__ void sqr_col(const uint32_t* a, int sa,
   reduce_col(s.T, wmu, wm, L, s.x, s.q, out, so);
 }
 
-// base^e of one column, the TPU's _mm2_exp_kernel (kOneHot, window 4)
-// and _mm2_exp_shared_kernel: table T[0] = one, T[1] = base,
-// T[d] = T[d-1]*base (2^window entries, entry d at tab + d*L*B), acc =
-// one, then per window from win_start to n_win: `window` squarings and
-// one product by T[digit].  dig points at this column's digit of window
-// 0, dstride is the step between windows (B per-element, 1 shared).
-// kOneHot: the digit is secret, so each window reads all 16 entries and
-// keeps T[digit] by mask (cios::OneHot16).  kSqr: square through
-// sqr_col (L <= cios::kSqrMaxLimbs, the TPU's PRESHIFT_MAX_L), else
-// through the product; a template parameter, not a run-time flag.
-template <int kMaxLimbs, bool kOneHot, bool kSqr>
+// base^e of one column, the TPU's _mm2_exp_kernel (window 4): table
+// T[0] = one, T[1] = base, T[d] = T[d-1]*base (16 entries, entry d at
+// tab + d*L*B), acc = one, then per window from win_start to n_win: four
+// squarings and one product by T[digit].  dig points at this column's
+// digit of window 0, dstride is the step between windows (B).  The digit
+// is secret, so each window reads all 16 entries and keeps T[digit] by
+// mask (cios::OneHot16).  kSqr: square through sqr_col (L <=
+// cios::kSqrMaxLimbs, the TPU's PRESHIFT_MAX_L), else through the
+// product; a template parameter, not a run-time flag.
+template <int kMaxLimbs, bool kSqr>
 __device__ void exp_col(const uint32_t* bc, const int32_t* dig, int dstride,
                         const uint32_t* onec, uint32_t* outc, uint32_t* tab,
                         const int* wmu, const int* wm, int L, int B,
-                        int window, int win_start, int n_win) {
+                        int win_start, int n_win) {
   Scratch<kMaxLimbs> s;
   uint32_t acc[kMaxLimbs];
   const size_t plane = static_cast<size_t>(L) * B;
@@ -198,12 +197,12 @@ __device__ void exp_col(const uint32_t* bc, const int32_t* dig, int dstride,
     tab[j * B] = onec[j * B];
     tab[plane + j * B] = bc[j * B];
   }
-  for (int d = 2; d < (1 << window); ++d)    // T[d] = T[d-1] * base
+  for (int d = 2; d < 16; ++d)               // T[d] = T[d-1] * base
     mul_col(cios::Strided{tab + (d - 1) * plane, B}, bc, B, tab + d * plane,
             B, wmu, wm, L, s);
   for (int j = 0; j < L; ++j) acc[j] = onec[j * B];
   for (int w = win_start; w < n_win; ++w) {
-    for (int r = 0; r < window; ++r) {
+    for (int r = 0; r < 4; ++r) {
       if (kSqr) {
         sqr_col(acc, 1, acc, 1, wmu, wm, L, s);
       } else {
@@ -211,13 +210,7 @@ __device__ void exp_col(const uint32_t* bc, const int32_t* dig, int dstride,
       }
     }
     const int d = dig[static_cast<size_t>(w) * dstride];
-    if (kOneHot) {
-      mul_col(cios::OneHot16{tab, plane, B, d}, acc, 1, acc, 1, wmu, wm, L,
-              s);
-    } else {
-      mul_col(cios::Strided{acc, 1}, tab + d * plane, B, acc, 1, wmu, wm, L,
-              s);
-    }
+    mul_col(cios::OneHot16{tab, plane, B, d}, acc, 1, acc, 1, wmu, wm, L, s);
   }
   for (int j = 0; j < L; ++j) outc[j * B] = acc[j];
 }

@@ -1,7 +1,7 @@
 // Kernels K12 (mm2_mul), K13 (mm2_sqr), K14 (mm2_exp) and K15
-// (mm2_exp_shared): matmul-Montgomery ("v2") arithmetic over 16-bit
-// limbs whose reduction is two int8 nibble matrix products, for Hopper
-// (sm_90a).
+// (mm2_exp_shared): the matmul-Montgomery ("v2") functions over 16-bit
+// limbs, for Hopper (sm_90a).  K12-K14 reduce by two int8 nibble matrix
+// products, K15 on the cooperative word routine.
 //
 // K12 replaces pailliercryptolib_python_tpu/ops/pallas_mont2.py
 //     _mm2_mul_kernel (:364, wrapper mm2_mul_p :378): a*b*R^-1 mod m.
@@ -15,55 +15,57 @@
 //     _mm2_exp_shared_kernel (:521, wrapper mm2_exp_shared_p :559):
 //     base^e with one exponent for the batch, a 2^window-entry table.
 //
-// Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs; one
-// thread owns one column and walks its limbs with stride B, so a warp's
-// loads of one limb row are coalesced.  The weights wmu int8 (4L, 4L)
-// and wm int8 (8L, 4L) (ops/matmul_mont.const_mult_weights) are kernel
-// operands; the kernels take no modulus: m lives only inside wm.
+// Layout: limbs-major (L, B) uint32 tensors holding 16-bit limbs.  The
+// weights wmu int8 (4L, 4L) and wm int8 (8L, 4L)
+// (ops/matmul_mont.const_mult_weights) are kernel operands; the kernels
+// take no modulus: m lives only inside wm.
 //
-// What the TPU kernel did and what this does.  On the TPU the two
-// reductions q = T*mu mod R and q*m were int8 matrix products on the MXU
-// over a tile of 128 columns.  Here each thread does them for its own
-// column with __dp4a (four int8 multiply-adds an instruction) on the
+// K12, K13 and K14: one thread owns one column and walks its limbs with
+// stride B, so a warp's loads of one limb row are coalesced.  On the TPU
+// the two reductions q = T*mu mod R and q*m were int8 matrix products on
+// the MXU over a tile of 128 columns; here each thread does them for its
+// own column with __dp4a (four int8 multiply-adds an instruction) on the
 // integer pipes: the column routine csrc/mm2.cuh mm2::mul_col / sqr_col
-// (the TPU's _mm2_val / _mm2_sqr_val).  The reduction is the nibble one,
-// not CIOS, so these kernels are the oracle for a tensor-core version.
-//
-// Bounds of the arithmetic (every step exact): a slot is at most
-// 4L*225 < 2^31; a recombined limb is at most 900L*4369 < 2^32 for
-// L <= 1092.  These kernels accept 2 <= L <= 520 (kMaxLimbs, as
-// csrc/mont3.cu) and return cudaErrorInvalidValue otherwise.
-//
-// What bounds it on the H100.  A product is L^2 16x16-bit limb products
-// plus 12L^2 __dp4a (48L^2 nibble multiply-adds: (4L)(4L) for q, (8L)(4L)
-// for q*m), so about 26 times the int8 work of CIOS's 2L^2 limb
-// products; every __dp4a reads one weight word, the same word across
-// the warp (3 MB of weights a product at L=257, served by L1/L2).  With
-// one thread per column a 4096-wide batch is 128 warps on 132 SMs: the
-// kernel is latency-bound, far above its bound.  Moving the two weight
-// products onto int8 tensor cores (mma.sync / wgmma) over a tile of
-// columns is the next design.
-//
-// K14 keeps its 16-entry table in a global scratch (16, L, B) and
-// selects the entry by a constant-access one-hot mask over all 16
-// (cios::OneHot16; the digits are secret, ROADMAP C9).  K15's table is
-// (2^window, L, B) indexed by the shared, key-derived digit (ROADMAP C5,
-// as K7).  Both square through mm2::sqr_col at L <= cios::kSqrMaxLimbs
-// (192, the TPU's PRESHIFT_MAX_L) and through the product above it, an
+// (the TPU's _mm2_val / _mm2_sqr_val).  Bounds of the arithmetic (every
+// step exact): a slot is at most 4L*225 < 2^31; a recombined limb is at
+// most 900L*4369 < 2^32 for L <= 1092.  A product is L^2 16x16-bit limb
+// products plus 12L^2 __dp4a (48L^2 nibble multiply-adds), about 26
+// times the int8 work of CIOS's 2L^2 limb products; with one thread per
+// column a 4096-wide batch is 128 warps on 132 SMs: latency-bound, far
+// above the bound.  K14 keeps its 16-entry table in a global scratch
+// (16, L, B) and selects the entry by a constant-access one-hot mask over
+// all 16 (cios::OneHot16; the digits are secret, ROADMAP C9), and
+// squares through mm2::sqr_col at L <= cios::kSqrMaxLimbs (192, the
+// TPU's PRESHIFT_MAX_L) and through the product above it, an
 // instantiation picked on the host.  pct_sqr_max_limbs reports the
-// cutoff; chip_smoke.py holds ops/mont2.PRESHIFT_MAX_L to it.  The Montgomery result is unique,
-// so K12-K15 equal their plain twins (ops/mont2.py), the TPU kernels and
-// K3 / K8 / K4 / K7 limb for limb.
+// cutoff; chip_smoke.py holds ops/mont2.PRESHIFT_MAX_L to it.
+//
+// K15 runs on the cooperative 32-bit-word routine of csrc/coop.cuh (a
+// group of 8-32 lanes a column, K words a lane in registers, (g, K) from
+// coop_shape), as K10 and K11: a Montgomery product of the same function
+// by CIOS word steps, its reduction by the modulus's words instead of
+// the nibble weights.  m and n' are recovered from column 0 of wm
+// (wm_modulus); wmu is not read.  Its 2^window-entry table lies in
+// global scratch in the kernel's own layout, indexed by the shared,
+// key-derived digit (ROADMAP C5, as K7), the next window's entry staged
+// in shared memory by cp.async while the current window's squarings run
+// (K11's pattern).  The squarings are coop_mul(acc, acc, acc).
+//
+// K12-K15 accept 2 <= L <= 520 (kMaxLimbs, as csrc/mont3.cu) and return
+// cudaErrorInvalidValue otherwise.  The Montgomery result is unique, so
+// K12-K15 equal their plain twins (ops/mont2.py), the TPU kernels and K3
+// / K8 / K4 / K7 limb for limb.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "coop.cuh"
 #include "mm2.cuh"
 
 namespace {
 
 constexpr int kMaxLimbs = 520;      // MontCtx.MXU_MAX_LIMBS, csrc/mont3.cu
-constexpr int kThreads = 32;        // one warp: spreads a batch over more SMs
+constexpr int kThreads = 32;        // K12-K14: one warp a block
 
 __global__ void mm2_mul_kernel(const uint32_t* a, const uint32_t* b,
                                uint32_t* out, const int* wmu, const int* wm,
@@ -90,23 +92,109 @@ __global__ void mm2_exp_kernel(const uint32_t* base, const int32_t* digits,
                                int L, int B, int n_win, int win_start) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= B) return;
-  mm2::exp_col<kMaxLimbs, true, kSqr>(base + col, digits + col, B, one + col,
-                                      out + col, table + col, wmu, wm, L, B,
-                                      4, win_start, n_win);
+  mm2::exp_col<kMaxLimbs, kSqr>(base + col, digits + col, B, one + col,
+                                out + col, table + col, wmu, wm, L, B,
+                                win_start, n_win);
 }
 
-template <bool kSqr>
-__global__ void mm2_exp_shared_kernel(const uint32_t* base,
-                                      const int32_t* digits, int n_win,
-                                      const uint32_t* one, uint32_t* out,
-                                      uint32_t* table, const int* wmu,
-                                      const int* wm, int L, int B,
-                                      int window) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  mm2::exp_col<kMaxLimbs, false, kSqr>(base + col, digits, 1, one + col,
-                                       out + col, table + col, wmu, wm, L, B,
-                                       window, 0, n_win);
+// K15's modulus m and n' = -m^-1 mod 2^32 from column 0 of the weights
+// wm (8L, 4L) int8 = const_mult_weights(m, L, 4, 2L): byte (v*2L + t, 0)
+// is nibble 4t+v of m, so limb t of m is sum_v wm[v*2L + t, 0] << 4v.
+// n' by four Newton steps y = y (2 + m y) from y = -m mod 2^32, right
+// mod 2^3 (m^2 = 1 mod 8 for odd m): 3, 6, 12, 24, 48 bits.
+template <int K>
+__device__ __forceinline__ void wm_modulus(coop::Lane<K>& ln, const int8_t* wm,
+                                           int L, int g) {
+  const size_t row = 4 * static_cast<size_t>(L);       // bytes a row
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    uint32_t w = 0u;
+    for (int h = 0; h < 2; ++h) {
+      const int t = 2 * (ln.j * K + kk) + h;
+      if (t >= L) break;
+      for (int v = 0; v < 4; ++v) {
+        const uint8_t nib = static_cast<uint8_t>(
+            wm[(static_cast<size_t>(v) * 2 * L + t) * row]);
+        w |= static_cast<uint32_t>(nib) << (16 * h + 4 * v);
+      }
+    }
+    ln.n[kk] = w;
+  }
+  const uint32_t m0 = __shfl_sync(coop::kFull, ln.n[0], 0, g);
+  uint32_t y = 0u - m0;
+  for (int i = 0; i < 4; ++i) y *= 2u + m0 * y;
+  ln.np = y;
+}
+
+// K15: base^e with one exponent for the batch on the cooperative routine
+// (coop.cuh), the TPU kernel's chain: T[0] = one, T[1] = base, T[d] =
+// T[d-1] * base (2^window entries), acc = one, then per window `window`
+// squarings and one product by T[digit].  The table lies in global
+// scratch, each thread's K words of entry d at tab[(d K + kk) S + gid]
+// (S threads in the grid): a warp reads 32 consecutive words, and each
+// thread reads back only what it wrote.  The digits are shared and
+// key-derived (ROADMAP C5, as K7): T[digit] of window w+1 is copied by
+// cp.async into the thread's column of a shared stage (K, blockDim.x)
+// while window w runs; the last entry is fetched twice, so no branch
+// guards the copy.
+template <int K>
+__global__ void __launch_bounds__(coop::kCoopThreads, 1)
+mm2_exp_shared_kernel(const uint32_t* base, const int32_t* digits, int n_win,
+                      const uint32_t* one, uint32_t* out, uint32_t* table,
+                      const int8_t* wm, int L, int B, int window, int g) {
+  extern __shared__ uint32_t stage[];
+  const int nt = blockDim.x;
+  coop::Lane<K> ln;
+  coop::lane_place(ln, 0, L, B, g);
+  wm_modulus(ln, wm, L, g);
+  const int j = ln.j;
+  const size_t S = static_cast<size_t>(gridDim.x) * nt;
+  uint32_t* te = table + static_cast<size_t>(blockIdx.x) * nt + threadIdx.x;
+  uint32_t* st = stage + threadIdx.x;
+  uint32_t acc[K], x[K];
+  coop::load_words(x, base + ln.col, B, L, j);
+  coop::load_words(acc, one + ln.col, B, L, j);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    te[kk * S] = acc[kk];                         // T[0] = one
+    te[(K + kk) * S] = x[kk];                     // T[1] = base
+    acc[kk] = x[kk];
+  }
+  for (int d = 2; d < (1 << window); ++d) {       // T[d] = T[d-1] * base
+    coop::coop_mul(acc, acc, x, ln.n, ln.np, ln.W, ln.shift, j, g);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) te[(d * K + kk) * S] = acc[kk];
+  }
+  coop::load_words(acc, one + ln.col, B, L, j);   // acc = one
+  if (n_win > 0) {
+    const size_t e = static_cast<size_t>(__ldg(digits)) * K;
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) x[kk] = te[(e + kk) * S];
+  }
+  for (int w = 0; w < n_win; ++w) {
+    const size_t e =
+        static_cast<size_t>(__ldg(digits + (w + 1 < n_win ? w + 1 : w))) * K;
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk)
+      coop::cp_async4(st + kk * nt, te + (e + kk) * S, 4);
+    rns_tile::cp_async_commit();
+    for (int r = 0; r < window; ++r)
+      coop::coop_mul(acc, acc, acc, ln.n, ln.np, ln.W, ln.shift, j, g);
+    coop::coop_mul(acc, acc, x, ln.n, ln.np, ln.W, ln.shift, j, g);
+    rns_tile::cp_async_wait_all();
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) x[kk] = st[kk * nt];
+  }
+  if (ln.live) coop::store_words(acc, out + ln.col, B, L, j);
+}
+
+// K15's table scratch in 32-bit words at L limbs, B columns, 2^window
+// entries: K words an entry for every thread of the grid.
+inline size_t exp_shared_table_words(int L, int B, int window) {
+  const coop::CoopShape sh = coop::coop_shape((L + 1) / 2, B);
+  const size_t threads = static_cast<size_t>(
+      coop::blocks_for(B, sh.g, coop::kCoopThreads)) * coop::kCoopThreads;
+  return (static_cast<size_t>(1) << window) * sh.K * threads;
 }
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
@@ -157,6 +245,8 @@ extern "C" int pct_mm2_exp(const uint32_t* base, const int32_t* digits,
   return cudaGetLastError();
 }
 
+// K15 reads m from wm; wmu stays in the signature (the reference's) and
+// is not read.
 extern "C" int pct_mm2_exp_shared(const uint32_t* base, const int32_t* digits,
                                   int n_win, const uint32_t* one,
                                   uint32_t* out, uint32_t* table,
@@ -165,13 +255,25 @@ extern "C" int pct_mm2_exp_shared(const uint32_t* base, const int32_t* digits,
   if (bad_limbs(L, B) || n_win < 0 || window < 1 || window > 8) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = L <= cios::kSqrMaxLimbs
-                          ? mm2_exp_shared_kernel<true>
-                          : mm2_exp_shared_kernel<false>;
-  kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      base, digits, n_win, one, out, table, words(wmu), words(wm), L, B,
-      window);
-  return cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  return coop::with_shape(L, B, [&](auto k, int g) {
+    constexpr int K = decltype(k)::value;
+    const size_t smem = static_cast<size_t>(K) * coop::kCoopThreads *
+                        sizeof(uint32_t);
+    mm2_exp_shared_kernel<K>
+        <<<coop::blocks_for(B, g, coop::kCoopThreads), coop::kCoopThreads,
+           smem, st>>>(base, digits, n_win, one, out, table, wm, L, B,
+                       window, g);
+    return cudaGetLastError();
+  });
+}
+
+// The words of table scratch a launch of K15 needs (the wrapper
+// allocates them): 2^window entries of K words for every thread.
+extern "C" long long pct_mm2_exp_shared_table_words(int L, int B,
+                                                    int window) {
+  if (bad_limbs(L, B) || window < 1 || window > 8) return -1;
+  return static_cast<long long>(exp_shared_table_words(L, B, window));
 }
 
 extern "C" int pct_sqr_max_limbs() { return cios::kSqrMaxLimbs; }

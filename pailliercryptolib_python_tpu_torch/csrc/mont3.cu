@@ -61,25 +61,24 @@
 // tile product); bound, as K3, by the product's multiply-adds, so a
 // chain costs its products' sum.
 //
-// K8 is one thread per column through cios::mont_sqr_col: the symmetric
-// product (each cross product once, one doubling pass, the diagonal) in
-// a 2L-word local array, then L REDC steps; K8(a) equals K3(a, a) limb
-// for limb.  L <= 520 as K3 (the local array is then ~4 KB per thread).
-// Work model: a square's L(L+1)/2 + L^2 16x16-bit limb products, what
-// the kernel runs; bytes: a read once, the modulus, the output written
-// once.  Bound by per-thread latency: the 2L-word running array lives in
-// local memory; one warp a block spreads a batch over more SMs.
+// K8 runs on the cooperative 32-bit-word routine of coop.cuh (K9's, a
+// group of 8-32 lanes a column, the words in registers, (g, K) from
+// coop_shape) in lane_setup's shared-modulus mode: one coop_mul(x, x, x)
+// a column, one operand array in registers.  K8(a) equals K3(a, a) and
+// K9(a, a) limb for limb.  L <= 520 as K3.  Work model: a square's
+// L(L+1)/2 + L^2 16x16-bit limb products (the function's work; the
+// routine runs it as a product, 4W^2 IMAD); bytes: a read once, the
+// modulus, the output written once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "cios.cuh"
+#include "coop.cuh"
 #include "mm3_tile.cuh"
 
 namespace {
 
 constexpr int kMaxLimbs = 520;      // MontCtx.MXU_MAX_LIMBS
-constexpr int kSqrThreads = 32;     // K8: one warp a block
 
 using mm3_tile::kNC;
 using mm3_tile::u16;
@@ -160,12 +159,19 @@ mm3_exp_shared_kernel(const uint32_t* base, const int32_t* digits,
       [&](int r, int col) -> u16 { return src[r * kNC + col]; }, smem);
 }
 
-__global__ void mm3_sqr_kernel(const uint32_t* a, uint32_t* out,
-                               const uint32_t* n, uint32_t n0, int L, int B) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  uint32_t t[2 * kMaxLimbs];
-  cios::mont_sqr_col(a + col, B, out + col, B, n, 1, n0, L, t);
+// K8: a*a*R^-1 mod n a column on the cooperative routine (coop.cuh):
+// the shared modulus's mode of lane_setup, one operand array in
+// registers.
+template <int K>
+__global__ void __launch_bounds__(coop::kCoopThreads, 1)
+mm3_sqr_kernel(const uint32_t* a, uint32_t* out, const uint32_t* n,
+               uint32_t n0, int L, int B, int g) {
+  coop::Lane<K> ln;
+  coop::lane_setup(ln, n, n0, L, B, g);
+  uint32_t x[K];
+  coop::load_words(x, a + ln.col, B, L, ln.j);
+  coop::coop_mul(x, x, x, ln.n, ln.np, ln.W, ln.shift, ln.j, g);
+  if (ln.live) coop::store_words(x, out + ln.col, B, L, ln.j);
 }
 
 mm3_tile::Ops tile_ops(const uint8_t* Wmu, const uint8_t* Wm, int L) {
@@ -248,7 +254,11 @@ extern "C" int pct_mm3_sqr(const uint32_t* a, uint32_t* out,
                            const uint32_t* n, unsigned n0, int L, int B,
                            void* stream) {
   if (L < 2 || L > kMaxLimbs || B < 1) return cudaErrorInvalidValue;
-  mm3_sqr_kernel<<<(B + kSqrThreads - 1) / kSqrThreads, kSqrThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a, out, n, n0, L, B);
-  return cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  return coop::with_shape(L, B, [&](auto k, int g) {
+    constexpr int K = decltype(k)::value;
+    mm3_sqr_kernel<K><<<coop::blocks_for(B, g, coop::kCoopThreads),
+                        coop::kCoopThreads, 0, st>>>(a, out, n, n0, L, B, g);
+    return cudaGetLastError();
+  });
 }

@@ -143,18 +143,31 @@ def lib() -> ctypes.CDLL:
 
 
 def sqr_max_limbs() -> int:
-    """The largest L at which the nibble exponentiation kernels (K14,
-    K15) square through their squaring routine (``cios::kSqrMaxLimbs``),
-    read from the built library."""
+    """The largest L at which the nibble exponentiation kernel K14
+    squares through its squaring routine (``cios::kSqrMaxLimbs``), read
+    from the built library."""
     return int(lib().pct_sqr_max_limbs())
 
 
 def mont_exp_shape(L: int, B: int) -> tuple:
-    """(g, K) of kernels K9, K10 and K11 at L limbs and B columns: a
-    group of g lanes per column, K 32-bit words a lane (``csrc/mont.cu``
-    ``coop_shape``), read from the built library."""
+    """(g, K) of the cooperative kernels K8-K11 and K15 at L limbs and B
+    columns: a group of g lanes per column, K 32-bit words a lane
+    (``csrc/coop.cuh`` ``coop_shape``), read from the built library."""
     v = int(lib().pct_mont_exp_shape(L, B))
     return v // 100, v % 100
+
+
+def mm2_exp_shared_table_words(L: int, B: int, window: int) -> int:
+    """The 32-bit words of table scratch a launch of K15
+    (``mm2_exp_shared``) needs at L limbs, B columns and 2^window
+    entries, read from the built library (``csrc/mont2.cu``)."""
+    fn = lib().pct_mm2_exp_shared_table_words
+    fn.restype = ctypes.c_longlong
+    words = int(fn(L, B, window))
+    if words < 0:
+        raise ValueError(f"K15 takes no launch at L={L}, B={B}, "
+                         f"window={window}")
+    return words
 
 
 def mm3_smem_bytes(name: str, L: int) -> int:

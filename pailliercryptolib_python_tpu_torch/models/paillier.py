@@ -269,10 +269,22 @@ def generate_key_ints(n_length: int = 1024, enable_DJN: bool = True,
         nsq = n * n
         x = secrets.randbelow(n - 1) + 1
         h = (-(x * x)) % n
-        # hs = h^n mod n^2 through CRT (exponents reduce mod p(p-1), q(q-1))
+        # hs = h^n mod n^2 through CRT (exponents reduce mod p(p-1),
+        # q(q-1)): two half-width pows, run side by side in the pool when
+        # the primes came from it, serially if the pool raises
         psq, qsq = p * p, q * q
-        hp = pow(h % psq, n % (p * (p - 1)), psq)
-        hq = pow(h % qsq, n % (q * (q - 1)), qsq)
+        args_p = (h % psq, n % (p * (p - 1)), psq)
+        args_q = (h % qsq, n % (q * (q - 1)), qsq)
+        if use_pool:
+            try:
+                pool = _prime_pool()
+                fp = pool.submit(pow, *args_p)
+                fq = pool.submit(pow, *args_q)
+                hp, hq = fp.result(), fq.result()
+            except (OSError, RuntimeError, EOFError):
+                hp, hq = pow(*args_p), pow(*args_q)
+        else:
+            hp, hq = pow(*args_p), pow(*args_q)
         qinv = pow(qsq, -1, psq)
         out["hs"] = (hq + qsq * ((qinv * (hp - hq)) % psq)) % nsq
         out["randbits"] = half

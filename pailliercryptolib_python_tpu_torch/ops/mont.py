@@ -19,8 +19,9 @@ of -n^-1 mod 2^16; ``one`` (the Montgomery one) shaped like n.
   product per pre-gathered factor (the fused form of the limb comb
   encrypt chain, ``montgomery.mont_exp_fixed_base``).
 
-K9, K10 and K11 multiply on one routine: 32-bit words, a group of 8-32
-lanes per column, the words in registers, (g, K) picked from L and B
+K9, K10 and K11 multiply on one routine (``csrc/coop.cuh``, which K8
+and K15 share): 32-bit words, a group of 8-32 lanes per column, the
+words in registers, (g, K) picked from L and B
 (``kernels.mont_exp_shape``).  ``cios32_mul`` is that product's
 arithmetic in plain PyTorch, and ``mont_exp_words`` K10's chain over it,
 for the CPU tests.  The wrappers copy a broadcast (L, 1) operand out to
@@ -72,8 +73,9 @@ def _mul_lo_hi(x: torch.Tensor, y: torch.Tensor):
 
 
 def cios32_mul(a, b, n, n0) -> torch.Tensor:
-    """a*b*R^-1 mod n (R = 2^(16L)) as kernels K9, K10 and K11 compute
-    it, in plain PyTorch: the limbs paired into W = ceil(L/2) 32-bit words, W word
+    """a*b*R^-1 mod n (R = 2^(16L)) as kernels K8-K11 and K15 compute
+    it, in plain PyTorch (K8 and K15's squarings as ``cios32_mul(a, a,
+    n, n0)``): the limbs paired into W = ceil(L/2) 32-bit words, W word
     steps t = (t + a_i b + q n) / 2^32 with q = t_0 n' mod 2^32 and
     n' = -n^-1 mod 2^32 from the 16-bit n0 by one Newton step,
     n' = n0 (2 + n n0).  For odd L the outer operand enters as a 2^16

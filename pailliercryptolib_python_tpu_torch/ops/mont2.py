@@ -16,7 +16,11 @@ and the chains take the Montgomery one as an (L, 1) column.
   (n_win, B|1) MSB-first.
 * ``mm2_exp_shared(base, digits, wmu, wm, one, window)`` -- K15, or
   ``mm2_exp_shared_plain``: one exponent for the batch, digits (n_win,)
-  MSB-first base-2^window.
+  MSB-first base-2^window.  K15 runs the same chain on the cooperative
+  32-bit-word routine of ``csrc/coop.cuh`` (``mont.cios32_mul``),
+  its modulus and n' recovered from column 0 of ``wm``
+  (``wm_modulus``); ``mm2_exp_shared_words`` is that chain in plain
+  PyTorch, for the CPU tests.
 
 Digits are given on the host (numpy or a CPU tensor) and range-checked
 there (``kernels.digit_tensor``).  Every result is the unique
@@ -30,11 +34,12 @@ import torch
 
 from .limb import LIMB_DTYPE
 from .matmul_mont import mm_mul, mm_reduce
+from .mont import cios32_mul
 from .mont3 import big_sqr
 from .montgomery import fixed_window_exp
 from .. import kernels
 
-# The chains square through K13's routine at L <= PRESHIFT_MAX_L (the
+# K14 squares through K13's routine at L <= PRESHIFT_MAX_L (the
 # reference's cutoff, ``pallas_mont2.py:63``), and through the product
 # above it.  Chosen from L alone: no knob.  The kernels pick it from
 # ``cios::kSqrMaxLimbs`` (``kernels.sqr_max_limbs()``), which
@@ -69,6 +74,42 @@ def mm2_exp_shared_plain(base, digits, wmu, wm, one,
     return fixed_window_exp(base, digits.reshape(-1, 1), one,
                             lambda x, y: mm2_mul_plain(x, y, wmu, wm),
                             window)
+
+
+def wm_modulus(wm: torch.Tensor, L: int) -> tuple:
+    """(m, n') as kernel K15 recovers them from the weights: m's (L, 1)
+    limbs from column 0 of wm = ``const_mult_weights(m, L, 4, 2L)``
+    (row v*2L + t holds nibble 4t+v of m) and n' = -m^-1 mod 2^32 by four
+    Newton steps y = y (2 + m y) from y = -m mod 2^32."""
+    col = wm[:, 0].to(torch.int64)
+    limbs = sum(col[v * 2 * L:v * 2 * L + L] << (4 * v) for v in range(4))
+    m0 = int(limbs[0]) | (int(limbs[1]) << 16 if L > 1 else 0)
+    y = -m0 % (1 << 32)
+    for _ in range(4):
+        y = y * (2 + m0 * y) % (1 << 32)
+    return limbs.reshape(L, 1).to(LIMB_DTYPE), y
+
+
+def mm2_exp_shared_words(base, digits, wm, one, window: int) -> torch.Tensor:
+    """K15's chain in plain PyTorch: m from ``wm_modulus`` (its n' taken
+    mod 2^16 as ``mont.cios32_mul``'s n0), the table T[0] = one, T[1] =
+    base, T[d] = T[d-1] base, acc = one, then per window `window`
+    squarings acc * acc and one product by T[digit], each a
+    ``cios32_mul``; digits (n_win,).  Equals ``mm2_exp_shared_plain``
+    limb for limb."""
+    L, B = base.shape
+    m, np_ = wm_modulus(wm, L)
+    mul = lambda x, y: cios32_mul(x, y, m, np_ & 0xFFFF)
+    one = one.expand(L, B)
+    table = [one, base]
+    for _ in range((1 << window) - 2):
+        table.append(mul(table[-1], base))
+    acc = one
+    for d in torch.as_tensor(digits).reshape(-1).tolist():
+        for _ in range(window):
+            acc = mul(acc, acc)
+        acc = mul(acc, table[d])
+    return acc.to(LIMB_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +193,10 @@ def _mm2_exp_shared_cuda(base, digits, wmu, wm, one, window) -> torch.Tensor:
     kernels.require_cuda(base, digits, wmu, wm, one)
     w = _weights(wmu, wm, L)
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
-    table = torch.empty((1 << window, L, B), dtype=LIMB_DTYPE,
-                        device=base.device)
+    # the table in the kernel's own layout: 2^window entries of K words
+    # for every thread of the launch
+    table = torch.empty((kernels.mm2_exp_shared_table_words(L, B, window),),
+                        dtype=LIMB_DTYPE, device=base.device)
     kernels.launch("mm2_exp_shared", _cols(base, L, B), digits,
                    digits.shape[0], _cols(one, L, B), out, table, *w, L, B,
                    window)

@@ -9,6 +9,7 @@ decrypt here runs 8 columns wide."""
 
 import random
 import secrets
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -140,6 +141,50 @@ def test_keygen_device_passthrough_and_worker_init(monkeypatch):
     monkeypatch.setattr(tdevice, "_default", torch.device("cuda"))
     tsch._prime_worker_init()
     assert tdevice.get_device() == CPU
+
+
+class _InlinePool:
+    """The prime pool's stand-in: runs each call where it is submitted
+    and records its function; `broken` refuses ``pow`` as a lost pool
+    would."""
+
+    def __init__(self, broken=False):
+        self.fns, self.broken = [], broken
+
+    def submit(self, fn, *args):
+        if self.broken and fn is pow:
+            raise RuntimeError("the pool is gone")
+        self.fns.append(fn)
+        fut = Future()
+        fut.set_result(fn(*args))
+        return fut
+
+
+def test_keygen_hs_in_the_pool_equals_serial(monkeypatch):
+    """With the prime pool on, keygen submits the two half-width pows of
+    the DJN hs to it, as the reference does; serially, or when the pool
+    raises, it runs them in place.  With the primes and x fixed, every
+    path returns hs = h^n mod n^2, h = -x^2 mod n."""
+    p, q = KD["p"], KD["q"]
+    n = p * q
+
+    def keygen(parallel, pool):
+        primes = iter([p, q])
+        monkeypatch.setattr(tsch, "generate_prime",
+                            lambda *a, **k: next(primes))
+        monkeypatch.setattr(secrets, "randbelow", lambda k: k // 3)
+        monkeypatch.setattr(tcfg.get_config(), "keygen_parallel", parallel)
+        monkeypatch.setattr(tsch, "_pool_usable", lambda: True)
+        monkeypatch.setattr(tsch, "_prime_pool", lambda: pool)
+        return tsch.generate_key_ints(n.bit_length())["hs"]
+
+    serial = keygen("0", None)
+    pool = _InlinePool()
+    assert keygen("1", pool) == serial
+    assert pool.fns[2:] == [pow, pow]
+    assert keygen("1", _InlinePool(broken=True)) == serial
+    x = (n - 1) // 3 + 1
+    assert serial == pow(-(x * x) % n, n, n * n)
 
 
 # ---------------------------------------------------------------------------

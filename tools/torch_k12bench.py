@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time kernels K1 (``rns_mul``), K2 (``rns_exp_sched``), K5
 (``rns_exp_elem``), K6 (``rns_exp_shared``), K3 (``mm3_mul``), K4
-(``mm3_exp``), K7 (``mm3_exp_shared``), K9 (``mont_mul``), K10
-(``mont_exp``) and K11 (``mont_chain``) of the port in one checkout, at
-their main-path shapes, on one GPU.
+(``mm3_exp``), K7 (``mm3_exp_shared``), K8 (``mm3_sqr``), K9
+(``mont_mul``), K10 (``mont_exp``), K11 (``mont_chain``) and K15
+(``mm2_exp_shared``) of the port in one checkout, at their main-path
+shapes, on one GPU.
 
     python3 tools/torch_k12bench.py [TREE]
 
@@ -28,7 +29,9 @@ moduli, L=65, 256 windows); K9 one product at the fused decrypt's
 exit ([p^2]*4096 ++ [q^2]*4096, L=129, B=8192) and on a shared n^2
 (L=257, B=4096); K11 the limb encrypt chain (86 factors, L=257, B=4096,
 shared n^2), beside one pass of ``torch.sum`` over its 362 MB of
-factors (the memory side of its time).  The inputs come from
+factors (the memory side of its time); K8 one square at n^2 (L=257) and
+p^2 (L=129), B=4096; K15 K7's chain (p^2, L=129, window 5, 205 windows)
+and 41 windows at a random 4096-bit odd modulus (L=257), B=4096.  The inputs come from
 a fixed seed, so every tree gets the same ones, and the line printed
 carries sums of the outputs for a cross-check.  CUDA events, one warm-up
 call.  Prints one line ``K12BENCH {json}`` with the card's name and
@@ -49,7 +52,9 @@ def main(argv) -> int:
         os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, tree)
     from pailliercryptolib_python_tpu_torch import kernels
-    from pailliercryptolib_python_tpu_torch.ops import mont, mont3, rns
+    from pailliercryptolib_python_tpu_torch.ops import (mont, mont2, mont3,
+                                                        rns)
+    from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
     from pailliercryptolib_python_tpu_torch.ops.limb import (ints_to_limbs,
                                                              to_device)
@@ -210,12 +215,46 @@ def main(argv) -> int:
     # the memory side of K11's time: one pass over the same factor bytes
     k11["factor bytes read once (torch sum)"] = ms_of(
         lambda: fac.sum(dtype=torch.int64), 10)
+    del fac
+    # K8: one square at n^2 (L=257) and p^2 (L=129)
+    k8 = {}
+    for m in (n * n, p * p):
+        ctx = mg.MontCtx.for_modulus(m, device=dev)
+        L = ctx.num_limbs
+        a = to_device(ints_to_limbs(
+            [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
+             for _ in range(4096)], L), dev)
+        run = lambda: mont3.mm3_sqr(a, ctx)
+        tag = f"L={L} B=4096"
+        k8[tag] = ms_of(run, 50)
+        sums["K8 " + tag] = int(run().long().sum())
+    # K15: the limb decrypt's chain of p-1 at p^2 (L=129, window 5, 205
+    # windows), and 41 windows of a random exponent at a random 4096-bit
+    # odd modulus (L=257)
+    k15 = {}
+    r15 = np.random.default_rng(15)
+    m257 = int.from_bytes(r15.bytes(512), "little") | (1 << 4095) | 1
+    for m, L, dig in ((p * p, 129, mg.exponent_digits(
+            [p - 1], -(-(p - 1).bit_length() // 5), 5)[:, 0]),
+                      (m257, 257, r15.integers(0, 32, size=41))):
+        dig = np.ascontiguousarray(dig, dtype=np.int32)
+        ctx = mg.MontCtx.for_modulus(m, device=dev)
+        mc = mm.MatmulMontCtx(m, L, device=dev)
+        a = to_device(ints_to_limbs(
+            [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
+             for _ in range(4096)], L), dev)
+        run = lambda: mont2.mm2_exp_shared(a, dig, mc.W_mu, mc.W_m, ctx.one,
+                                           5)
+        tag = f"L={L} B=4096 w=5 {len(dig)} windows"
+        k15[tag] = ms_of(run, reps_of(ms_of(run, 1), 10))
+        sums["K15 " + tag] = int(run().long().sum())
     print("K12BENCH " + json.dumps({
         "tree": tree, "card": card, "K1_ms": k1, "K1_shape": "CH=521 B=4096",
         "K2_ms": k2, "K2_shape": f"CH=261 B=4096 w={window} "
                                  f"{len(sched)} ops",
         "K2_reps": reps, "K5_ms": k5, "K3_ms": k3, "K4_ms": k4, "K7_ms": k7,
         "K6_ms": k6, "K10_ms": k10, "K9_ms": k9, "K11_ms": k11,
+        "K8_ms": k8, "K15_ms": k15,
         "K1_out_sum": int(out1.long().sum()),
         "K2_out_sum": int(out2.long().sum()), "out_sums": sums}), flush=True)
     return 0
