@@ -15,9 +15,9 @@ failure (so any failure exits non-zero):
    (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
    and their tensor-core (IMMA) instructions in the SASS where the
    toolkit has ``cuobjdump`` (none is a failure), and the registers,
-   stack and local memory of the instantiations of K8, K9, K10, K11 and
-   K15 (the cooperative routine of ``csrc/coop.cuh``) at the main path's
-   shapes (a spill in one of them is a failure);
+   stack and local memory of the instantiations of K8-K13 and K15 (the
+   cooperative routine of ``csrc/coop.cuh``) at the main path's shapes
+   (K12, K13: the microbench's; a spill in one of them is a failure);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
    kernel's bound (K1, K2 and K5 also at a ragged batch and at one
@@ -40,12 +40,15 @@ failure (so any failure exits non-zero):
    against K3(a, a),
    K11 at the limb encrypt chain's shape also against the streamed K3
    chain (both timed), at B=4095 and 1 (8 factors), and per-element
-   against a K9 loop; the nibble kernels K12 at L=257/129
-   also against K3, K13 at L=257/129/65 also against K8 and K12(a, a),
-   K14 at L=257 and 129 (windows 3..8) also against K4, K15 at K7's
-   decrypt shape, at L=257 and at L=520, B=64 also against K7, each with
-   the bound of K3's work model beside its own; every K8 and K15 row
-   with its integer-pipe floor and (g, K) beside);
+   against a K9 loop; the v2 kernels K12 at L=257/129 also against K3
+   and against K9 on the same shared modulus (K9 timed beside), K13 at
+   L=257/129/65 also against K8 and K12(a, a), both at L=520, B=64 and
+   over L = 2 to 520 (every fifth L, and 519, 520) at B=33 against K9
+   and their twins, K14 at L=257 and 129 (windows 3..8) also against
+   K4, K15 at K7's decrypt shape, at L=257 and at L=520, B=64 also
+   against K7, K14 with the bound of K3's work model beside its own;
+   every K8, K12, K13 and K15 row with its integer-pipe floor and (g,
+   K) beside);
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
@@ -150,7 +153,7 @@ THIRD_SLICE = ("mont_mul", "mont_exp")
 FOURTH_SLICE = ("rns_exp_shared", "mm3_sqr", "mont_chain", "rns_mul",
                 "rns_exp_sched", "mm3_mul", "mm3_exp_shared", "mont_mul",
                 "mont_exp")
-# Phase 9 (the microbench): the nibble kernels and every variant beside
+# Phase 9 (the microbench): the v2 kernels and every variant beside
 FIFTH_SLICE = ("mm2_mul", "mm2_sqr", "mm2_exp", "mm2_exp_shared", "mont_mul",
                "mont_exp", "mm3_mul", "mm3_sqr", "mm3_exp", "mm3_exp_shared",
                "rns_exp_shared", "rns_exp_sched", "rns_mul")
@@ -287,7 +290,8 @@ TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
 # coop_shape) at the main path's shapes: K10 at the fused CRT decrypt and
 # the keygen window, K9 at the fused decrypt's exit and the keygen's
 # Miller-Rabin ladder, K11 at the limb encrypt chain, K8 at n^2 and p^2,
-# K15 at the limb decrypt's p^2 and a 4096-bit key's
+# K15 at the limb decrypt's p^2 and a 4096-bit key's, K12 and K13 at the
+# microbench's n^2 and p^2
 COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K10", "mont_exp_kernel", 65, 256),
                ("K9", "mont_mul_kernel", 129, 8192),
@@ -296,7 +300,11 @@ COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K8", "mm3_sqr_kernel", 257, 4096),
                ("K8", "mm3_sqr_kernel", 129, 4096),
                ("K15", "mm2_exp_shared_kernel", 129, 4096),
-               ("K15", "mm2_exp_shared_kernel", 257, 4096))
+               ("K15", "mm2_exp_shared_kernel", 257, 4096),
+               ("K12", "mm2_mul_kernel", 257, 4096),
+               ("K12", "mm2_mul_kernel", 129, 4096),
+               ("K13", "mm2_sqr_kernel", 257, 4096),
+               ("K13", "mm2_sqr_kernel", 129, 4096))
 
 
 def tile_kernel_report() -> None:
@@ -307,7 +315,7 @@ def tile_kernel_report() -> None:
     main path's shape are printed beside), and, where the toolkit has
     cuobjdump, the tensor-core instructions (IMMA for mma.sync) in each
     tile kernel's SASS; fails when one of them has none, or when an
-    instantiation of K8, K9, K10, K11 or K15 at a shape of
+    instantiation of K8-K13 or K15 at a shape of
     ``COOP_SHAPES`` uses stack or local memory (``cuobjdump -res-usage``:
     a spill)."""
     import re
@@ -351,7 +359,7 @@ def tile_kernel_report() -> None:
         print(f"    L={L}: K3 asks {k3} B of shared memory, K4 {k4} B, K7 "
               f"{k7} B" + (" (its entry staged)" if k7 > k3 else ""))
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    # K8-K11, K15: registers, stack and local memory of the
+    # K8-K13, K15: registers, stack and local memory of the
     # instantiations at COOP_SHAPES, read from the built library whichever
     # process built it
     usage = subprocess.run([cuobjdump, "-res-usage", kernels.LIB_PATH],
@@ -360,7 +368,8 @@ def tile_kernel_report() -> None:
     res, fn = {}, None
     for line in usage.splitlines():
         m = re.search(r"Function \S*\d(mont_(?:mul|exp|chain)_kernel|"
-                      r"mm3_sqr_kernel|mm2_exp_shared_kernel)ILi(\d+)E", line)
+                      r"mm3_sqr_kernel|mm2_exp_shared_kernel|mm2_mul_kernel|"
+                      r"mm2_sqr_kernel)ILi(\d+)E", line)
         if m:
             fn = (m.group(1), int(m.group(2)))
         elif fn is not None and "REG:" in line:
@@ -811,21 +820,29 @@ def check_k7(record, a, dig, ctx, window: int, headline=False) -> None:
 
 
 def check_fifth_slice(dev, kd, rng, record) -> None:
-    """Phase 3, the nibble kernels, exact against their twins and against
-    the CIOS kernel of the same function on the same inputs: K12 at
-    L=257 (n^2) and 129 (p^2) against K3; K13 at L=257, 129, 65 against
-    K8 and K12(a, a); K14 at L=257 and 129, windows 3..8, against K4; K15
-    at the limb decrypt's shape (p^2, L=129, window 5, the 205 windows of
-    p-1), at a 4096-bit key's p^2 (L=257, 4 windows) and at L=520, B=64
-    (w=3, 4 windows) against K7, with its integer-pipe floor.  The bound
-    is the function's (K3's work model over the inputs, the modulus and
-    the output), as the CIOS kernels' rows count it; beside each K12-K14
-    row: the CIOS kernel's time and the bound of the nibble algorithm's
-    own int8 work (``mm2_ops``, weights read once)."""
+    """Phase 3, the v2 kernels, exact against their twins and against
+    the kernels of the same function on the same inputs: K12 at L=257
+    (n^2) and 129 (p^2) against K3 and against K9 on the same shared
+    modulus, its limbs given where K12 recovers them from the weights
+    (K9's time beside: what the recovery costs); K13 at L=257, 129, 65
+    against K8 and K12(a, a); both at L=520, B=64, and at B=33 over L = 2
+    to 520 (every fifth L, and 519, 520: each (g, K), odd and even L)
+    against K9 and their twins; K14 at L=257 and 129, windows 3..8,
+    against K4; K15 at the limb decrypt's shape (p^2, L=129, window 5,
+    the 205 windows of p-1), at a 4096-bit key's p^2 (L=257, 4 windows)
+    and at L=520, B=64 (w=3, 4 windows) against K7.  K12, K13 and K15
+    rows carry their integer-pipe floor and (g, K).  The bound is the
+    function's (K3's work model over the inputs, the modulus and the
+    output), as the CIOS kernels' rows count it; beside each K14 row: K4's
+    time and the bound of the nibble algorithm's own int8 work
+    (``mm2_ops``, weights read once)."""
+    import random
     import torch
     from pailliercryptolib_python_tpu_torch import kernels
     from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
-    from pailliercryptolib_python_tpu_torch.ops import mont2, mont3
+    from pailliercryptolib_python_tpu_torch.ops import mont, mont2, mont3
+    from pailliercryptolib_python_tpu_torch.ops.limb import (ints_to_limbs,
+                                                             to_device)
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
     n, p = kd["n"], kd["p"]
     sqr_max = kernels.sqr_max_limbs()
@@ -843,6 +860,44 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
     def same(got, want, what):
         if not torch.equal(got, want):
             raise AssertionError(what)
+
+    def equals(name, other, got, fn, L, note=""):
+        """got equals kernel `other` on the same input; its time beside."""
+        same(got, fn(), f"{name} differs from {other} at L={L}")
+        print(f"  {name:14s} equals {other}{note} at L={L} ({other} on the "
+              f"same input {ms_of(fn, 20):.4f} ms)", flush=True)
+
+    def k12_k13(a, b, m, L, Bn, ctx, head=False):
+        """K12 (where b is given) and K13 against their twins, with the
+        floor and (g, K); K12 against K3 and against K9 on the same
+        modulus, K13 against K8 and K12(a, a)."""
+        mc = mm.MatmulMontCtx(m, L, device=dev)
+        w = (mc.W_mu, mc.W_m)
+        c9 = mg.MontCtx.for_modulus(m, min_bits=16 * L, mxu=False,
+                                    device=dev)
+        if b is not None:
+            got = mont2.mm2_mul(a, b, *w)
+            record("mm2_mul", got, mont2.mm2_mul_plain(a, b, *w),
+                   f"L={L} B={Bn}", ms_of(lambda: mont2.mm2_mul(a, b, *w), 20),
+                   ms_of(lambda: mont2.mm2_mul_plain(a, b, *w), 1),
+                   nbytes(a, b, got, mc.m_limbs), limb_ops(L, 1, Bn),
+                   headline=head)
+            coop_note(L, Bn, 1)
+            equals("mm2_mul", "mm3_mul", got,
+                   lambda: mont3.mm3_mul(a, b, ctx), L)
+            equals("mm2_mul", "mont_mul", got,
+                   lambda: mont.mont_mul_p(a, b, c9.n_limbs, c9.n0inv), L,
+                   " (its modulus's limbs given)")
+        got = mont2.mm2_sqr(a, *w)
+        record("mm2_sqr", got, mont2.mm2_sqr_plain(a, *w), f"L={L} B={Bn}",
+               ms_of(lambda: mont2.mm2_sqr(a, *w), 20),
+               ms_of(lambda: mont2.mm2_sqr_plain(a, *w), 1),
+               nbytes(a, got, mc.m_limbs), limb_ops(L, 0, Bn, 1),
+               headline=head)
+        coop_note(L, Bn, 0, 1)
+        equals("mm2_sqr", "mm3_sqr", got, lambda: mont3.mm3_sqr(a, ctx), L)
+        same(got, mont2.mm2_mul(a, a, *w), f"K13 differs from K12(a, a) at "
+             f"L={L}")
 
     def k15(a, dig, m, ctx, window, headline=False):
         """K15 against its twin (one timed call: the twin takes seconds)
@@ -876,34 +931,8 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         a = random_cols(rng, [m] * BATCH, L, dev)
         b = random_cols(rng, [m] * BATCH, L, dev)
         head = m == n * n
-        if m != p:
-            # K12
-            got = mont2.mm2_mul(a, b, *w)
-            want = mont2.mm2_mul_plain(a, b, *w)
-            record("mm2_mul", got, want, f"L={L} B={BATCH}",
-                   ms_of(lambda: mont2.mm2_mul(a, b, *w), 3),
-                   ms_of(lambda: mont2.mm2_mul_plain(a, b, *w), 1),
-                   nbytes(a, b, got, mc.m_limbs), limb_ops(L, 1, BATCH),
-                   headline=head)
-            same(got, mont3.mm3_mul(a, b, ctx),
-                 f"K12 differs from K3 at L={L}")
-            beside("mm2_mul", "mm3_mul", L, nbytes(a, b, got, *w),
-                   mm2_ops(L, 1, BATCH),
-                   ms_of(lambda: mont3.mm3_mul(a, b, ctx), 5))
-        # K13
-        got = mont2.mm2_sqr(a, *w)
-        want = mont2.mm2_sqr_plain(a, *w)
-        record("mm2_sqr", got, want, f"L={L} B={BATCH}",
-               ms_of(lambda: mont2.mm2_sqr(a, *w), 3),
-               ms_of(lambda: mont2.mm2_sqr_plain(a, *w), 1),
-               nbytes(a, got, mc.m_limbs), limb_ops(L, 0, BATCH, 1),
-               headline=head)
-        same(got, mont3.mm3_sqr(a, ctx), f"K13 differs from K8 at L={L}")
-        same(got, mont2.mm2_mul(a, a, *w), f"K13 differs from K12(a, a) at "
-             f"L={L}")
-        beside("mm2_sqr", "mm3_sqr", L, nbytes(a, got, *w),
-               mm2_ops(L, 1, BATCH, square=True),
-               ms_of(lambda: mont3.mm3_sqr(a, ctx), 5))
+        # K12 (not at p, L=65) and K13
+        k12_k13(a, None if m == p else b, m, L, BATCH, ctx, head)
         if m == p:
             continue
         # K14: K4's headline shape, 20-bit exponents, windows 3..8; at
@@ -938,19 +967,50 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         k15(a, dig, m, ctx, window, headline=True)
     # K15 at a 4096-bit key's p^2 (L=257, K=17) and at L=520, B=64 (its
     # largest), 4 windows each, the digits covering 0 and 2^w - 1
-    import random
     for bits, Bn, window, seed in ((4096, BATCH, 5, 2), (16 * 520 - 2, 64,
                                                            3, 3)):
         m = random.Random(SEED + seed).getrandbits(bits)
         m |= (1 << (bits - 1)) | 1
         ctx = mg.MontCtx.for_modulus(m, device=dev)
         dig = np.array([(1 << window) - 1, 0, 1, 2], dtype=np.int32)
-        k15(random_cols(rng, [m] * Bn, ctx.num_limbs, dev), dig, m, ctx,
-            window)
+        a = random_cols(rng, [m] * Bn, ctx.num_limbs, dev)
+        k15(a, dig, m, ctx, window)
+        if Bn == 64:
+            # K12 and K13 at their largest L
+            k12_k13(a, random_cols(rng, [m] * Bn, ctx.num_limbs, dev), m,
+                    ctx.num_limbs, Bn, ctx)
+    # K12 and K13 over L = 2 to 520 at B=33, 2m - 1, 0 and 1 among the
+    # operands: the modulus and n' recovered from the weights at every
+    # (g, K), odd and even L, against K9 given the limbs and the twins
+    r = random.Random(SEED + 12)
+    Ls = list(range(2, 521, 5)) + [519, 520]
+    t0 = time.perf_counter()
+    for L in Ls:
+        bits = 16 * L - 2
+        m = r.getrandbits(bits) | (1 << (bits - 1)) | 1
+        mc = mm.MatmulMontCtx(m, L, device=dev)
+        w = (mc.W_mu, mc.W_m)
+        c9 = mg.MontCtx.for_modulus(m, min_bits=16 * L, mxu=False,
+                                    device=dev)
+        a, b = (to_device(ints_to_limbs(
+            [2 * m - 1, 0, 1] + [r.randrange(2 * m) for _ in range(30)], L),
+            dev) for _ in range(2))
+        got, sq = mont2.mm2_mul(a, b, *w), mont2.mm2_sqr(a, *w)
+        same(got, mont.mont_mul_p(a, b, c9.n_limbs, c9.n0inv),
+             f"K12 differs from K9 at L={L}, B=33")
+        same(got, mont2.mm2_mul_plain(a, b, *w),
+             f"K12 differs from its twin at L={L}, B=33")
+        same(sq, mont.mont_mul_p(a, a, c9.n_limbs, c9.n0inv),
+             f"K13 differs from K9(a, a) at L={L}, B=33")
+        same(sq, mont2.mm2_sqr_plain(a, *w),
+             f"K13 differs from its twin at L={L}, B=33")
+    print(f"  mm2_mul, mm2_sqr equal K9 and their twins at B=33 over "
+          f"{len(Ls)} L from 2 to 520 ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
 
 def coop_floor_ms(L: int, products: int, B: int, squares: int = 0) -> float:
-    """The integer-pipe floor of K8-K11 and K15 (the cooperative
+    """The integer-pipe floor of K8-K13 and K15 (the cooperative
     routine of csrc/coop.cuh): a product of W = ceil(L/2) 32-bit words
     is W^2 word products for a*b and W^2 for q*n, a square W(W+1)/2 + W^2,
     each two IMAD (low and high word), over 132 SMs x 64 IMAD a clock at

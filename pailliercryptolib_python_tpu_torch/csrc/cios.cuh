@@ -1,5 +1,5 @@
-// The helpers the nibble kernels borrow (mm2.cuh, mont2.cu: Strided,
-// OneHot16, kSqrMaxLimbs).  K8-K11 and K15 run on the cooperative
+// The helpers the nibble chain K14 borrows (mm2.cuh, mont2.cu: Strided,
+// OneHot16, kSqrMaxLimbs).  K8-K13 and K15 run on the cooperative
 // 32-bit-word routine of csrc/coop.cuh (a group of lanes a column, words
 // in registers); K3, K4 and K7 on the tile of csrc/mm3_tile.cuh.
 //

@@ -1,6 +1,6 @@
 // The cooperative 32-bit-word Montgomery routine of kernels K9, K10, K11
-// (csrc/mont.cu), K8 (csrc/mont3.cu) and K15 (csrc/mont2.cu), for Hopper
-// (sm_90a).
+// (csrc/mont.cu), K8 (csrc/mont3.cu), K12, K13 and K15 (csrc/mont2.cu),
+// for Hopper (sm_90a).
 //
 // A group of g threads (8, 16 or 32 lanes of one warp) owns one column,
 // each thread K consecutive 32-bit words of it (the 16-bit limbs paired

@@ -1,6 +1,8 @@
-// The matmul-Montgomery (nibble, "v2") column routines of kernels
-// K12-K14 (csrc/mont2.cu): one thread owns one column (one big number)
-// of a limbs-major (L, B) uint32 tensor of 16-bit limbs.
+// The matmul-Montgomery (nibble, "v2") column routines of kernel K14
+// (csrc/mont2.cu mm2_exp, the only kernel left on them: K12, K13 and K15
+// run on the cooperative routine of csrc/coop.cuh): one thread owns one
+// column (one big number) of a limbs-major (L, B) uint32 tensor of
+// 16-bit limbs.
 //
 // A Montgomery product here is the TPU's _mm2_val
 // (pailliercryptolib_python_tpu/ops/pallas_mont2.py:332-351):

@@ -29,8 +29,8 @@
 //
 // All three run on the cooperative routine of csrc/coop.cuh (coop_mul:
 // a group of 8-32 lanes a column, K 32-bit words a lane in registers,
-// (g, K) from coop_shape, lane_setup placing each lane); K8 and K15 run
-// on it too.
+// (g, K) from coop_shape, lane_setup placing each lane); K8, K12, K13
+// and K15 run on it too.
 //
 // K9 loads a, b and its modulus (K words a lane each), runs one coop_mul
 // and stores.  K11 loads acc0 into registers and runs one coop_mul per
@@ -260,8 +260,8 @@ extern "C" int pct_mont_chain(const uint32_t* factors, const uint32_t* acc0,
   });
 }
 
-// The group width g and words a lane K that the cooperative kernels (K8,
-// K9, K10, K11, K15) run at for L limbs and B columns (coop_shape), as
+// The group width g and words a lane K that the cooperative kernels
+// (K8-K13, K15) run at for L limbs and B columns (coop_shape), as
 // g * 100 + K.
 extern "C" int pct_mont_exp_shape(int L, int B) {
   const coop::CoopShape sh = coop::coop_shape((L + 1) / 2, B);

@@ -1,13 +1,13 @@
 // Kernels K12 (mm2_mul), K13 (mm2_sqr), K14 (mm2_exp) and K15
 // (mm2_exp_shared): the matmul-Montgomery ("v2") functions over 16-bit
-// limbs, for Hopper (sm_90a).  K12-K14 reduce by two int8 nibble matrix
-// products, K15 on the cooperative word routine.
+// limbs, for Hopper (sm_90a).  K12, K13 and K15 run on the cooperative
+// 32-bit-word routine of csrc/coop.cuh; K14 reduces by two int8 nibble
+// matrix products.
 //
 // K12 replaces pailliercryptolib_python_tpu/ops/pallas_mont2.py
 //     _mm2_mul_kernel (:364, wrapper mm2_mul_p :378): a*b*R^-1 mod m.
 // K13 replaces pailliercryptolib_python_tpu/ops/pallas_mont2.py
-//     _mm2_sqr_kernel (:403, wrapper mm2_sqr_p :410): a*a*R^-1 mod m
-//     through the symmetric product.
+//     _mm2_sqr_kernel (:403, wrapper mm2_sqr_p :410): a*a*R^-1 mod m.
 // K14 replaces pailliercryptolib_python_tpu/ops/pallas_mont2.py
 //     _mm2_exp_kernel (:435, wrapper mm2_exp_p :475): base^e with a
 //     per-element exponent, 4-bit windows, a 16-entry table, win_start.
@@ -20,41 +20,56 @@
 // (ops/matmul_mont.const_mult_weights) are kernel operands; the kernels
 // take no modulus: m lives only inside wm.
 //
-// K12, K13 and K14: one thread owns one column and walks its limbs with
-// stride B, so a warp's loads of one limb row are coalesced.  On the TPU
-// the two reductions q = T*mu mod R and q*m were int8 matrix products on
-// the MXU over a tile of 128 columns; here each thread does them for its
-// own column with __dp4a (four int8 multiply-adds an instruction) on the
-// integer pipes: the column routine csrc/mm2.cuh mm2::mul_col / sqr_col
-// (the TPU's _mm2_val / _mm2_sqr_val).  Bounds of the arithmetic (every
-// step exact): a slot is at most 4L*225 < 2^31; a recombined limb is at
-// most 900L*4369 < 2^32 for L <= 1092.  A product is L^2 16x16-bit limb
-// products plus 12L^2 __dp4a (48L^2 nibble multiply-adds), about 26
-// times the int8 work of CIOS's 2L^2 limb products; with one thread per
-// column a 4096-wide batch is 128 warps on 132 SMs: latency-bound, far
-// above the bound.  K14 keeps its 16-entry table in a global scratch
-// (16, L, B) and selects the entry by a constant-access one-hot mask over
-// all 16 (cios::OneHot16; the digits are secret, ROADMAP C9), and
-// squares through mm2::sqr_col at L <= cios::kSqrMaxLimbs (192, the
-// TPU's PRESHIFT_MAX_L) and through the product above it, an
-// instantiation picked on the host.  pct_sqr_max_limbs reports the
-// cutoff; chip_smoke.py holds ops/mont2.PRESHIFT_MAX_L to it.
+// K12, K13 and K15 run on the cooperative routine (a group of 8-32
+// lanes a column, K words a lane in registers, (g, K) from coop_shape),
+// as K8-K11: a Montgomery product of the same function by CIOS word
+// steps, its reduction by the modulus's words instead of the nibble
+// weights; wmu is not read.  K12 is one coop_mul(x, x, y) a column and
+// K13 one coop_mul(x, x, x) (K9's and K8's bodies).  m and n' come from
+// column 0 of wm: byte (v*2L + t, 0) is nibble 4t+v of m, and n' =
+// -m^-1 mod 2^32 follows from word 0 by four Newton steps.  K12 and K13
+// stage m once a block (wm_modulus_block: the block's threads build its
+// W words in shared memory together, a few byte loads each, then every
+// lane copies its K words); each lane reading its own words' bytes
+// (wm_modulus, 8K loads a lane) was slower in K12 and K13 at L=257, and
+// the staged form slower in K15's chain, which reads them per lane once
+// for the whole chain (PERF.md §6).  What bounds K12 and K13: a
+// product is 4W^2 IMAD on the integer pipes (chip_smoke.py
+// coop_floor_ms), microseconds at B=4096; a launch and W dependent word
+// steps set their time, as K8's and K9's.
 //
-// K15 runs on the cooperative 32-bit-word routine of csrc/coop.cuh (a
-// group of 8-32 lanes a column, K words a lane in registers, (g, K) from
-// coop_shape), as K10 and K11: a Montgomery product of the same function
-// by CIOS word steps, its reduction by the modulus's words instead of
-// the nibble weights.  m and n' are recovered from column 0 of wm
-// (wm_modulus); wmu is not read.  Its 2^window-entry table lies in
-// global scratch in the kernel's own layout, indexed by the shared,
-// key-derived digit (ROADMAP C5, as K7), the next window's entry staged
-// in shared memory by cp.async while the current window's squarings run
-// (K11's pattern).  The squarings are coop_mul(acc, acc, acc).
+// K14 keeps the faithful port: one thread owns one column and walks its
+// limbs with stride B, so a warp's loads of one limb row are coalesced.
+// On the TPU the two reductions q = T*mu mod R and q*m were int8 matrix
+// products on the MXU over a tile of 128 columns; here each thread does
+// them for its own column with __dp4a (four int8 multiply-adds an
+// instruction) on the integer pipes: the column routines of
+// csrc/mm2.cuh (mm2::mul_col / sqr_col, the TPU's _mm2_val /
+// _mm2_sqr_val), which serve K14 alone.  Bounds of the arithmetic
+// (every step exact): a slot is at most 4L*225 < 2^31; a recombined
+// limb is at most 900L*4369 < 2^32 for L <= 1092.  A product is L^2
+// 16x16-bit limb products plus 12L^2 __dp4a (48L^2 nibble
+// multiply-adds), about 26 times the int8 work of CIOS's 2L^2 limb
+// products; with one thread per column a 4096-wide batch is 128 warps
+// on 132 SMs: latency-bound, far above the bound.  K14 keeps its
+// 16-entry table in a global scratch (16, L, B) and selects the entry by
+// a constant-access one-hot mask over all 16 (cios::OneHot16; the
+// digits are secret, ROADMAP C9), and squares through mm2::sqr_col at L
+// <= cios::kSqrMaxLimbs (192, the TPU's PRESHIFT_MAX_L) and through the
+// product above it, an instantiation picked on the host.
+// pct_sqr_max_limbs reports the cutoff; chip_smoke.py holds
+// ops/mont2.PRESHIFT_MAX_L to it.
+//
+// K15's 2^window-entry table lies in global scratch in the kernel's own
+// layout, indexed by the shared, key-derived digit (ROADMAP C5, as K7),
+// the next window's entry staged in shared memory by cp.async while the
+// current window's squarings run (K11's pattern).  The squarings are
+// coop_mul(acc, acc, acc).
 //
 // K12-K15 accept 2 <= L <= 520 (kMaxLimbs, as csrc/mont3.cu) and return
 // cudaErrorInvalidValue otherwise.  The Montgomery result is unique, so
 // K12-K15 equal their plain twins (ops/mont2.py), the TPU kernels and K3
-// / K8 / K4 / K7 limb for limb.
+// / K8 / K9 / K4 / K7 limb for limb.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,25 +80,7 @@
 namespace {
 
 constexpr int kMaxLimbs = 520;      // MontCtx.MXU_MAX_LIMBS, csrc/mont3.cu
-constexpr int kThreads = 32;        // K12-K14: one warp a block
-
-__global__ void mm2_mul_kernel(const uint32_t* a, const uint32_t* b,
-                               uint32_t* out, const int* wmu, const int* wm,
-                               int L, int B) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  mm2::Scratch<kMaxLimbs> s;
-  mm2::mul_col(cios::Strided{a + col, B}, b + col, B, out + col, B, wmu, wm,
-               L, s);
-}
-
-__global__ void mm2_sqr_kernel(const uint32_t* a, uint32_t* out,
-                               const int* wmu, const int* wm, int L, int B) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  mm2::Scratch<kMaxLimbs> s;
-  mm2::sqr_col(a + col, B, out + col, B, wmu, wm, L, s);
-}
+constexpr int kThreads = 32;        // K14: one warp a block
 
 template <bool kSqr>
 __global__ void mm2_exp_kernel(const uint32_t* base, const int32_t* digits,
@@ -97,33 +94,93 @@ __global__ void mm2_exp_kernel(const uint32_t* base, const int32_t* digits,
                                 win_start, n_win);
 }
 
-// K15's modulus m and n' = -m^-1 mod 2^32 from column 0 of the weights
-// wm (8L, 4L) int8 = const_mult_weights(m, L, 4, 2L): byte (v*2L + t, 0)
-// is nibble 4t+v of m, so limb t of m is sum_v wm[v*2L + t, 0] << 4v.
-// n' by four Newton steps y = y (2 + m y) from y = -m mod 2^32, right
-// mod 2^3 (m^2 = 1 mod 8 for odd m): 3, 6, 12, 24, 48 bits.
+// Word i of the modulus m from column 0 of the weights wm (8L, 4L) int8
+// = const_mult_weights(m, L, 4, 2L): byte (v*2L + t, 0) is nibble 4t+v
+// of m, so limb t of m is sum_v wm[v*2L + t, 0] << 4v, and word i holds
+// limbs 2i and 2i+1 (0 past L).
+__device__ __forceinline__ uint32_t wm_word(const int8_t* wm, int L, int i) {
+  const size_t row = 4 * static_cast<size_t>(L);       // bytes a row
+  uint32_t w = 0u;
+  for (int h = 0; h < 2; ++h) {
+    const int t = 2 * i + h;
+    if (t >= L) break;
+    for (int v = 0; v < 4; ++v) {
+      const uint8_t nib = static_cast<uint8_t>(
+          wm[(static_cast<size_t>(v) * 2 * L + t) * row]);
+      w |= static_cast<uint32_t>(nib) << (16 * h + 4 * v);
+    }
+  }
+  return w;
+}
+
+// n' = -m^-1 mod 2^32 from m's word 0 by four Newton steps y = y (2 +
+// m y) from y = -m mod 2^32, right mod 2^3 (m^2 = 1 mod 8 for odd m):
+// 3, 6, 12, 24, 48 bits.
+__device__ __forceinline__ uint32_t neg_inv32(uint32_t m0) {
+  uint32_t y = 0u - m0;
+  for (int i = 0; i < 4; ++i) y *= 2u + m0 * y;
+  return y;
+}
+
+// K15's modulus words and n', each lane reading its own K words from wm.
 template <int K>
 __device__ __forceinline__ void wm_modulus(coop::Lane<K>& ln, const int8_t* wm,
                                            int L, int g) {
-  const size_t row = 4 * static_cast<size_t>(L);       // bytes a row
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) ln.n[kk] = wm_word(wm, L, ln.j * K + kk);
+  ln.np = neg_inv32(__shfl_sync(coop::kFull, ln.n[0], 0, g));
+}
+
+// K12's and K13's modulus words and n', once a block: the block's
+// threads build m's W words in shared memory together (word i by thread
+// i mod blockDim.x, eight independent byte loads a word), then every
+// lane copies its K words and derives n' from word 0.  Every thread of
+// the block calls it (a __syncthreads).
+template <int K>
+__device__ __forceinline__ void wm_modulus_block(coop::Lane<K>& ln,
+                                                 const int8_t* wm, int L) {
+  __shared__ uint32_t mw[kMaxLimbs / 2];       // 1,040 B
+  for (int i = threadIdx.x; i < ln.W; i += blockDim.x)
+    mw[i] = wm_word(wm, L, i);
+  __syncthreads();
 #pragma unroll
   for (int kk = 0; kk < K; ++kk) {
-    uint32_t w = 0u;
-    for (int h = 0; h < 2; ++h) {
-      const int t = 2 * (ln.j * K + kk) + h;
-      if (t >= L) break;
-      for (int v = 0; v < 4; ++v) {
-        const uint8_t nib = static_cast<uint8_t>(
-            wm[(static_cast<size_t>(v) * 2 * L + t) * row]);
-        w |= static_cast<uint32_t>(nib) << (16 * h + 4 * v);
-      }
-    }
-    ln.n[kk] = w;
+    const int i = ln.j * K + kk;
+    ln.n[kk] = i < ln.W ? mw[i] : 0u;
   }
-  const uint32_t m0 = __shfl_sync(coop::kFull, ln.n[0], 0, g);
-  uint32_t y = 0u - m0;
-  for (int i = 0; i < 4; ++i) y *= 2u + m0 * y;
-  ln.np = y;
+  ln.np = neg_inv32(mw[0]);
+}
+
+// K12: a*b*R^-1 mod m, one product a column (K9's body, its modulus
+// from the weights).  The operands' loads are issued before the
+// modulus's, so their latencies overlap.
+template <int K>
+__global__ void __launch_bounds__(coop::kCoopThreads, 1)
+mm2_mul_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out,
+               const int8_t* wm, int L, int B, int g) {
+  coop::Lane<K> ln;
+  coop::lane_place(ln, 0, L, B, g);
+  uint32_t x[K], y[K];
+  coop::load_words(x, a + ln.col, B, L, ln.j);
+  coop::load_words(y, b + ln.col, B, L, ln.j);
+  wm_modulus_block(ln, wm, L);
+  coop::coop_mul(x, x, y, ln.n, ln.np, ln.W, ln.shift, ln.j, g);
+  if (ln.live) coop::store_words(x, out + ln.col, B, L, ln.j);
+}
+
+// K13: a*a*R^-1 mod m, one coop_mul(x, x, x) a column (K8's body): one
+// operand array in registers.
+template <int K>
+__global__ void __launch_bounds__(coop::kCoopThreads, 1)
+mm2_sqr_kernel(const uint32_t* a, uint32_t* out, const int8_t* wm, int L,
+               int B, int g) {
+  coop::Lane<K> ln;
+  coop::lane_place(ln, 0, L, B, g);
+  uint32_t x[K];
+  coop::load_words(x, a + ln.col, B, L, ln.j);
+  wm_modulus_block(ln, wm, L);
+  coop::coop_mul(x, x, x, ln.n, ln.np, ln.W, ln.shift, ln.j, g);
+  if (ln.live) coop::store_words(x, out + ln.col, B, L, ln.j);
 }
 
 // K15: base^e with one exponent for the batch on the cooperative routine
@@ -209,24 +266,32 @@ inline const int* words(const int8_t* w) {
 
 }  // namespace
 
+// K12 and K13 read m from wm; wmu stays in the signature (the
+// reference's) and is not read.
 extern "C" int pct_mm2_mul(const uint32_t* a, const uint32_t* b,
                            uint32_t* out, const int8_t* wmu,
                            const int8_t* wm, int L, int B, void* stream) {
   if (bad_limbs(L, B)) return cudaErrorInvalidValue;
-  mm2_mul_kernel<<<blocks_for(B), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, words(wmu), words(wm), L, B);
-  return cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  return coop::with_shape(L, B, [&](auto k, int g) {
+    constexpr int K = decltype(k)::value;
+    mm2_mul_kernel<K><<<coop::blocks_for(B, g, coop::kCoopThreads),
+                        coop::kCoopThreads, 0, st>>>(a, b, out, wm, L, B, g);
+    return cudaGetLastError();
+  });
 }
 
 extern "C" int pct_mm2_sqr(const uint32_t* a, uint32_t* out,
                            const int8_t* wmu, const int8_t* wm, int L, int B,
                            void* stream) {
   if (bad_limbs(L, B)) return cudaErrorInvalidValue;
-  mm2_sqr_kernel<<<blocks_for(B), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      a, out, words(wmu), words(wm), L, B);
-  return cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  return coop::with_shape(L, B, [&](auto k, int g) {
+    constexpr int K = decltype(k)::value;
+    mm2_sqr_kernel<K><<<coop::blocks_for(B, g, coop::kCoopThreads),
+                        coop::kCoopThreads, 0, st>>>(a, out, wm, L, B, g);
+    return cudaGetLastError();
+  });
 }
 
 extern "C" int pct_mm2_exp(const uint32_t* base, const int32_t* digits,

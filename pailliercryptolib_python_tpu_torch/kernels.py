@@ -150,7 +150,7 @@ def sqr_max_limbs() -> int:
 
 
 def mont_exp_shape(L: int, B: int) -> tuple:
-    """(g, K) of the cooperative kernels K8-K11 and K15 at L limbs and B
+    """(g, K) of the cooperative kernels K8-K13 and K15 at L limbs and B
     columns: a group of g lanes per column, K 32-bit words a lane
     (``csrc/coop.cuh`` ``coop_shape``), read from the built library."""
     v = int(lib().pct_mont_exp_shape(L, B))

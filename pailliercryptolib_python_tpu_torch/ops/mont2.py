@@ -16,11 +16,14 @@ and the chains take the Montgomery one as an (L, 1) column.
   (n_win, B|1) MSB-first.
 * ``mm2_exp_shared(base, digits, wmu, wm, one, window)`` -- K15, or
   ``mm2_exp_shared_plain``: one exponent for the batch, digits (n_win,)
-  MSB-first base-2^window.  K15 runs the same chain on the cooperative
-  32-bit-word routine of ``csrc/coop.cuh`` (``mont.cios32_mul``),
-  its modulus and n' recovered from column 0 of ``wm``
-  (``wm_modulus``); ``mm2_exp_shared_words`` is that chain in plain
-  PyTorch, for the CPU tests.
+  MSB-first base-2^window.
+
+K12, K13 and K15 run on the cooperative 32-bit-word routine of
+``csrc/coop.cuh`` (``mont.cios32_mul``), their modulus and n' recovered
+from column 0 of ``wm`` (``wm_words``); ``mm2_mul_words``,
+``mm2_sqr_words`` and ``mm2_exp_shared_words`` are their arithmetic in
+plain PyTorch, for the CPU tests.  K14 keeps the nibble reduction, on
+the one-thread-a-column routines of ``csrc/mm2.cuh``.
 
 Digits are given on the host (numpy or a CPU tensor) and range-checked
 there (``kernels.digit_tensor``).  Every result is the unique
@@ -39,9 +42,9 @@ from .mont3 import big_sqr
 from .montgomery import fixed_window_exp
 from .. import kernels
 
-# K14 squares through K13's routine at L <= PRESHIFT_MAX_L (the
-# reference's cutoff, ``pallas_mont2.py:63``), and through the product
-# above it.  Chosen from L alone: no knob.  The kernels pick it from
+# K14 squares through ``mm2::sqr_col`` (``csrc/mm2.cuh``) at L <=
+# PRESHIFT_MAX_L (the reference's cutoff, ``pallas_mont2.py:63``), and
+# through the product above it.  Chosen from L alone: no knob.  The kernels pick it from
 # ``cios::kSqrMaxLimbs`` (``kernels.sqr_max_limbs()``), which
 # ``chip_smoke.py`` holds equal to this constant.
 PRESHIFT_MAX_L = 192
@@ -76,18 +79,45 @@ def mm2_exp_shared_plain(base, digits, wmu, wm, one,
                             window)
 
 
-def wm_modulus(wm: torch.Tensor, L: int) -> tuple:
-    """(m, n') as kernel K15 recovers them from the weights: m's (L, 1)
-    limbs from column 0 of wm = ``const_mult_weights(m, L, 4, 2L)``
-    (row v*2L + t holds nibble 4t+v of m) and n' = -m^-1 mod 2^32 by four
-    Newton steps y = y (2 + m y) from y = -m mod 2^32."""
+def wm_words(wm: torch.Tensor, L: int) -> tuple:
+    """(words, n') as kernels K12, K13 and K15 recover them from the
+    weights wm = ``const_mult_weights(m, L, 4, 2L)``: row v*2L + t of
+    column 0 holds nibble 4t+v of m, so limb t is sum_v wm[v*2L + t, 0]
+    << 4v; word i of the (W,) int64 words (W = ceil(L/2)) holds limbs 2i
+    and 2i+1 (0 past L), as the block builds them in shared memory; n' =
+    -m^-1 mod 2^32 from word 0 by four Newton steps y = y (2 + m y) from
+    y = -m mod 2^32."""
     col = wm[:, 0].to(torch.int64)
     limbs = sum(col[v * 2 * L:v * 2 * L + L] << (4 * v) for v in range(4))
-    m0 = int(limbs[0]) | (int(limbs[1]) << 16 if L > 1 else 0)
+    W = (L + 1) // 2
+    limbs = torch.cat([limbs, limbs.new_zeros(2 * W - L)]).reshape(W, 2)
+    words = limbs[:, 0] | (limbs[:, 1] << 16)
+    m0 = int(words[0])
     y = -m0 % (1 << 32)
     for _ in range(4):
         y = y * (2 + m0 * y) % (1 << 32)
-    return limbs.reshape(L, 1).to(LIMB_DTYPE), y
+    return words, y
+
+
+def wm_modulus(wm: torch.Tensor, L: int) -> tuple:
+    """(m, n'): m's (L, 1) limbs split from ``wm_words`` and its n'."""
+    words, np_ = wm_words(wm, L)
+    limbs = torch.stack([words & 0xFFFF, words >> 16], 1).reshape(-1)[:L]
+    return limbs.reshape(L, 1).to(LIMB_DTYPE), np_
+
+
+def mm2_mul_words(a, b, wm) -> torch.Tensor:
+    """K12's product in plain PyTorch: ``cios32_mul`` with m and n' from
+    ``wm_words`` (n' mod 2^16 as its n0).  Equals ``mm2_mul_plain`` limb
+    for limb."""
+    m, np_ = wm_modulus(wm, a.shape[0])
+    return cios32_mul(a, b, m, np_ & 0xFFFF)
+
+
+def mm2_sqr_words(a, wm) -> torch.Tensor:
+    """K13's square in plain PyTorch: ``mm2_mul_words(a, a, wm)``, one
+    operand, as the kernel's ``coop_mul(x, x, x)``."""
+    return mm2_mul_words(a, a, wm)
 
 
 def mm2_exp_shared_words(base, digits, wm, one, window: int) -> torch.Tensor:

@@ -2,9 +2,10 @@
 """Time kernels K1 (``rns_mul``), K2 (``rns_exp_sched``), K5
 (``rns_exp_elem``), K6 (``rns_exp_shared``), K3 (``mm3_mul``), K4
 (``mm3_exp``), K7 (``mm3_exp_shared``), K8 (``mm3_sqr``), K9
-(``mont_mul``), K10 (``mont_exp``), K11 (``mont_chain``) and K15
+(``mont_mul``), K10 (``mont_exp``), K11 (``mont_chain``), K12
+(``mm2_mul``), K13 (``mm2_sqr``), K14 (``mm2_exp``) and K15
 (``mm2_exp_shared``) of the port in one checkout, at their main-path
-shapes, on one GPU.
+shapes (K12-K14: the microbench's), on one GPU.
 
     python3 tools/torch_k12bench.py [TREE]
 
@@ -31,7 +32,11 @@ exit ([p^2]*4096 ++ [q^2]*4096, L=129, B=8192) and on a shared n^2
 shared n^2), beside one pass of ``torch.sum`` over its 362 MB of
 factors (the memory side of its time); K8 one square at n^2 (L=257) and
 p^2 (L=129), B=4096; K15 K7's chain (p^2, L=129, window 5, 205 windows)
-and 41 windows at a random 4096-bit odd modulus (L=257), B=4096.  The inputs come from
+and 41 windows at a random 4096-bit odd modulus (L=257), B=4096; K12
+and K13 one product / square at n^2 (L=257) and p^2 (L=129), B=4096,
+with K9 on the same modulus (its limbs given, where K12 recovers them
+from the weights) and inputs beside; K14 the exponent alignment's chain
+(20-bit exponents, windows 3..8) at n^2 and p^2, B=4096.  The inputs come from
 a fixed seed, so every tree gets the same ones, and the line printed
 carries sums of the outputs for a cross-check.  CUDA events, one warm-up
 call.  Prints one line ``K12BENCH {json}`` with the card's name and
@@ -248,13 +253,41 @@ def main(argv) -> int:
         tag = f"L={L} B=4096 w=5 {len(dig)} windows"
         k15[tag] = ms_of(run, reps_of(ms_of(run, 1), 10))
         sums["K15 " + tag] = int(run().long().sum())
+    # K12 and K13 at n^2 (L=257) and p^2 (L=129), K9 on the same shared
+    # modulus and inputs beside; K14 the alignment's chain, windows 3..8
+    k12, k13, k14 = {}, {}, {}
+    for m in (n * n, p * p):
+        c9 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
+        L = c9.num_limbs
+        mc = mm.MatmulMontCtx(m, L, device=dev)
+        w = (mc.W_mu, mc.W_m)
+        a, b = (to_device(ints_to_limbs(
+            [int.from_bytes(rng.bytes(2 * L), "little") % (2 * m)
+             for _ in range(4096)], L), dev) for _ in range(2))
+        tag = f"L={L} B=4096"
+        run = lambda: mont2.mm2_mul(a, b, *w)
+        k12[tag] = ms_of(run, 50)
+        sums["K12 " + tag] = int(run().long().sum())
+        run = lambda: mont.mont_mul_p(a, b, c9.n_limbs, c9.n0inv)
+        k12[tag + " K9 on the same modulus"] = ms_of(run, 50)
+        sums["K9 " + tag + " (K12's inputs)"] = int(run().long().sum())
+        run = lambda: mont2.mm2_sqr(a, *w)
+        k13[tag] = ms_of(run, 50)
+        sums["K13 " + tag] = int(run().long().sum())
+        exps = [int(e) for e in rng.integers(1, 1 << 20, size=4096)]
+        digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
+        run = lambda: mont2.mm2_exp(a, digits, *w, c9.one, 3)
+        tag = f"L={L} B=4096 win 3..8"
+        k14[tag] = ms_of(run, reps_of(ms_of(run, 1), 20))
+        sums["K14 " + tag] = int(run().long().sum())
     print("K12BENCH " + json.dumps({
         "tree": tree, "card": card, "K1_ms": k1, "K1_shape": "CH=521 B=4096",
         "K2_ms": k2, "K2_shape": f"CH=261 B=4096 w={window} "
                                  f"{len(sched)} ops",
         "K2_reps": reps, "K5_ms": k5, "K3_ms": k3, "K4_ms": k4, "K7_ms": k7,
         "K6_ms": k6, "K10_ms": k10, "K9_ms": k9, "K11_ms": k11,
-        "K8_ms": k8, "K15_ms": k15,
+        "K8_ms": k8, "K15_ms": k15, "K12_ms": k12, "K13_ms": k13,
+        "K14_ms": k14,
         "K1_out_sum": int(out1.long().sum()),
         "K2_out_sum": int(out2.long().sum()), "out_sums": sums}), flush=True)
     return 0

@@ -14,7 +14,9 @@ Usage:
 Variants, on one random modulus m < 2^(16L - 3) per run:
   v1        ``mont.mont_mul_p`` / ``mont_exp_p`` (kernels K9 / K10, CIOS)
   v2        ``mont2`` (K12 mul, K13 sqr, K14 exp, K15 expshared: the
-            nibble matmul-Montgomery reduction)
+            matmul-Montgomery functions, the modulus given only as the
+            nibble weights; K12, K13, K15 on the word routine, K14
+            reducing by the nibble products)
   v3        ``mont3`` (K3 mul, K8 sqr, K4 exp, K7 expshared)
   rns       ``rns.rns_exp_shared`` (K6), entered outside the timer, exit
             and ``to_mont`` inside
