@@ -15,9 +15,9 @@ failure (so any failure exits non-zero):
    (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
    and their tensor-core (IMMA) instructions in the SASS where the
    toolkit has ``cuobjdump`` (none is a failure), and the registers,
-   stack and local memory of the instantiations of K8-K13 and K15 (the
+   stack and local memory of the instantiations of K8-K15 (the
    cooperative routine of ``csrc/coop.cuh``) at the main path's shapes
-   (K12, K13: the microbench's; a spill in one of them is a failure);
+   (K12-K14: the microbench's; a spill in one of them is a failure);
 3. each kernel against its plain PyTorch twin on the card, at the main
    path's shapes, exact equality required, with both times and the
    kernel's bound (K1, K2 and K5 also at a ragged batch and at one
@@ -44,11 +44,11 @@ failure (so any failure exits non-zero):
    and against K9 on the same shared modulus (K9 timed beside), K13 at
    L=257/129/65 also against K8 and K12(a, a), both at L=520, B=64 and
    over L = 2 to 520 (every fifth L, and 519, 520) at B=33 against K9
-   and their twins, K14 at L=257 and 129 (windows 3..8) also against
-   K4, K15 at K7's decrypt shape, at L=257 and at L=520, B=64 also
-   against K7, K14 with the bound of K3's work model beside its own;
-   every K8, K12, K13 and K15 row with its integer-pipe floor and (g,
-   K) beside);
+   and their twins, K14 at L=257 and 129 (windows 3..8), at B=4095 and
+   1 (16 windows), with win_start = n_win and at L=520, B=64 also
+   against K4 and K10 on the same modulus, K15 at K7's decrypt shape,
+   at L=257 and at L=520, B=64 also against K7; every K8 and K12-K15 row
+   with its integer-pipe floor and (g, K) beside);
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
@@ -88,10 +88,17 @@ failure (so any failure exits non-zero):
    at full width (``mul`` L=257, ``sqr`` L=129, ``exp`` L=257 with 256
    windows, ``expshared`` L=129 with a 1024-bit exponent, all B=4096;
    ``crt`` at the 2048-bit key), every variant ok against Python's
-   ``pow`` and the variants of one function equal limb for limb.
+   ``pow`` and the variants of one function equal limb for limb;
+10. the sixth slice, the sharded layer (``parallel/``) in a world-size-1
+   NCCL group at 2048 bits, B=4096: ``sharded_decrypt``,
+   ``sharded_mul_pt``, ``sharded_he_sum`` and ``federated_aggregate`` of
+   3 parties against the unsharded ops limb for limb, each timed beside
+   it, no collective inside the decrypt and ct*pt chains and one
+   all-gather in the sum (``count_collectives``), ``entry()``'s encrypt
+   step and ``dryrun_multichip(1)``; the group is destroyed at the end.
 
-Phases 4, 6, 7, 8 and 9 each set the launch counters to 0 just before
-and read them just after.  The second-to-last lines are the kernels'
+Phases 4, 6, 7, 8, 9 and 10 each set the launch counters to 0 just
+before and read them just after.  The second-to-last lines are the kernels'
 JSON record and the card line; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -157,6 +164,9 @@ FOURTH_SLICE = ("rns_exp_shared", "mm3_sqr", "mont_chain", "rns_mul",
 FIFTH_SLICE = ("mm2_mul", "mm2_sqr", "mm2_exp", "mm2_exp_shared", "mont_mul",
                "mont_exp", "mm3_mul", "mm3_sqr", "mm3_exp", "mm3_exp_shared",
                "rns_exp_shared", "rns_exp_sched", "rns_mul")
+# Phase 10 (the sharded layer): encrypt (K1), the default decrypt (K2),
+# ct*pt (K5), the folds and products (K3)
+SIXTH_SLICE = ("rns_mul", "rns_exp_sched", "rns_exp_elem", "mm3_mul")
 
 # Bounds (published NVIDIA H100 SXM peaks): bytes over the memory rate,
 # int8 operations over the int8 tensor-core rate, the larger of the two.
@@ -176,16 +186,6 @@ def rns_ops(k: int, products: int, B: int) -> int:
 def limb_ops(L: int, products: int, B: int, squares: int = 0) -> int:
     return B * 2 * 4 * (products * 2 * L * L
                         + squares * (L * (L + 1) // 2 + L * L))
-
-
-def mm2_ops(L: int, products: int, B: int, square: bool = False) -> int:
-    """The nibble algorithm's own int8 work, printed beside the bound (the
-    bound itself counts the function's work, ``limb_ops``, as K3's row
-    does): per product L^2 limb products (a square L(L+1)/2) of 4 int8
-    MACs each, plus (4L)(4L) + (8L)(4L) nibble MACs for the two weight
-    products; 2 operations a MAC."""
-    limb = L * (L + 1) // 2 if square else L * L
-    return products * B * 2 * (4 * limb + 48 * L * L)
 
 
 def nbytes(*tensors) -> int:
@@ -290,8 +290,8 @@ TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
 # coop_shape) at the main path's shapes: K10 at the fused CRT decrypt and
 # the keygen window, K9 at the fused decrypt's exit and the keygen's
 # Miller-Rabin ladder, K11 at the limb encrypt chain, K8 at n^2 and p^2,
-# K15 at the limb decrypt's p^2 and a 4096-bit key's, K12 and K13 at the
-# microbench's n^2 and p^2
+# K15 at the limb decrypt's p^2 and a 4096-bit key's, K12, K13 and K14 at
+# the microbench's n^2 and p^2
 COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K10", "mont_exp_kernel", 65, 256),
                ("K9", "mont_mul_kernel", 129, 8192),
@@ -304,18 +304,21 @@ COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K12", "mm2_mul_kernel", 257, 4096),
                ("K12", "mm2_mul_kernel", 129, 4096),
                ("K13", "mm2_sqr_kernel", 257, 4096),
-               ("K13", "mm2_sqr_kernel", 129, 4096))
+               ("K13", "mm2_sqr_kernel", 129, 4096),
+               ("K14", "mm2_exp_kernel", 257, 4096),
+               ("K14", "mm2_exp_kernel", 129, 4096))
 
 
 def tile_kernel_report() -> None:
     """Phase 2, the tensor-core tile kernels (K1, K2, K5, K6 on
-    ``csrc/rns_tile.cuh``, K3, K4, K7 on ``csrc/mm3_tile.cuh``) and K10's
-    cooperative kernel: nvcc's -Xptxas -v lines (registers, spills; their
-    shared memory is dynamic, so the bytes each launch asks for at the
+    ``csrc/rns_tile.cuh``, K3, K4, K7 on ``csrc/mm3_tile.cuh``) and the
+    cooperative kernels of K10 and K14: nvcc's -Xptxas -v lines
+    (registers, spills; their shared memory is dynamic, so the bytes each
+    launch asks for at the
     main path's shape are printed beside), and, where the toolkit has
     cuobjdump, the tensor-core instructions (IMMA for mma.sync) in each
     tile kernel's SASS; fails when one of them has none, or when an
-    instantiation of K8-K13 or K15 at a shape of
+    instantiation of K8-K15 at a shape of
     ``COOP_SHAPES`` uses stack or local memory (``cuobjdump -res-usage``:
     a spill)."""
     import re
@@ -323,7 +326,8 @@ def tile_kernel_report() -> None:
     lines, cur = {}, None
     for line in kernels.build_log.splitlines():
         if "Compiling entry function" in line:
-            cur = next((k for k in TILE_KERNELS + ("mont_exp_kernel",)
+            cur = next((k for k in TILE_KERNELS + ("mont_exp_kernel",
+                                                    "mm2_exp_kernel")
                         if k in line), None)
             if cur:
                 cur = line.split("'")[1]
@@ -359,7 +363,7 @@ def tile_kernel_report() -> None:
         print(f"    L={L}: K3 asks {k3} B of shared memory, K4 {k4} B, K7 "
               f"{k7} B" + (" (its entry staged)" if k7 > k3 else ""))
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    # K8-K13, K15: registers, stack and local memory of the
+    # K8-K15: registers, stack and local memory of the
     # instantiations at COOP_SHAPES, read from the built library whichever
     # process built it
     usage = subprocess.run([cuobjdump, "-res-usage", kernels.LIB_PATH],
@@ -369,7 +373,7 @@ def tile_kernel_report() -> None:
     for line in usage.splitlines():
         m = re.search(r"Function \S*\d(mont_(?:mul|exp|chain)_kernel|"
                       r"mm3_sqr_kernel|mm2_exp_shared_kernel|mm2_mul_kernel|"
-                      r"mm2_sqr_kernel)ILi(\d+)E", line)
+                      r"mm2_sqr_kernel|mm2_exp_kernel)ILi(\d+)E", line)
         if m:
             fn = (m.group(1), int(m.group(2)))
         elif fn is not None and "REG:" in line:
@@ -827,35 +831,24 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
     (K9's time beside: what the recovery costs); K13 at L=257, 129, 65
     against K8 and K12(a, a); both at L=520, B=64, and at B=33 over L = 2
     to 520 (every fifth L, and 519, 520: each (g, K), odd and even L)
-    against K9 and their twins; K14 at L=257 and 129, windows 3..8,
-    against K4; K15 at the limb decrypt's shape (p^2, L=129, window 5,
-    the 205 windows of p-1), at a 4096-bit key's p^2 (L=257, 4 windows)
-    and at L=520, B=64 (w=3, 4 windows) against K7.  K12, K13 and K15
+    against K9 and their twins; K14 at L=257 and 129, windows 3..8, at
+    L=257 over all 16 windows at B=4095 and 1 and with win_start = n_win,
+    and at L=520, B=64, against K4 and K10 on the same modulus (both
+    timed beside), at the main rows and B=1 also against
+    ``mm2_exp_words``; K15 at the limb decrypt's shape (p^2, L=129,
+    window 5, the 205 windows of p-1), at a 4096-bit key's p^2 (L=257, 4
+    windows) and at L=520, B=64 (w=3, 4 windows) against K7.  K12-K15
     rows carry their integer-pipe floor and (g, K).  The bound is the
     function's (K3's work model over the inputs, the modulus and the
-    output), as the CIOS kernels' rows count it; beside each K14 row: K4's
-    time and the bound of the nibble algorithm's own int8 work
-    (``mm2_ops``, weights read once)."""
+    output), as the CIOS kernels' rows count it."""
     import random
     import torch
-    from pailliercryptolib_python_tpu_torch import kernels
     from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
     from pailliercryptolib_python_tpu_torch.ops import mont, mont2, mont3
     from pailliercryptolib_python_tpu_torch.ops.limb import (ints_to_limbs,
                                                              to_device)
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
     n, p = kd["n"], kd["p"]
-    sqr_max = kernels.sqr_max_limbs()
-    if sqr_max != mont2.PRESHIFT_MAX_L:
-        raise AssertionError(f"the kernels square up to L={sqr_max}, "
-                             f"mont2.PRESHIFT_MAX_L is "
-                             f"{mont2.PRESHIFT_MAX_L}")
-
-    def beside(name, other, L, n_bytes, ops, ms):
-        b_ms, b_by = bound(n_bytes, ops)
-        print(f"  {name:14s} equals {other} at L={L} ({other} on the same "
-              f"input {ms:.3f} ms; bound of the nibble algorithm's own "
-              f"int8 work {b_ms:.6f} ms ({b_by}))", flush=True)
 
     def same(got, want, what):
         if not torch.equal(got, want):
@@ -923,6 +916,40 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         print(f"  mm2_exp_shared equals mm3_exp_shared at L={L} (K7 on the "
               f"same input {k7_ms:.3f} ms)", flush=True)
 
+    def k14(a, digits, ws, m, ctx, headline=False, words=False):
+        """K14 against its twin (one timed call), with its integer-pipe
+        floor and (g, K); against K4 and K10 on the same modulus and
+        inputs (their times beside), and, where `words`, against
+        ``mm2_exp_words``' arithmetic (eager, ~2,500 aten ops a product
+        at L=257)."""
+        L, Bn = a.shape
+        mc = mm.MatmulMontCtx(m, L, device=dev)
+        w = (mc.W_mu, mc.W_m)
+        dig_dev = torch.from_numpy(digits).to(dev)
+        nw = digits.shape[0] - ws
+        got = mont2.mm2_exp(a, digits, *w, ctx.one, ws)
+        want, plain_ms = timed(lambda: mont2.mm2_exp_plain(
+            a, dig_dev, *w, ctx.one, ws))
+        nmul, nsq = 14 + nw, 4 * nw
+        record("mm2_exp", got, want,
+               f"L={L} B={Bn} win {ws}..{digits.shape[0]}",
+               ms_of(lambda: mont2.mm2_exp(a, digits, *w, ctx.one, ws), 20),
+               plain_ms, nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
+               limb_ops(L, nmul, Bn, nsq), headline=headline)
+        coop_note(L, Bn, nmul, nsq)
+        if words:
+            same(got, mont2.mm2_exp_words(a, dig_dev, mc.W_m, ctx.one, ws),
+                 f"K14 differs from mm2_exp_words at L={L}, B={Bn}")
+            print(f"  {'mm2_exp':14s} equals mm2_exp_words at L={L}, "
+                  f"B={Bn}", flush=True)
+        equals("mm2_exp", "mm3_exp", got,
+               lambda: mont3.mm3_exp(a, digits, ctx, ws), L)
+        c10 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
+        equals("mm2_exp", "mont_exp", got,
+               lambda: mont.mont_exp_p(a, digits, c10.n_limbs, c10.n0inv,
+                                       c10.one, ws), L,
+               " (its modulus's limbs given)")
+
     for m in (n * n, p * p, p):
         ctx = mg.MontCtx.for_modulus(m, device=dev)
         L = ctx.num_limbs
@@ -935,28 +962,19 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         k12_k13(a, None if m == p else b, m, L, BATCH, ctx, head)
         if m == p:
             continue
-        # K14: K4's headline shape, 20-bit exponents, windows 3..8; at
-        # L=129 it squares through K13's routine
+        # K14: K4's headline shape, 20-bit exponents, windows 3..8
         exps = [int(e) for e in rng.integers(1, 1 << 20, size=BATCH)]
         digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
-        dig_dev = torch.from_numpy(digits).to(dev)
-        ws = 3
-        got = mont2.mm2_exp(a, digits, *w, ctx.one, ws)
-        want = mont2.mm2_exp_plain(a, dig_dev, *w, ctx.one, ws)
-        nsq, nmul = (8 - ws) * 4, 14 + (8 - ws)
-        record("mm2_exp", got, want, f"L={L} B={BATCH} win 3..8",
-               ms_of(lambda: mont2.mm2_exp(a, digits, *w, ctx.one, ws), 1),
-               ms_of(lambda: mont2.mm2_exp_plain(a, dig_dev, *w, ctx.one,
-                                                 ws), 1),
-               nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
-               limb_ops(L, nmul, BATCH, nsq), headline=head)
-        same(got, mont3.mm3_exp(a, digits, ctx, ws),
-             f"K14 differs from K4 at L={L}")
-        beside("mm2_exp", "mm3_exp", L,
-               nbytes(a, dig_dev, got, ctx.one, *w),
-               mm2_ops(L, nmul, BATCH)
-               + mm2_ops(L, nsq, BATCH, square=L <= sqr_max),
-               ms_of(lambda: mont3.mm3_exp(a, digits, ctx, ws), 2))
+        k14(a, digits, 3, m, ctx, head, words=True)
+        if head:
+            # all 16 windows from 0, the digits covering 0..15, on a
+            # ragged batch and one column; win_start = n_win (the output
+            # is the Montgomery one)
+            for Bn in (BATCH - 1, 1):
+                d16 = rng.integers(0, 16, size=(16, Bn)).astype(np.int32)
+                d16.reshape(-1)[:16] = np.arange(16)
+                k14(a[:, :Bn].contiguous(), d16, 0, m, ctx, words=Bn == 1)
+            k14(a, digits, 8, m, ctx)
         if m != p * p:
             continue
         # K15: the limb decrypt's chain of p-1 at window 5
@@ -976,9 +994,12 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         a = random_cols(rng, [m] * Bn, ctx.num_limbs, dev)
         k15(a, dig, m, ctx, window)
         if Bn == 64:
-            # K12 and K13 at their largest L
+            # K12, K13 and K14 at their largest L
             k12_k13(a, random_cols(rng, [m] * Bn, ctx.num_limbs, dev), m,
                     ctx.num_limbs, Bn, ctx)
+            exps = [int(e) for e in rng.integers(1, 1 << 20, size=Bn)]
+            k14(a, mg.exponent_digits(exps, 8, 4).astype(np.int32), 3, m,
+                ctx)
     # K12 and K13 over L = 2 to 520 at B=33, 2m - 1, 0 and 1 among the
     # operands: the modulus and n' recovered from the weights at every
     # (g, K), odd and even L, against K9 given the limbs and the twins
@@ -1010,7 +1031,7 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
 
 
 def coop_floor_ms(L: int, products: int, B: int, squares: int = 0) -> float:
-    """The integer-pipe floor of K8-K13 and K15 (the cooperative
+    """The integer-pipe floor of K8-K15 (the cooperative
     routine of csrc/coop.cuh): a product of W = ceil(L/2) 32-bit words
     is W^2 word products for a*b and W^2 for q*n, a square W(W+1)/2 + W^2,
     each two IMAD (low and high word), over 132 SMs x 64 IMAD a clock at
@@ -1830,6 +1851,122 @@ def fifth_slice(dev, tag: str) -> dict:
     return dict(times=times, counts=counts)
 
 
+def sixth_slice(dev, kd, tag: str) -> dict:
+    """Phase 10: the sharded layer (``parallel/``) in a world-size-1 NCCL
+    group (file init in a temporary directory, destroyed at the end of
+    the phase) at the 2048-bit key, B=4096 integer values (exponent 0, so
+    the API's ``x.sum()`` and ``x + y + z`` are the plain fold and
+    products): ``sharded_decrypt`` against ``decrypt_device``,
+    ``sharded_mul_pt`` against ``mul_pt`` under ``fixed_shape_ops`` (the
+    full window count), ``sharded_he_sum`` against ``x.sum()``'s
+    ciphertext and ``federated_aggregate`` of 3 parties against ``x + y
+    + z``'s, all limb for limb and each timed beside the unsharded op
+    (CUDA events, 3 calls); ``count_collectives`` finds no collective in
+    the decrypt, the ct*pt and the aggregate and one all-gather in the
+    sum; then ``entry()``'s 2048-bit encrypt step (decrypted against its
+    messages) and ``dryrun_multichip(1)``."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import pailliercryptolib_python_tpu_torch as pt
+    from pailliercryptolib_python_tpu_torch import kernels
+    from pailliercryptolib_python_tpu_torch.ops.limb import limbs_to_ints
+    from pailliercryptolib_python_tpu_torch.parallel import collective as coll
+    from pailliercryptolib_python_tpu_torch.parallel import distributed as pd
+    from pailliercryptolib_python_tpu_torch.parallel import entry as pentry
+    from pailliercryptolib_python_tpu_torch.parallel import mesh as pmesh
+    from pailliercryptolib_python_tpu_torch.parallel import sharded_ops as so
+
+    rng = np.random.default_rng(SEED + 10)
+    x, y, z = (rng.integers(0, 10**6, size=BATCH) for _ in range(3))
+    w = [int(v) for v in rng.integers(1, 1 << 53, size=BATCH)]
+    times = {}
+    kernels.reset_counts()
+    tmp = tempfile.TemporaryDirectory()
+    assert pd.initialize(init_method=f"file://{tmp.name}/store",
+                         num_processes=1, process_id=0, device=dev)
+    try:
+        if dist.get_backend() != pd.backend_for(dev):
+            raise AssertionError(f"group backend {dist.get_backend()}")
+        mesh = pmesh.make_mesh(device_type=dev.type)
+        ipub = pt.ipclPublicKey(kd["n"], kd["bits"], True, kd["hs"],
+                                kd["randbits"], device=dev)
+        pk = pt.PaillierPublicKey(ipub)
+        sk = pt.PaillierPrivateKey(pk, kd["p"], kd["q"])
+        pub, priv = pk.pubkey.context, sk.prikey.context
+        cx, cy, cz = (pk.encrypt(v) for v in (x, y, z))
+        dx, dy, dz = (c.ciphertext().device_array() for c in (cx, cy, cz))
+        shard = pmesh.shard_batch(dx, mesh)
+
+        def pair(name, sharded, plain, calls_allowed):
+            """Run both, compare limb for limb, count the sharded call's
+            collectives, time both."""
+            with coll.count_collectives() as calls:
+                got = sharded()
+            want = plain()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} differs from the unsharded op")
+            if dict(calls) != calls_allowed:
+                raise AssertionError(f"{name} ran collectives {dict(calls)}, "
+                                     f"expected {calls_allowed}")
+            times[name + "_ms"] = ms_of(sharded, 3)
+            times[name + "_unsharded_ms"] = ms_of(plain, 3)
+            seen = dict(calls) or "no collectives"
+            print(f"  {name:22s} equals the unsharded op; {seen}; "
+                  f"{times[name + '_ms']:.3f} ms against "
+                  f"{times[name + '_unsharded_ms']:.3f} ms unsharded ({tag})",
+                  flush=True)
+            return got
+
+        plain = pair("sharded_decrypt",
+                     lambda: so.sharded_decrypt(priv, shard, mesh),
+                     lambda: priv.decrypt_device(dx), {})
+        if limbs_to_ints(plain)[:BATCH] != [int(v) for v in x]:
+            raise AssertionError("sharded_decrypt != x")
+        prev = pt.get_config().fixed_shape_ops
+        pt.set_config(fixed_shape_ops=True)
+        try:
+            scaled = pair("sharded_mul_pt",
+                          lambda: so.sharded_mul_pt(pub, shard, w, mesh),
+                          lambda: pub.mul_pt(dx, w), {})
+        finally:
+            pt.set_config(fixed_shape_ops=prev)
+        n = kd["n"]
+        if priv.decrypt_to_ints(scaled, BATCH) != [
+                int(a) * b % n for a, b in zip(x, w)]:
+            raise AssertionError("sharded_mul_pt decrypts wrong")
+        total = pair("sharded_he_sum",
+                     lambda: coll.sharded_he_sum(shard, pub.ctx, mesh),
+                     lambda: cx.sum().ciphertext().device_array()[:, :1],
+                     {"all_gather": 1})
+        if priv.decrypt_to_ints(total, 1)[0] != int(x.sum()):
+            raise AssertionError("sharded_he_sum decrypts wrong")
+        pair("federated_aggregate",
+             lambda: coll.federated_aggregate(
+                 [pmesh.shard_batch(d, mesh) for d in (dx, dy, dz)],
+                 pub.ctx, mesh),
+             lambda: (cx + cy + cz).ciphertext().device_array(), {})
+        fn, args = pentry.entry(device=dev)
+        ct, times["entry_step_s"] = wall(lambda: fn(*args))
+        msgs = [int(v) for v in np.random.default_rng(0).integers(
+            0, 2**60, size=ct.shape[1])]
+        if priv.decrypt_to_ints(ct, len(msgs)) != msgs:
+            raise AssertionError("entry()'s encrypt step decrypts wrong")
+        res, times["dryrun_multichip_1_s"] = wall(
+            lambda: pentry.dryrun_multichip(1, device=dev))
+        print(f"  entry() step on {ct.shape[1]} columns "
+              f"{times['entry_step_s']:.4f} s; dryrun_multichip(1) {res} "
+              f"{times['dryrun_multichip_1_s']:.4f} s ({tag})", flush=True)
+    finally:
+        pd.shutdown()
+        tmp.cleanup()
+    if dist.is_initialized():
+        raise AssertionError("the process group outlived phase 10")
+    counts = dict(kernels.COUNTS)
+    print(f"  kernel launches over phase 10: {counts}", flush=True)
+    return dict(times=times, counts=counts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1889,19 +2026,26 @@ def main() -> int:
     s5 = fifth_slice(dev, card)
     print(f"    phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"[10] sixth slice: the sharded layer in a world-size-1 NCCL "
+          f"group, B={BATCH} ({card})", flush=True)
+    t0 = time.perf_counter()
+    s6 = sixth_slice(dev, kd, card)
+    print(f"    phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+
     missing = ([k for k in FIRST_SLICE if mp["counts"][k] <= 0]
                + [k for k in SECOND_SLICE if s2["counts"][k] <= 0]
                + [k for k in THIRD_SLICE if s3["counts"][k] <= 0]
                + [k for k in FOURTH_SLICE if s4["counts"][k] <= 0]
-               + [k for k in FIFTH_SLICE if s5["counts"][k] <= 0])
+               + [k for k in FIFTH_SLICE if s5["counts"][k] <= 0]
+               + [k for k in SIXTH_SLICE if s6["counts"][k] <= 0])
     if missing:
         raise AssertionError(f"a phase never launched {missing}")
-    launches = {k: sum(s["counts"][k] for s in (mp, s2, s3, s4, s5))
+    launches = {k: sum(s["counts"][k] for s in (mp, s2, s3, s4, s5, s6))
                 for k in KERNELS}
     print(f"[5] every kernel launched: phase 4 {mp['counts']}, phase 6 "
           f"{s2['counts']}, phase 7 {s3['counts']}, phase 8 {s4['counts']}, "
-          f"phase 9 {s5['counts']}", flush=True)
-    print(f"    phases 3-9: {time.perf_counter() - t_all:.1f} s; library "
+          f"phase 9 {s5['counts']}, phase 10 {s6['counts']}", flush=True)
+    print(f"    phases 3-10: {time.perf_counter() - t_all:.1f} s; library "
           f"call: none (no single PyTorch call computes an RNS product or "
           f"a modular exponentiation)", flush=True)
 

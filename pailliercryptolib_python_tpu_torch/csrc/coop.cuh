@@ -1,6 +1,8 @@
 // The cooperative 32-bit-word Montgomery routine of kernels K9, K10, K11
-// (csrc/mont.cu), K8 (csrc/mont3.cu), K12, K13 and K15 (csrc/mont2.cu),
-// for Hopper (sm_90a).
+// (csrc/mont.cu), K8 (csrc/mont3.cu), K12, K13, K14 and K15
+// (csrc/mont2.cu), for Hopper (sm_90a), and the 4-bit fixed-window chain
+// K10 and K14 share (exp_chain, its launch: exp_threads, exp_smem,
+// launch_exp).
 //
 // A group of g threads (8, 16 or 32 lanes of one warp) owns one column,
 // each thread K consecutive 32-bit words of it (the 16-bit limbs paired
@@ -39,12 +41,13 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
 
-#include "rns_tile.cuh"   // cp_async_commit, cp_async_wait_all
+#include "rns_tile.cuh"   // allow_max_shared, cp_async_*
 
 namespace coop {
 
@@ -204,6 +207,54 @@ __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src,
                "l"(src), "r"(bytes));
 }
 
+// The 4-bit fixed-window chain of K10 (csrc/mont.cu) and K14
+// (csrc/mont2.cu) for a lane whose modulus words, n', W and shift are
+// set: on entry x holds base and acc the Montgomery one, on exit acc
+// holds base^e.  T[0] = one, T[1] = base, T[d] = T[d-1] * base (14
+// products) in dynamic shared memory tab, (16, K, blockDim.x) words,
+// each thread's K words of an entry at stride blockDim.x, written and
+// read by its own thread only; then acc = one and per window from
+// win_start four squarings coop_mul(acc, acc, acc) and one product by
+// T[digit].  The digits (n_win, B) are per element and secret (a
+// plaintext, a keygen candidate's (c-1)>>tz, a ct*pt exponent), so
+// each window reads all 16 entries and keeps T[digit] by mask: a digit
+// never forms an address (the TPU kernels' one-hot select).
+template <int K>
+__device__ __forceinline__ void exp_chain(uint32_t (&acc)[K], uint32_t (&x)[K],
+                                          const Lane<K>& ln, uint32_t* tab,
+                                          const int32_t* digits, int B,
+                                          int n_win, int win_start, int g) {
+  const int nt = blockDim.x;
+  uint32_t* te = tab + threadIdx.x;
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    te[kk * nt] = acc[kk];                        // T[0] = one
+    te[(K + kk) * nt] = x[kk];                    // T[1] = base
+    acc[kk] = x[kk];
+  }
+  for (int d = 2; d < 16; ++d) {                  // T[d] = T[d-1] * base
+    coop_mul(acc, acc, x, ln.n, ln.np, ln.W, ln.shift, ln.j, g);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) te[(d * K + kk) * nt] = acc[kk];
+  }
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) acc[kk] = te[kk * nt];   // acc = one
+  for (int w = win_start; w < n_win; ++w) {
+    for (int s = 0; s < 4; ++s)
+      coop_mul(acc, acc, acc, ln.n, ln.np, ln.W, ln.shift, ln.j, g);
+    const int d = __ldg(digits + static_cast<size_t>(w) * B + ln.col);
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {              // x = T[d], all 16 read
+      uint32_t v = 0u;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        v |= te[(e * K + kk) * nt] & (0u - static_cast<uint32_t>(e == d));
+      x[kk] = v;
+    }
+    coop_mul(acc, acc, x, ln.n, ln.np, ln.W, ln.shift, ln.j, g);
+  }
+}
+
 // (g, K) for W words and B columns, g in {8, 16, 32}, K in {3, 5, 9,
 // 17}, g*K >= W+1 (a spare word for t < b + n): the least padding g*K
 // when the batch fills the card (at least 4 warps an SM), else the least
@@ -226,12 +277,39 @@ inline CoopShape coop_shape(int W, int B) {
   return warps >= 4 * 132 ? pad : lat;
 }
 
-// Threads a block of the cooperative kernels (K10 aside, csrc/mont.cu).
+// Threads a block of the cooperative kernels (the exp_chain kernels
+// aside: exp_threads).
 constexpr int kCoopThreads = 128;
 
 inline int blocks_for(int B, int g, int nt) {
   const long long threads = static_cast<long long>(B) * g;
   return static_cast<int>((threads + nt - 1) / nt);
+}
+
+// The exp_chain kernels (K10, K14) take 128 threads a block (64 at
+// K=17), so a block's table stays under 74 KB and three blocks share an
+// SM.
+inline int exp_threads(int K) { return K == 17 ? 64 : 128; }
+
+inline size_t exp_smem(int K) {
+  return static_cast<size_t>(16) * K * exp_threads(K) * sizeof(uint32_t);
+}
+
+// Launch an exp_chain kernel at (g, K) over B columns with its table's
+// dynamic shared memory, after raising the kernel's limit above 48 KB to
+// the table's size once per device (`raised`: one flag word per kernel
+// instantiation, rns_tile::allow_max_shared).
+template <class Kernel, class... Args>
+cudaError_t launch_exp(Kernel kernel, std::atomic<unsigned long long>& raised,
+                       int K, int B, int g, cudaStream_t stream,
+                       Args... args) {
+  const size_t smem = exp_smem(K);
+  const cudaError_t e = rns_tile::allow_max_shared(kernel, raised,
+                                                   static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int nt = exp_threads(K);
+  kernel<<<blocks_for(B, g, nt), nt, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // Calls launch(std::integral_constant<int, K>{}, g) for the (g, K) that

@@ -2,8 +2,8 @@
 // columns owned by one CTA, with the reduction as two u8 Toeplitz
 // products on the tensor cores, and the fixed-window chain of such
 // products.  Kernels K3 (mm3_mul: one product), K4 (mm3_exp) and K7
-// (mm3_exp_shared: a chain each) in mont3.cu run on it; K8 keeps the
-// CIOS column routine of cios.cuh.
+// (mm3_exp_shared: a chain each) in mont3.cu run on it; K8 runs on the
+// cooperative routine of coop.cuh.
 //
 // The function is the TPU kernel's (pallas_mont3.py _mm3_reduce /
 // _mm3_val), R = 2^(16L), mu = -m^-1 mod R:

@@ -38,14 +38,14 @@
 // cp.async while the product by factor w runs, and paired into words
 // after it, so a small batch, whose few warps cannot hide a load, need
 // not wait for it (PERF.md, K11: how the chain's time splits between
-// the factors' bytes and the products).  K10 builds
-// its 16-entry table in shared memory, each thread's K words of an entry
-// at stride blockDim.x (16 K blockDim.x words a block: 73,728 B at K=9,
-// 128 threads), written and read by its own thread only.  K10's digits
-// are secret (a plaintext, or a keygen candidate's (c-1)>>tz, among
-// which are the primes), so each window reads all 16 entries and keeps
-// T[digit] by mask: a digit never forms an address (the TPU's one-hot
-// select).
+// the factors' bytes and the products).  K10 runs coop::exp_chain, the
+// chain it shares with K14 (csrc/mont2.cu): its 16-entry table in shared
+// memory, each thread's K words of an entry at stride blockDim.x (16 K
+// blockDim.x words a block: 73,728 B at K=9, 128 threads), written and
+// read by its own thread only.  K10's digits are secret (a plaintext,
+// or a keygen candidate's (c-1)>>tz, among which are the primes), so
+// each window reads all 16 entries and keeps T[digit] by mask: a digit
+// never forms an address (the TPU's one-hot select).
 //
 // What bounds them.  A product is W^2 32x32-bit word products of two
 // multiply-adds (low and high word) for a*b and W^2 for q*n: 4W^2 IMAD,
@@ -136,7 +136,8 @@ mont_chain_kernel(const uint32_t* factors, const uint32_t* acc0,
   if (ln.live) store_words(acc, out + ln.col, B, L, ln.j);
 }
 
-// K10: tab: (16, K, blockDim.x) words of dynamic shared memory.
+// K10: tab: (16, K, blockDim.x) words of dynamic shared memory
+// (coop::exp_chain).
 template <int K>
 __global__ void __launch_bounds__(128, 1)
 mont_exp_kernel(const uint32_t* base, const int32_t* digits,
@@ -144,71 +145,18 @@ mont_exp_kernel(const uint32_t* base, const int32_t* digits,
                 const uint32_t* n0, int per_elem, int L, int B, int n_win,
                 int win_start, int g) {
   extern __shared__ uint32_t tab[];
-  const int nt = blockDim.x;
   Lane<K> ln;
   lane_setup(ln, n, n0, per_elem, L, B, g);
-  const int j = ln.j, col = ln.col;
   uint32_t x[K], acc[K];
-  load_words(x, base + col, B, L, j);
-  load_words(acc, one + ln.c, ln.sn, L, j);
-  uint32_t* te = tab + threadIdx.x;
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) {
-    te[kk * nt] = acc[kk];                        // T[0] = one
-    te[(K + kk) * nt] = x[kk];                    // T[1] = base
-    acc[kk] = x[kk];
-  }
-  for (int d = 2; d < 16; ++d) {                  // T[d] = T[d-1] * base
-    coop_mul(acc, acc, x, ln.n, ln.np, ln.W, ln.shift, j, g);
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) te[(d * K + kk) * nt] = acc[kk];
-  }
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) acc[kk] = te[kk * nt];   // acc = one
-  for (int w = win_start; w < n_win; ++w) {
-    for (int s = 0; s < 4; ++s)
-      coop_mul(acc, acc, acc, ln.n, ln.np, ln.W, ln.shift, j, g);
-    const int d = __ldg(digits + static_cast<size_t>(w) * B + col);
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) {              // x = T[d], all 16 read
-      uint32_t v = 0u;
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        v |= te[(e * K + kk) * nt] & (0u - static_cast<uint32_t>(e == d));
-      x[kk] = v;
-    }
-    coop_mul(acc, acc, x, ln.n, ln.np, ln.W, ln.shift, j, g);
-  }
-  if (ln.live) store_words(acc, out + col, B, L, j);
-}
-
-// K9 and K11 take kCoopThreads (128) threads a block.  K10 takes 128 (64
-// at K=17), so a block's table stays under 74 KB and three blocks share
-// an SM.
-inline int exp_threads(int K) { return K == 17 ? 64 : 128; }
-
-inline size_t exp_smem(int K) {
-  return static_cast<size_t>(16) * K * exp_threads(K) * sizeof(uint32_t);
+  load_words(x, base + ln.col, B, L, ln.j);
+  load_words(acc, one + ln.c, ln.sn, L, ln.j);
+  coop::exp_chain(acc, x, ln, tab, digits, B, n_win, win_start, g);
+  if (ln.live) store_words(acc, out + ln.col, B, L, ln.j);
 }
 
 // K11's staged factor: 2K limbs a thread (17,408 B a block at K=17).
 inline size_t chain_smem(int K) {
   return static_cast<size_t>(2) * K * kCoopThreads * sizeof(uint32_t);
-}
-
-template <int K>
-cudaError_t launch_exp(const uint32_t* base, const int32_t* digits,
-                       const uint32_t* one, uint32_t* out, const uint32_t* n,
-                       const uint32_t* n0, int per_elem, int L, int B,
-                       int n_win, int win_start, int g, cudaStream_t stream) {
-  static std::atomic<unsigned long long> raised{0};
-  const cudaError_t e =
-      rns_tile::allow_max_shared(mont_exp_kernel<K>, raised);
-  if (e != cudaSuccess) return e;
-  const int nt = exp_threads(K);
-  mont_exp_kernel<K><<<blocks_for(B, g, nt), nt, exp_smem(K), stream>>>(
-      base, digits, one, out, n, n0, per_elem, L, B, n_win, win_start, g);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -237,9 +185,11 @@ extern "C" int pct_mont_exp(const uint32_t* base, const int32_t* digits,
   }
   const auto st = static_cast<cudaStream_t>(stream);
   return with_shape(L, B, [&](auto k, int g) {
-    return launch_exp<decltype(k)::value>(base, digits, one, out, n, n0,
-                                          per_elem, L, B, n_win, win_start,
-                                          g, st);
+    constexpr int K = decltype(k)::value;
+    static std::atomic<unsigned long long> raised{0};
+    return coop::launch_exp(mont_exp_kernel<K>, raised, K, B, g, st, base,
+                            digits, one, out, n, n0, per_elem, L, B, n_win,
+                            win_start, g);
   });
 }
 

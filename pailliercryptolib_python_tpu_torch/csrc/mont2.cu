@@ -1,8 +1,7 @@
 // Kernels K12 (mm2_mul), K13 (mm2_sqr), K14 (mm2_exp) and K15
 // (mm2_exp_shared): the matmul-Montgomery ("v2") functions over 16-bit
-// limbs, for Hopper (sm_90a).  K12, K13 and K15 run on the cooperative
-// 32-bit-word routine of csrc/coop.cuh; K14 reduces by two int8 nibble
-// matrix products.
+// limbs, for Hopper (sm_90a), all four on the cooperative 32-bit-word
+// routine of csrc/coop.cuh.
 //
 // K12 replaces pailliercryptolib_python_tpu/ops/pallas_mont2.py
 //     _mm2_mul_kernel (:364, wrapper mm2_mul_p :378): a*b*R^-1 mod m.
@@ -20,13 +19,16 @@
 // (ops/matmul_mont.const_mult_weights) are kernel operands; the kernels
 // take no modulus: m lives only inside wm.
 //
-// K12, K13 and K15 run on the cooperative routine (a group of 8-32
-// lanes a column, K words a lane in registers, (g, K) from coop_shape),
-// as K8-K11: a Montgomery product of the same function by CIOS word
-// steps, its reduction by the modulus's words instead of the nibble
-// weights; wmu is not read.  K12 is one coop_mul(x, x, y) a column and
-// K13 one coop_mul(x, x, x) (K9's and K8's bodies).  m and n' come from
-// column 0 of wm: byte (v*2L + t, 0) is nibble 4t+v of m, and n' =
+// On the TPU the two reductions q = T*mu mod R and q*m were int8 nibble
+// matrix products of these weights on the MXU.  Here each kernel
+// computes the same function, the unique Montgomery product, by CIOS
+// word steps on the integer pipes (a group of 8-32 lanes a column, K
+// words a lane in registers, (g, K) from coop_shape, as K8-K11), its
+// reduction by the modulus's words; wmu is not read.  The nibble
+// reduction runs only in the plain twins (ops/mont2.py mm2_mul_plain,
+// ops/matmul_mont.mm_reduce).  K12 is one coop_mul(x, x, y) a column
+// and K13 one coop_mul(x, x, x) (K9's and K8's bodies).  m and n' come
+// from column 0 of wm: byte (v*2L + t, 0) is nibble 4t+v of m, and n' =
 // -m^-1 mod 2^32 follows from word 0 by four Newton steps.  K12 and K13
 // stage m once a block (wm_modulus_block: the block's threads build its
 // W words in shared memory together, a few byte loads each, then every
@@ -38,27 +40,15 @@
 // coop_floor_ms), microseconds at B=4096; a launch and W dependent word
 // steps set their time, as K8's and K9's.
 //
-// K14 keeps the faithful port: one thread owns one column and walks its
-// limbs with stride B, so a warp's loads of one limb row are coalesced.
-// On the TPU the two reductions q = T*mu mod R and q*m were int8 matrix
-// products on the MXU over a tile of 128 columns; here each thread does
-// them for its own column with __dp4a (four int8 multiply-adds an
-// instruction) on the integer pipes: the column routines of
-// csrc/mm2.cuh (mm2::mul_col / sqr_col, the TPU's _mm2_val /
-// _mm2_sqr_val), which serve K14 alone.  Bounds of the arithmetic
-// (every step exact): a slot is at most 4L*225 < 2^31; a recombined
-// limb is at most 900L*4369 < 2^32 for L <= 1092.  A product is L^2
-// 16x16-bit limb products plus 12L^2 __dp4a (48L^2 nibble
-// multiply-adds), about 26 times the int8 work of CIOS's 2L^2 limb
-// products; with one thread per column a 4096-wide batch is 128 warps
-// on 132 SMs: latency-bound, far above the bound.  K14 keeps its
-// 16-entry table in a global scratch (16, L, B) and selects the entry by
-// a constant-access one-hot mask over all 16 (cios::OneHot16; the
-// digits are secret, ROADMAP C9), and squares through mm2::sqr_col at L
-// <= cios::kSqrMaxLimbs (192, the TPU's PRESHIFT_MAX_L) and through the
-// product above it, an instantiation picked on the host.
-// pct_sqr_max_limbs reports the cutoff; chip_smoke.py holds
-// ops/mont2.PRESHIFT_MAX_L to it.
+// K14 is K10's chain (coop::exp_chain, shared with csrc/mont.cu): the
+// 16-entry table in shared memory, four squarings and one product a
+// window from win_start, T[digit] kept by a mask over all 16 entries
+// (the digits are per element and secret: a digit never forms an
+// address), 128 threads a block (64 at K=17); its modulus and n' read
+// per lane from wm (wm_modulus), once for the chain (staged once a
+// block it timed no faster, PERF.md §6).  It runs 14 +
+// 5 (n_win - win_start) products a column, 4W^2 IMAD each: the integer
+// pipes bound it (chip_smoke.py coop_floor_ms).
 //
 // K15's 2^window-entry table lies in global scratch in the kernel's own
 // layout, indexed by the shared, key-derived digit (ROADMAP C5, as K7),
@@ -69,30 +59,17 @@
 // K12-K15 accept 2 <= L <= 520 (kMaxLimbs, as csrc/mont3.cu) and return
 // cudaErrorInvalidValue otherwise.  The Montgomery result is unique, so
 // K12-K15 equal their plain twins (ops/mont2.py), the TPU kernels and K3
-// / K8 / K9 / K4 / K7 limb for limb.
+// / K8 / K9 / K4 / K10 / K7 limb for limb.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "coop.cuh"
-#include "mm2.cuh"
 
 namespace {
 
 constexpr int kMaxLimbs = 520;      // MontCtx.MXU_MAX_LIMBS, csrc/mont3.cu
-constexpr int kThreads = 32;        // K14: one warp a block
-
-template <bool kSqr>
-__global__ void mm2_exp_kernel(const uint32_t* base, const int32_t* digits,
-                               const uint32_t* one, uint32_t* out,
-                               uint32_t* table, const int* wmu, const int* wm,
-                               int L, int B, int n_win, int win_start) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= B) return;
-  mm2::exp_col<kMaxLimbs, kSqr>(base + col, digits + col, B, one + col,
-                                out + col, table + col, wmu, wm, L, B,
-                                win_start, n_win);
-}
 
 // Word i of the modulus m from column 0 of the weights wm (8L, 4L) int8
 // = const_mult_weights(m, L, 4, 2L): byte (v*2L + t, 0) is nibble 4t+v
@@ -183,6 +160,26 @@ mm2_sqr_kernel(const uint32_t* a, uint32_t* out, const int8_t* wm, int L,
   if (ln.live) coop::store_words(x, out + ln.col, B, L, ln.j);
 }
 
+// K14: base^e with per-element 4-bit digits (n_win, B), K10's chain
+// (coop::exp_chain; tab: (16, K, blockDim.x) words of dynamic shared
+// memory) with the modulus and n' read per lane from wm.  The operands'
+// loads are issued before the modulus's.
+template <int K>
+__global__ void __launch_bounds__(128, 1)
+mm2_exp_kernel(const uint32_t* base, const int32_t* digits,
+               const uint32_t* one, uint32_t* out, const int8_t* wm, int L,
+               int B, int n_win, int win_start, int g) {
+  extern __shared__ uint32_t tab[];
+  coop::Lane<K> ln;
+  coop::lane_place(ln, 0, L, B, g);
+  uint32_t x[K], acc[K];
+  coop::load_words(x, base + ln.col, B, L, ln.j);
+  coop::load_words(acc, one + ln.col, B, L, ln.j);
+  wm_modulus(ln, wm, L, g);
+  coop::exp_chain(acc, x, ln, tab, digits, B, n_win, win_start, g);
+  if (ln.live) coop::store_words(acc, out + ln.col, B, L, ln.j);
+}
+
 // K15: base^e with one exponent for the batch on the cooperative routine
 // (coop.cuh), the TPU kernel's chain: T[0] = one, T[1] = base, T[d] =
 // T[d-1] * base (2^window entries), acc = one, then per window `window`
@@ -254,14 +251,8 @@ inline size_t exp_shared_table_words(int L, int B, int window) {
   return (static_cast<size_t>(1) << window) * sh.K * threads;
 }
 
-inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
-
 inline bool bad_limbs(int L, int B) {
   return L < 2 || L > kMaxLimbs || B < 1;
-}
-
-inline const int* words(const int8_t* w) {
-  return reinterpret_cast<const int*>(w);
 }
 
 }  // namespace
@@ -294,20 +285,22 @@ extern "C" int pct_mm2_sqr(const uint32_t* a, uint32_t* out,
   });
 }
 
+// K14 reads m from wm; wmu stays in the signature (the reference's) and
+// is not read.
 extern "C" int pct_mm2_exp(const uint32_t* base, const int32_t* digits,
                            const uint32_t* one, uint32_t* out,
-                           uint32_t* table, const int8_t* wmu,
-                           const int8_t* wm, int L, int B, int n_win,
-                           int win_start, void* stream) {
+                           const int8_t* wmu, const int8_t* wm, int L, int B,
+                           int n_win, int win_start, void* stream) {
   if (bad_limbs(L, B) || n_win < 0 || win_start < 0) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = L <= cios::kSqrMaxLimbs ? mm2_exp_kernel<true>
-                                              : mm2_exp_kernel<false>;
-  kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      base, digits, one, out, table, words(wmu), words(wm), L, B, n_win,
-      win_start);
-  return cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  return coop::with_shape(L, B, [&](auto k, int g) {
+    constexpr int K = decltype(k)::value;
+    static std::atomic<unsigned long long> raised{0};
+    return coop::launch_exp(mm2_exp_kernel<K>, raised, K, B, g, st, base,
+                            digits, one, out, wm, L, B, n_win, win_start, g);
+  });
 }
 
 // K15 reads m from wm; wmu stays in the signature (the reference's) and
@@ -340,5 +333,3 @@ extern "C" long long pct_mm2_exp_shared_table_words(int L, int B,
   if (bad_limbs(L, B) || window < 1 || window > 8) return -1;
   return static_cast<long long>(exp_shared_table_words(L, B, window));
 }
-
-extern "C" int pct_sqr_max_limbs() { return cios::kSqrMaxLimbs; }

@@ -68,20 +68,22 @@ constexpr size_t kMaxShared = 232448;   // a block's limit on the H100
 
 using u16 = uint16_t;
 
-// Raises a kernel's dynamic shared-memory limit to kMaxShared, once per
-// device (the attribute belongs to the kernel's instance on the current
-// device); `done` is the kernel's own bit set of devices already raised.
-// The launchers still check each launch's size against kMaxShared.
+// Raises a kernel's dynamic shared-memory limit to `bytes` (kMaxShared
+// unless given; static shared memory counts against the same 227 KB),
+// once per device (the attribute belongs to the kernel's instance on the
+// current device); `done` is the kernel's own bit set of devices already
+// raised.  The launchers still check each launch's size against it.
 template <typename Kernel>
 inline cudaError_t allow_max_shared(Kernel kernel,
-                                    std::atomic<unsigned long long>& done) {
+                                    std::atomic<unsigned long long>& done,
+                                    int bytes = static_cast<int>(kMaxShared)) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kMaxShared));
+                           bytes);
   if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return e;
 }

@@ -68,7 +68,7 @@ _SIGS = {
     "mont_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mm2_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mm2_sqr": [_P, _P, _P, _P, _I, _I, _P],
-    "mm2_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mm2_exp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mm2_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -142,15 +142,8 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def sqr_max_limbs() -> int:
-    """The largest L at which the nibble exponentiation kernel K14
-    squares through its squaring routine (``cios::kSqrMaxLimbs``), read
-    from the built library."""
-    return int(lib().pct_sqr_max_limbs())
-
-
 def mont_exp_shape(L: int, B: int) -> tuple:
-    """(g, K) of the cooperative kernels K8-K13 and K15 at L limbs and B
+    """(g, K) of the cooperative kernels K8-K15 at L limbs and B
     columns: a group of g lanes per column, K 32-bit words a lane
     (``csrc/coop.cuh`` ``coop_shape``), read from the built library."""
     v = int(lib().pct_mont_exp_shape(L, B))

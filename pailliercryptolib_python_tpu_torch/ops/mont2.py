@@ -18,12 +18,14 @@ and the chains take the Montgomery one as an (L, 1) column.
   ``mm2_exp_shared_plain``: one exponent for the batch, digits (n_win,)
   MSB-first base-2^window.
 
-K12, K13 and K15 run on the cooperative 32-bit-word routine of
+All four kernels run on the cooperative 32-bit-word routine of
 ``csrc/coop.cuh`` (``mont.cios32_mul``), their modulus and n' recovered
-from column 0 of ``wm`` (``wm_words``); ``mm2_mul_words``,
-``mm2_sqr_words`` and ``mm2_exp_shared_words`` are their arithmetic in
-plain PyTorch, for the CPU tests.  K14 keeps the nibble reduction, on
-the one-thread-a-column routines of ``csrc/mm2.cuh``.
+from column 0 of ``wm`` (``wm_words``); K14 runs K10's chain
+(``coop::exp_chain``).  ``mm2_mul_words``, ``mm2_sqr_words``,
+``mm2_exp_words`` and ``mm2_exp_shared_words`` are their arithmetic in
+plain PyTorch, for the CPU tests.  The nibble reduction of the
+reference's kernels (``matmul_mont.mm_reduce``) runs only in the plain
+twins ``mm2_mul_plain`` / ``mm2_sqr_plain`` and the chains over them.
 
 Digits are given on the host (numpy or a CPU tensor) and range-checked
 there (``kernels.digit_tensor``).  Every result is the unique
@@ -37,18 +39,10 @@ import torch
 
 from .limb import LIMB_DTYPE
 from .matmul_mont import mm_mul, mm_reduce
-from .mont import cios32_mul
+from .mont import cios32_mul, mont_exp_words
 from .mont3 import big_sqr
 from .montgomery import fixed_window_exp
 from .. import kernels
-
-# K14 squares through ``mm2::sqr_col`` (``csrc/mm2.cuh``) at L <=
-# PRESHIFT_MAX_L (the reference's cutoff, ``pallas_mont2.py:63``), and
-# through the product above it.  Chosen from L alone: no knob.  The kernels pick it from
-# ``cios::kSqrMaxLimbs`` (``kernels.sqr_max_limbs()``), which
-# ``chip_smoke.py`` holds equal to this constant.
-PRESHIFT_MAX_L = 192
-
 
 # ---------------------------------------------------------------------------
 # Plain twins.
@@ -118,6 +112,17 @@ def mm2_sqr_words(a, wm) -> torch.Tensor:
     """K13's square in plain PyTorch: ``mm2_mul_words(a, a, wm)``, one
     operand, as the kernel's ``coop_mul(x, x, x)``."""
     return mm2_mul_words(a, a, wm)
+
+
+def mm2_exp_words(base, digits, wm, one, win_start: int = 0) -> torch.Tensor:
+    """K14's chain in plain PyTorch: K10's chain (``mont.mont_exp_words``:
+    the table T[d] = T[d-1] base, then four squarings and one product by
+    T[digit] a window from win_start, each a ``cios32_mul``) with m and
+    n' from ``wm_modulus`` (n' mod 2^16 as its n0); digits (n_win, B|1).
+    Equals ``mm2_exp_plain`` limb for limb."""
+    m, np_ = wm_modulus(wm, base.shape[0])
+    return mont_exp_words(base, digits, m, np_ & 0xFFFF, one,
+                          win_start).to(LIMB_DTYPE)
 
 
 def mm2_exp_shared_words(base, digits, wm, one, window: int) -> torch.Tensor:
@@ -199,10 +204,9 @@ def _mm2_exp_cuda(base, digits, wmu, wm, one, win_start) -> torch.Tensor:
     kernels.require_cuda(base, digits, wmu, wm, one)
     w = _weights(wmu, wm, L)
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=base.device)
-    table = torch.empty((16, L, B), dtype=LIMB_DTYPE, device=base.device)
     kernels.launch("mm2_exp", _cols(base, L, B),
                    digits.expand(n_win, B).contiguous(), _cols(one, L, B),
-                   out, table, *w, L, B, n_win, int(win_start))
+                   out, *w, L, B, n_win, int(win_start))
     return out
 
 

@@ -1,7 +1,7 @@
 """Runtime knobs, under the JAX package's field names so a test can
 ``set_config`` both packages alike (``pailliercryptolib_python_tpu/utils/
 config.py``), and the registry that bounds the device memory of the
-per-key comb tables.  The mesh knobs wait for the multi-device layer.
+per-key comb tables.
 
   * comb_window_tpu / comb_window_cpu  (PAILLIER_COMB_WINDOW)
         largest fixed-base comb window; ``comb_window_tpu`` is the
@@ -55,6 +55,10 @@ per-key comb tables.  The mesh knobs wait for the multi-device layer.
         of a window at once on the device (kernels K10 and K9): "1"
         always, "auto" on a CUDA device for primes of >= 1024 bits, "0"
         (default) on the host.  Pool workers run it on the CPU.
+  * mesh_hosts / mesh_chips            (PAILLIER_MESH_SHAPE="H,C")
+        default shape of ``parallel.mesh.make_mesh``: H rows on the
+        ("dcn_host") axis and C columns on the ("ici_chip") axis of the
+        process group's ranks; unset, the mesh is (1, world size).
 """
 
 from __future__ import annotations
@@ -88,6 +92,14 @@ class Config:
     encrypt_pipeline_chunks: int = _env_int("PAILLIER_ENC_CHUNKS", 1)
     encrypt_host_ratio: float = float(
         os.environ.get("PAILLIER_HOST_RATIO", "0") or 0)
+    mesh_hosts: int | None = None
+    mesh_chips: int | None = None
+
+    def __post_init__(self):
+        shape = os.environ.get("PAILLIER_MESH_SHAPE")
+        if shape and self.mesh_hosts is None:
+            h, c = shape.split(",")
+            self.mesh_hosts, self.mesh_chips = int(h), int(c)
 
 
 _config = Config()

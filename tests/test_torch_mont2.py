@@ -125,7 +125,7 @@ def test_mont_mul_mm_chain_stays_bounded():
 @pytest.mark.parametrize("bits", [256, 3088], ids=["L17", "L194"])
 def test_mm2_mul_and_sqr_twins_match_pallas(bits):
     m, L, R, jc, tc, xs, ys, a, b = _case(bits, 30 + bits)
-    assert (L > tm2.PRESHIFT_MAX_L) == (bits == 3088)
+    assert (L > jpm2.PRESHIFT_MAX_L) == (bits == 3088)
     got = tm2.mm2_mul(_t(a), _t(b), tc.W_mu, tc.W_m)
     _same(got, jpm2.mm2_mul_p(jnp.asarray(a), jnp.asarray(b), jc.W_mu,
                               jc.W_m))

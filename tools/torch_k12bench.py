@@ -14,7 +14,8 @@ TREE (default: this repository) is the root of a checkout whose
 into that checkout's ``build/``.  To compare two commits on one card,
 unpack the other one into a git-ignored directory (``git archive``) and
 run the script on both trees in turns (old, new, new, old) on one
-card.  Shapes: K1 one RNS product at the 2048-bit key's n^2
+card; a variant of a kernel goes in a copy of the package with the
+variant's lines changed, run as one more tree.  Shapes: K1 one RNS product at the 2048-bit key's n^2
 base (CH=521), B=4096; K2 the decrypt chain of p-1 at the p^2 base
 (CH=261, window 6, 1195 schedule entries), B=4096; K5 the ct*pt chain
 at the n^2 base, window 4, 16 windows, B=4096, 4095 and 1; K3 one
@@ -35,8 +36,9 @@ p^2 (L=129), B=4096; K15 K7's chain (p^2, L=129, window 5, 205 windows)
 and 41 windows at a random 4096-bit odd modulus (L=257), B=4096; K12
 and K13 one product / square at n^2 (L=257) and p^2 (L=129), B=4096,
 with K9 on the same modulus (its limbs given, where K12 recovers them
-from the weights) and inputs beside; K14 the exponent alignment's chain
-(20-bit exponents, windows 3..8) at n^2 and p^2, B=4096.  The inputs come from
+from the weights) and inputs beside; K14 (K10's chain, its modulus read
+from the weights) on the exponent alignment's chain (20-bit exponents,
+windows 3..8) at n^2 and p^2, B=4096.  The inputs come from
 a fixed seed, so every tree gets the same ones, and the line printed
 carries sums of the outputs for a cross-check.  CUDA events, one warm-up
 call.  Prints one line ``K12BENCH {json}`` with the card's name and

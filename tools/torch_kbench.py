@@ -15,8 +15,8 @@ Variants, on one random modulus m < 2^(16L - 3) per run:
   v1        ``mont.mont_mul_p`` / ``mont_exp_p`` (kernels K9 / K10, CIOS)
   v2        ``mont2`` (K12 mul, K13 sqr, K14 exp, K15 expshared: the
             matmul-Montgomery functions, the modulus given only as the
-            nibble weights; K12, K13, K15 on the word routine, K14
-            reducing by the nibble products)
+            nibble weights; all four on the word routine, K14 on K10's
+            chain)
   v3        ``mont3`` (K3 mul, K8 sqr, K4 exp, K7 expshared)
   rns       ``rns.rns_exp_shared`` (K6), entered outside the timer, exit
             and ``to_mont`` inside
@@ -39,7 +39,7 @@ calls after one checked call, or around the checked call with
 ``--iters 0`` (on ``--device cpu`` the host clock).
 Runs on ``cuda`` unless ``--device cpu`` is given; imports nothing of
 JAX.  The reference's ``--tb`` (the TPU tile width of v3) has no
-counterpart: the CUDA kernels run one thread per column.
+counterpart: each CUDA kernel picks its own tiling.
 """
 
 from __future__ import annotations
