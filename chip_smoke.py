@@ -48,12 +48,19 @@ failure (so any failure exits non-zero):
    1 (16 windows), with win_start = n_win and at L=520, B=64 also
    against K4 and K10 on the same modulus, K15 at K7's decrypt shape,
    at L=257 and at L=520, B=64 also against K7; every K8 and K12-K15 row
-   with its integer-pipe floor and (g, K) beside);
+   with its integer-pipe floor and (g, K) beside); then the ladder's
+   shapes (``check_ladder_kernels``: 1024-, 3072- and 4096-bit moduli
+   at their rung's batch, B=256, 10240, 256): K1 at CH=263, 779, 1039,
+   K3 at L=65, 129, 193, 385, 257, 513, K4 at L=385 and 513, K5 at
+   CH=779 and 1039 (16 windows, and 1,024 at 4096 bits), K2 over the
+   whole schedule of p-1 at CH=133 (W1, W2 in shared memory) and
+   CH=389 (B=10240) and 519 (reading them from global memory), K7 at
+   L=193, K9 and K10 at keygen's L=97 and 129;
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
    vector of ``tests/kat_vectors.json`` through the RNS comb and decrypt;
-5. (after phase 6) every kernel's launch counter is > 0 over the phase
+5. (after phase 11) every kernel's launch counter is > 0 over the phase
    whose path runs it;
 6. the second slice at the same key, B=4096: ``x * w`` (w uniform in
    [-1, 1], about half negative), ``x.dot(w)``, ``x.mean()``, ``x - y``,
@@ -95,10 +102,22 @@ failure (so any failure exits non-zero):
    3 parties against the unsharded ops limb for limb, each timed beside
    it, no collective inside the decrypt and ct*pt chains and one
    all-gather in the sum (``count_collectives``), ``entry()``'s encrypt
-   step and ``dryrun_multichip(1)``; the group is destroyed at the end.
+   step and ``dryrun_multichip(1)``; the group is destroyed at the end;
+11. the key ladder of the reference's own configurations (``LADDER``),
+   end to end through the public API on the default engines: at 1024
+   bits, B=256, ``examples/torch_paillier_example.py`` and
+   ``examples/torch_federated_example.py`` (its own world-size-1 NCCL
+   group) in this process; at 3072 bits, B=10240, and 4096 bits, B=256,
+   keygen (3072: the prime pool; 4096: the device Miller-Rabin, K10 and
+   K9), the comb build, encrypt, decrypt, ``x + y``, ``x.sum()``,
+   ``x * w`` (about half the weights negative) and ``x.dot(w)``, each
+   against numpy and printed with its wall and device kernel time, one
+   ciphertext under injected digits against Python's ``pow``, and the
+   4096-bit key's comb window (11) and registered bytes.
 
-Phases 4, 6, 7, 8, 9 and 10 each set the launch counters to 0 just
-before and read them just after.  The second-to-last lines are the kernels'
+Phases 4, 6, 7, 8, 9 and 10, and each rung of phase 11, set the launch
+counters to 0 just before and read them just after; phase 5 checks
+them all.  The second-to-last lines are the kernels'
 JSON record and the card line; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -119,6 +138,9 @@ BATCH = 4096
 # ciphertext at 2048 bits.
 HOST_BATCH = 64
 SEED = 20261016
+# The key ladder of the reference's own configurations (bench.py:577-590,
+# :649-670): key bits and the batch each rung runs at (phases 3 and 11)
+LADDER = ((1024, 256), (3072, 10240), (4096, 256))
 
 KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "rns_mul": ("pailliercryptolib_python_tpu_torch/csrc/rns.cu",
@@ -167,6 +189,12 @@ FIFTH_SLICE = ("mm2_mul", "mm2_sqr", "mm2_exp", "mm2_exp_shared", "mont_mul",
 # Phase 10 (the sharded layer): encrypt (K1), the default decrypt (K2),
 # ct*pt (K5), the folds and products (K3)
 SIXTH_SLICE = ("rns_mul", "rns_exp_sched", "rns_exp_elem", "mm3_mul")
+# Phase 11 (the ladder), every rung: encrypt (K1), the default decrypt
+# (K2), ct*pt (K5), the products and the exponent alignment (K3, K4);
+# the 4096-bit keygen's device Miller-Rabin adds K10 and K9
+LADDER_SLICE = ("rns_mul", "rns_exp_sched", "rns_exp_elem", "mm3_mul",
+                "mm3_exp")
+LADDER_KEYGEN = ("mont_exp", "mont_mul")
 
 # Bounds (published NVIDIA H100 SXM peaks): bytes over the memory rate,
 # int8 operations over the int8 tensor-core rate, the larger of the two.
@@ -345,19 +373,17 @@ def tile_kernel_report() -> None:
     # two rows a column of 4L + 512 and 8L + 8 bytes, each 16 mod 32; K4
     # adds a window's digits, K7 its staged table entry where it fits: the
     # library's own count, mont3.cu mm3_smem)
-    for CH, k in ((521, 260), (261, 130)):
-        KP = -(-k // 16) * 16
-        work = 32 * (2 * KP + 16) + 128
-        w = 2 * (-(-2 * (k + 1) // 16)) * (2 * KP // 32) * 512
-        k2 = 2 * CH * 64 + work
-        k5 = k2 + 16 * 32
-        fit = lambda b: ("" if b + w <= 232448 else
-                         f" (over the 232448 B limit: W from global memory, "
-                         f"{b} B)")
-        print(f"    CH={CH}: K1 asks {CH * 64 + work} B of shared memory, "
-              f"K2 and K6 {k2 + w} B with W1 + W2 resident{fit(k2)}, K5 (16 "
-              f"windows) {k5} B (W1 + W2 from global memory)")
-    for L in (257, 129, 520):
+    # the 2048-bit key's n^2 and p^2 bases, then the ladder's (1024-,
+    # 3072- and 4096-bit keys' n^2 and p^2)
+    for CH, k in ((521, 260), (261, 130), (263, 131), (133, 66),
+                  (779, 389), (389, 194), (1039, 519), (519, 259)):
+        m = rns_smem(k, CH)
+        over = ("" if m["w_shared"] else f" (over the 232448 B limit: W "
+                f"from global memory, {m['k2']} B)")
+        print(f"    CH={CH}: K1 asks {m['k1']} B of shared memory, K2 and K6 "
+              f"{m['with_w']} B with W1 + W2 resident{over}, K5 (16 "
+              f"windows) {m['k5']} B (W1 + W2 from global memory)")
+    for L in (257, 129, 520, 65, 193, 385, 513):
         k3, k4, k7 = (kernels.mm3_smem_bytes(k, L) for k in (
             "mm3_mul", "mm3_exp", "mm3_exp_shared"))
         print(f"    L={L}: K3 asks {k3} B of shared memory, K4 {k4} B, K7 "
@@ -672,6 +698,7 @@ def check_kernels(dev, kd) -> dict:
     check_per_element(dev, kd, rng, record)
     check_fourth_slice(dev, kd, rng, record)
     check_fifth_slice(dev, kd, rng, record)
+    check_ladder_kernels(dev, rng, record)
     return res
 
 
@@ -1028,6 +1055,169 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
     print(f"  mm2_mul, mm2_sqr equal K9 and their twins at B=33 over "
           f"{len(Ls)} L from 2 to 520 ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+
+
+def ladder_halves(bits: int) -> tuple:
+    """Two odd bits/2-bit numbers from a seeded generator whose product
+    has exactly `bits` bits: the shapes of a `bits`-bit key's p, q and
+    moduli (a kernel check needs no primes)."""
+    import random
+    r = random.Random(SEED + bits)
+    h = bits // 2
+    return tuple(r.getrandbits(h) | (3 << (h - 2)) | 1 for _ in range(2))
+
+
+def rns_smem(k: int, CH: int, n_win: int = 16) -> dict:
+    """Dynamic shared memory of the RNS tile kernels' launches at k, CH
+    (csrc/rns.cu): K1 one uint16 state and the work area (the digit
+    tile, delta); K2 and K6 two states and the work area, and W1 + W2
+    where all of it fits the 232,448 B limit (else W is read from global
+    memory); K5 two states, the work area and n_win windows' digits."""
+    KP = -(-k // 16) * 16
+    work = 32 * (2 * KP + 16) + 128
+    w = 2 * (-(-2 * (k + 1) // 16)) * (2 * KP // 32) * 512
+    two = 2 * CH * 64 + work
+    fits = two + w <= 232448
+    return dict(k1=CH * 64 + work, with_w=two + w, w_shared=fits,
+                k2=two + w if fits else two, k5=two + 32 * n_win)
+
+
+def check_ladder_kernels(dev, rng, record) -> None:
+    """Phase 3 at the ladder's shapes (``LADDER``: 1024-, 3072- and
+    4096-bit keys, each at its rung's batch; the moduli from
+    ``ladder_halves``): K1 at each n^2 base (CH=263, 779, 1039); K3 at
+    each p^2 and n^2 (L=65, 129, 193, 385, 257, 513); K4 (windows 3..8)
+    at L=385 and 513; K5 at CH=779 and 1039 over 16 windows, and at 4096
+    bits over the 1,024 windows of an exponent below n that
+    ``fixed_shape_ops`` asks for; K2 at each p^2 base (CH=133 with W1, W2
+    in shared memory, CH=389 and 519 reading them from global memory):
+    the whole sliding-window schedule of p-1 at 1024 and 4096 bits, 64
+    ops at B=256 and the whole schedule at 3072 bits; K7 at L=193 (4
+    windows); K9 and K10 at keygen's per-element shapes, 1536- and
+    2048-bit odd candidates (L=97, 129, B=256; K10 over 8 windows)."""
+    import random
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import (mont, mont3, rns,
+                                                        rns_kernels as rk,
+                                                        montgomery as mg)
+    for bits, B in LADDER:
+        p, q = ladder_halves(bits)
+        n = p * q
+        nsq, psq = n * n, p * p
+        ctx = mg.MontCtx.for_modulus(nsq, device=dev)
+        base = rns.RnsBase.for_bits(-(-(2 * bits + 2) // 16) * 16, dev)
+        key = rns.RnsModulus.build(base, nsq, ctx.num_limbs)
+        o = rk.kernel_operands(base, key, dev)
+        tile_bytes = nbytes(o["vec"], o["skc"], o["W1f"], o["W2f"])
+        X = random_state(rng, base, B, dev)
+        Y = random_state(rng, base, B, dev)
+        got = rk.rns_mul(X, Y, base, key)
+        record("rns_mul", got, rns.rns_mont_mul(X, Y, base, key),
+               f"CH={base.CH} B={B} ({bits}-bit n^2)",
+               ms_of(lambda: rk.rns_mul(X, Y, base, key), 20),
+               ms_of(lambda: rns.rns_mont_mul(X, Y, base, key), 2),
+               nbytes(X, Y, got) + tile_bytes, rns_ops(base.k, 1, B))
+        if bits > 2048:
+            w = 4
+            for nw in (16, 1024) if bits == 4096 else (16,):
+                dig = rng.integers(0, 1 << w, size=(nw, B)).astype(np.int32)
+                dig.reshape(-1)[:1 << w] = np.arange(1 << w)
+                dig_dev = torch.from_numpy(dig).to(dev)
+                got = rk.rns_exp_elem_p(X, dig, base, key, w)
+                want, plain_ms = timed(lambda: rns.rns_exp_elem(
+                    X, dig_dev, base, key, w))
+                record("rns_exp_elem", got, want,
+                       f"CH={base.CH} B={B} w={w} {nw} windows "
+                       f"({rns_smem(base.k, base.CH, nw)['k5']} B)",
+                       ms_of(lambda: rk.rns_exp_elem_p(X, dig, base, key,
+                                                       w), 1),
+                       plain_ms, nbytes(X, dig_dev, got) + tile_bytes,
+                       rns_ops(base.k, 14 + nw * (w + 1), B))
+        # K3 at p^2 and n^2; K4 (the alignment's windows 3..8) at n^2
+        for m in (psq, nsq):
+            c = ctx if m == nsq else mg.MontCtx.for_modulus(m, device=dev)
+            L = c.num_limbs
+            a = random_cols(rng, [m] * B, L, dev)
+            b = random_cols(rng, [m] * B, L, dev)
+            got = mont3.mm3_mul(a, b, c)
+            want = mont3.mm3_mul_plain(a, b, c.wmu, c.wm, c.off1, c.off2)
+            record("mm3_mul", got, want, f"L={L} B={B} ({bits}-bit key)",
+                   ms_of(lambda: mont3.mm3_mul(a, b, c), 5),
+                   ms_of(lambda: mont3.mm3_mul_plain(a, b, c.wmu, c.wm,
+                                                     c.off1, c.off2), 1),
+                   nbytes(a, b, got, c.n_limbs), limb_ops(L, 1, B))
+            if m == nsq and bits > 2048:
+                exps = [int(e) for e in rng.integers(1, 1 << 20, size=B)]
+                digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
+                dig_dev = torch.from_numpy(digits).to(dev)
+                got = mont3.mm3_exp(a, digits, c, 3)
+                want, plain_ms = timed(lambda: mont3.mm3_exp_plain(
+                    a, dig_dev, c.wmu, c.wm, c.off1, c.off2, c.one, 3))
+                record("mm3_exp", got, want, f"L={L} B={B} win 3..8",
+                       ms_of(lambda: mont3.mm3_exp(a, digits, c, 3), 2),
+                       plain_ms, nbytes(a, dig_dev, got, c.one, c.n_limbs),
+                       limb_ops(L, 14 + 5, B, 5 * 4))
+            if m == psq and bits == 3072:
+                window = mont3.shared_exp_window(L)
+                check_k7(record, a, np.array([(1 << window) - 1, 0, 3, 1],
+                                             dtype=np.int32), c, window)
+        # K2 at the p^2 base, the decrypt's schedule of p-1
+        pb = rns.RnsBase.for_bits(-(-psq.bit_length() // 16) * 16, dev)
+        pkey = rns.RnsModulus.build(pb, psq,
+                                    (psq.bit_length() + 2 + 15) // 16)
+        po = rk.kernel_operands(pb, pkey, dev)
+        window = rk.plan_sched(pb.CH)
+        e = p - 1
+        sched = rns.sliding_schedule(e, window, e.bit_length())
+        sm = rns_smem(pb.k, pb.CH)
+        where = f"W {'shared' if sm['w_shared'] else 'global'}, {sm['k2']} B"
+        for Bc, s in (((256, sched[-64:]), (B, sched)) if bits == 3072
+                      else ((B, sched),)):
+            Xs = random_state(rng, pb, Bc, dev)
+            got = rk.rns_exp_sched_p(Xs, s, pb, pkey, window)
+            want, plain_ms = timed(lambda: rns.rns_exp_sched(
+                Xs, s, pb, pkey, window))
+            record("rns_exp_sched", got, want,
+                   f"CH={pb.CH} B={Bc} w={window} {len(s)} ops, {where}",
+                   ms_of(lambda: rk.rns_exp_sched_p(Xs, s, pb, pkey,
+                                                    window), 1),
+                   plain_ms, nbytes(Xs, got, po["vec"], po["skc"], po["W1f"],
+                                    po["W2f"]) + 4 * len(s),
+                   rns_ops(pb.k, (1 << (window - 1)) + len(s), Bc))
+    # K9 and K10 at keygen's device Miller-Rabin shapes: odd 1536- and
+    # 2048-bit candidates (3072- and 4096-bit keys), digits of
+    # (c-1) >> tz, the chain's first 8 windows
+    r = random.Random(SEED + 11)
+    for cbits in (1536, 2048):
+        cands = [r.getrandbits(cbits) | (1 << (cbits - 1)) | 1
+                 for _ in range(256)]
+        Lk = (cbits + 2 + 15) // 16
+        ck = mg.MontCtx.for_moduli(cands, Lk, dev)
+        ak = random_cols(rng, cands, Lk, dev)
+        bk = random_cols(rng, cands, Lk, dev)
+        got = mont.mont_mul_p(ak, bk, ck.n_limbs, ck.n0inv)
+        record("mont_mul", got, mg.cios_mul(ak, bk, ck.n_limbs, ck.n0inv),
+               f"L={Lk} B=256 per-element (keygen)",
+               ms_of(lambda: mont.mont_mul_p(ak, bk, ck.n_limbs, ck.n0inv),
+                     20),
+               ms_of(lambda: mg.cios_mul(ak, bk, ck.n_limbs, ck.n0inv), 1),
+               nbytes(ak, bk, got, ck.n_limbs, ck.n0inv), limb_ops(Lk, 1, 256))
+        coop_note(Lk, 256, 1)
+        ds = [(c - 1) >> (((c - 1) & -(c - 1)).bit_length() - 1)
+              for c in cands]
+        dk = np.ascontiguousarray(mg.exponent_digits(
+            ds, -(-cbits // 4), 4)[:8].astype(np.int32))
+        dk_dev = torch.from_numpy(dk).to(dev)
+        got = mont.mont_exp_p(ak, dk, ck.n_limbs, ck.n0inv, ck.one, 0)
+        want, plain_ms = timed(lambda: mont.mont_exp_plain(
+            ak, dk_dev, ck.n_limbs, ck.n0inv, ck.one, 0))
+        record("mont_exp", got, want,
+               f"L={Lk} B=256 per-element 8 windows (keygen)",
+               ms_of(lambda: mont.mont_exp_p(ak, dk, ck.n_limbs, ck.n0inv,
+                                             ck.one, 0), 2),
+               plain_ms, nbytes(ak, dk_dev, got, ck.one, ck.n_limbs,
+                                ck.n0inv), limb_ops(Lk, 14 + 8, 256, 8 * 4))
+        coop_note(Lk, 256, 14 + 8, 8 * 4)
 
 
 def coop_floor_ms(L: int, products: int, B: int, squares: int = 0) -> float:
@@ -1821,13 +2011,9 @@ def fifth_slice(dev, tag: str) -> dict:
     ``pow`` and the variants of one function equal limb for limb.  The
     chains (exp, expshared) are timed on their checked call alone
     (``--iters 0``): K14's 256 windows are 1,294 products."""
-    import importlib.util
     from pailliercryptolib_python_tpu_torch import kernels
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_kbench", os.path.join(HERE, "tools", "torch_kbench.py"))
-    kb = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(kb)
+    kb = load_script("tools/torch_kbench.py")
     runs = (["mul", "--L", "257", "--B", str(BATCH), "--chain", "16"],
             ["sqr", "--L", "129", "--B", str(BATCH)],
             ["exp", "--L", "257", "--B", str(BATCH), "--nwin", "256",
@@ -1967,6 +2153,196 @@ def sixth_slice(dev, kd, tag: str) -> dict:
     return dict(times=times, counts=counts)
 
 
+def load_script(rel: str):
+    """A script of this repository (tools/, examples/) as a module."""
+    import importlib.util
+    name = os.path.basename(rel)[:-3]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE,
+                                                                     rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(rel: str, argv: list, done: str):
+    """Run an example's ``main(argv)`` in this process, print its output
+    indented and fail unless it printed `done`; returns (result, s)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    mod = load_script(rel)
+    with contextlib.redirect_stdout(buf):
+        res, secs = wall(lambda: mod.main(argv))
+    for line in buf.getvalue().splitlines():
+        print("    " + line, flush=True)
+    if done not in buf.getvalue():
+        raise AssertionError(f"{rel} {' '.join(argv)} did not print {done!r}")
+    return res, secs
+
+
+def ladder_rung(dev, bits: int, B: int, tag: str) -> dict:
+    """Phase 11 at one rung of 3072 or 4096 bits, batch B, through the
+    public API on the default engines: keygen (3072: the prime pool;
+    4096: the device-batched base-2 Miller-Rabin, K10 and K9, in this
+    process), the comb build, encrypt of B floats x and y (K1), decrypt
+    (K2), ``x + y``, ``x.sum()``, ``x * w`` with about half the weights
+    negative (K5 and the inversion tree), ``x.dot(w)``, each result
+    against numpy; one ciphertext column under injected obfuscator
+    digits against Python's ``pow``; at 4096 bits the comb window (11)
+    and its bytes.  Each step prints its wall time and device span (CUDA
+    events) and the device kernel time of a profiled second run (keygen
+    and the comb build: their one run, profiled, without a span)."""
+    import torch
+    import pailliercryptolib_python_tpu_torch as pt
+    from pailliercryptolib_python_tpu_torch import kernels
+    from pailliercryptolib_python_tpu_torch.fixedpoint import encode_vector
+    from pailliercryptolib_python_tpu_torch.utils.config import comb_registry
+
+    device_kernels = load_script("tools/torch_profile.py").device_kernels
+    rng = np.random.default_rng(SEED + bits)
+    x = rng.uniform(-1000.0, 1000.0, B)
+    y = rng.uniform(-1000.0, 1000.0, B)
+    w = rng.uniform(-1.0, 1.0, B)
+    steps = {}
+
+    def step(name, fn, once=False):
+        """Wall time (host clock) and device span (CUDA events) of
+        fn(), and the device kernel time of a profiled second run (of
+        the same run when `once`: keygen is random, the comb cached);
+        the launch counters keep the first run only.  The profiler has
+        missed hand-written launches that the counters saw (K4's, in
+        some runs): such a shortfall is printed beside the sum."""
+        box = {}
+        c0 = dict(kernels.COUNTS)
+        if once:
+            t0 = time.perf_counter()
+            dk = device_kernels(lambda: box.setdefault("out", fn()))
+            secs, span = time.perf_counter() - t0, None
+            c1 = dict(kernels.COUNTS)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, span = timed(lambda: box.setdefault("out", fn()))
+            secs = time.perf_counter() - t0
+            c1 = dict(kernels.COUNTS)
+            dk = device_kernels(fn)
+            kernels.COUNTS.update(c1)
+        dev_ms = sum(v[0] for v in dk.values())
+        launched = sum(c1[k] - c0[k] for k in c1)
+        seen = sum(v[1] for k, v in dk.items() if k != "eager")
+        steps[name] = dict(wall_s=secs, span_ms=span, kernel_ms=dev_ms,
+                           kernels=dk, launched=launched, seen=seen)
+        parts = ", ".join(f"{k} {v[0]:.1f} ms / {v[1]}" for k, v in
+                          sorted(dk.items(), key=lambda kv: -kv[1][0]))
+        span_s = "" if span is None else f"span {span:9.2f} ms   "
+        short = (f" (the profiler saw {seen} of {launched} hand-written "
+                 f"launches)" if seen != launched else "")
+        print(f"  {bits} {name:14s} wall {secs:9.4f} s   {span_s}kernels "
+              f"{dev_ms:9.2f} ms: {parts or 'none'}{short}", flush=True)
+        return box["out"]
+
+    cfg = pt.get_config()
+    saved = (cfg.keygen_device, cfg.keygen_parallel)
+    if bits >= 4096:
+        pt.set_config(keygen_device="1", keygen_parallel="0")
+    kernels.reset_counts()
+    try:
+        pk, sk = step("keygen", lambda: pt.PaillierKeypair.generate_keypair(
+            bits, device=dev), once=True)
+    finally:
+        pt.set_config(keygen_device=saved[0], keygen_parallel=saved[1])
+    pub = pk.pubkey.context
+    if pk.n.bit_length() != bits:
+        raise AssertionError(f"keygen({bits}) made a {pk.n.bit_length()}-bit "
+                             f"key")
+    before = comb_registry.total_bytes
+    comb = step("comb build", lambda: pub.comb_rns, once=True)
+    base = pub.rns_plan()[0]
+    n_win = -(-pub.randbits // pub.comb_window)
+    nbytes_comb = comb.numel() * comb.element_size()
+    if nbytes_comb != n_win * base.CH * (1 << pub.comb_window) * 4 or \
+            comb_registry.total_bytes - before != nbytes_comb:
+        raise AssertionError(f"comb of {nbytes_comb} B is not the one "
+                             f"registered")
+    print(f"  {bits} comb: window {pub.comb_window}, {n_win} windows x "
+          f"CH={base.CH} x {1 << pub.comb_window} entries = {nbytes_comb} B "
+          f"registered", flush=True)
+    if bits == 4096 and (pub.comb_window, nbytes_comb) != (11, 1591648256):
+        raise AssertionError(f"4096-bit key took comb window "
+                             f"{pub.comb_window} ({nbytes_comb} B)")
+    ct_x = step("encrypt", lambda: pk.encrypt(x))
+    ct_y = pk.encrypt(y)
+    got = step("decrypt", lambda: sk.decrypt(ct_x))
+    ct_s = step("x + y", lambda: ct_x + ct_y)
+    ct_t = step("x.sum()", lambda: ct_x.sum())
+    ct_m = step("x * w", lambda: ct_x * w)
+    ct_d = step("x.dot(w)", lambda: ct_x.dot(w))
+    checks = (("decrypt(encrypt(x))", got, x),
+              ("x + y", sk.decrypt(ct_s), x + y),
+              ("x.sum()", sk.decrypt(ct_t), x.sum()),
+              ("x * w", sk.decrypt(ct_m), x * w),
+              ("x.dot(w)", sk.decrypt(ct_d), x @ w))
+    for what, have, want in checks:
+        if not np.allclose(have, want):
+            raise AssertionError(f"{bits} bits: {what} differs from numpy")
+    # one column under injected obfuscator digits against Python's pow;
+    # r < 2^randbits, as sample_obfuscator_digits draws it (the comb holds
+    # no window bits past randbits: 187 windows of 11 bits cover 2,057)
+    n, nsq = pk.n, pk.n * pk.n
+    dig = np.random.default_rng(bits).integers(
+        0, 1 << pub.comb_window, size=(n_win, 256)).astype(np.uint16)
+    dig[-1] &= (1 << (pub.randbits - pub.comb_window * (n_win - 1))) - 1
+    pub.sample_obfuscator_digits = lambda b: dig[:, :b]
+    try:
+        ct_k = pk.encrypt(x[:1])
+    finally:
+        del pub.sample_obfuscator_digits
+    r = sum(int(dig[j, 0]) << (pub.comb_window * j) for j in range(n_win))
+    enc = encode_vector(x[:1], n, pk.max_int)[0][0]
+    if ct_k.ciphertextBN(0).value() != \
+            (1 + enc * n) * pow(pub.hs, r, nsq) % nsq:
+        raise AssertionError(f"{bits} bits: the ciphertext differs from "
+                             f"Python's pow")
+    counts = dict(kernels.COUNTS)
+    print(f"  {bits} bits, B={B}: every result allclose to numpy, the "
+          f"injected-digit column equals Python's pow ({tag})", flush=True)
+    print(f"  kernel launches over the {bits}-bit rung: {counts}",
+          flush=True)
+    pub.free()
+    return dict(steps=steps, counts=counts, window=pub.comb_window,
+                comb_bytes=nbytes_comb)
+
+
+def ladder(dev, tag: str) -> dict:
+    """Phase 11: the key ladder of the reference's own configurations,
+    end to end through the public API (``LADDER``).  1024 bits, B=256:
+    ``examples/torch_paillier_example.py`` (round trips, pickles,
+    re-randomization, the 13 hybrid modes) and
+    ``examples/torch_federated_example.py`` (its own world-size-1 NCCL
+    group), both in this process; then 3072 bits at B=10240 and 4096 bits
+    at B=256 (``ladder_rung``).  The launch counters are set to 0 before
+    each rung and read after it."""
+    from pailliercryptolib_python_tpu_torch import kernels
+    (bits, B), rungs = LADDER[0], {}
+    kernels.reset_counts()
+    _, t_ex = run_example("examples/torch_paillier_example.py",
+                          ["--bits", str(bits), "--batch", str(B)],
+                          "all checks passed")
+    _, t_fed = run_example("examples/torch_federated_example.py",
+                           ["--bits", str(bits), "--per-rank", str(B)],
+                           "totals verified")
+    counts = dict(kernels.COUNTS)
+    print(f"  {bits} examples: paillier {t_ex:.2f} s, federated "
+          f"{t_fed:.2f} s ({tag})", flush=True)
+    print(f"  kernel launches over the {bits}-bit rung: {counts}",
+          flush=True)
+    rungs[bits] = dict(counts=counts, times=dict(paillier_example_s=t_ex,
+                                                 federated_example_s=t_fed))
+    for bits, B in LADDER[1:]:
+        rungs[bits] = ladder_rung(dev, bits, B, tag)
+    return rungs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2032,20 +2408,32 @@ def main() -> int:
     s6 = sixth_slice(dev, kd, card)
     print(f"    phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"[11] the key ladder: " + ", ".join(
+        f"{b} bits B={n}" for b, n in LADDER) + f" ({card})", flush=True)
+    t0 = time.perf_counter()
+    s11 = ladder(dev, card)
+    print(f"    phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+
     missing = ([k for k in FIRST_SLICE if mp["counts"][k] <= 0]
                + [k for k in SECOND_SLICE if s2["counts"][k] <= 0]
                + [k for k in THIRD_SLICE if s3["counts"][k] <= 0]
                + [k for k in FOURTH_SLICE if s4["counts"][k] <= 0]
                + [k for k in FIFTH_SLICE if s5["counts"][k] <= 0]
-               + [k for k in SIXTH_SLICE if s6["counts"][k] <= 0])
+               + [k for k in SIXTH_SLICE if s6["counts"][k] <= 0]
+               + [f"{k} ({b} bits)" for b, r in s11.items()
+                  for k in LADDER_SLICE + (LADDER_KEYGEN if b >= 4096
+                                           else ())
+                  if r["counts"][k] <= 0])
     if missing:
         raise AssertionError(f"a phase never launched {missing}")
-    launches = {k: sum(s["counts"][k] for s in (mp, s2, s3, s4, s5, s6))
-                for k in KERNELS}
+    phases = (mp, s2, s3, s4, s5, s6, *s11.values())
+    launches = {k: sum(s["counts"][k] for s in phases) for k in KERNELS}
     print(f"[5] every kernel launched: phase 4 {mp['counts']}, phase 6 "
           f"{s2['counts']}, phase 7 {s3['counts']}, phase 8 {s4['counts']}, "
-          f"phase 9 {s5['counts']}, phase 10 {s6['counts']}", flush=True)
-    print(f"    phases 3-10: {time.perf_counter() - t_all:.1f} s; library "
+          f"phase 9 {s5['counts']}, phase 10 {s6['counts']}, phase 11 "
+          + ", ".join(f"{b} bits {r['counts']}" for b, r in s11.items()),
+          flush=True)
+    print(f"    phases 3-11: {time.perf_counter() - t_all:.1f} s; library "
           f"call: none (no single PyTorch call computes an RNS product or "
           f"a modular exponentiation)", flush=True)
 

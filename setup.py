@@ -29,9 +29,12 @@ setup(
     name="pailliercryptolib_python_tpu",
     version="2.0.0",
     description="TPU-native Paillier cryptosystem framework (JAX/Pallas)",
-    packages=find_packages(include=["pailliercryptolib_python_tpu*"]),
+    packages=find_packages(include=["pailliercryptolib_python_tpu*",
+                                    "ipcl_python_torch*"]),
     package_data={"pailliercryptolib_python_tpu.native": ["*.c"],
-                  "pailliercryptolib_python_tpu_torch": ["csrc/*.cu"]},
+                  "pailliercryptolib_python_tpu_torch": ["csrc/*.cu",
+                                                         "csrc/*.cuh",
+                                                         "native/*.c"]},
     ext_modules=[
         Extension(
             "pailliercryptolib_python_tpu.native._paillier_native",
