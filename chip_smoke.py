@@ -55,12 +55,18 @@ failure (so any failure exits non-zero):
    CH=779 and 1039 (16 windows, and 1,024 at 4096 bits), K2 over the
    whole schedule of p-1 at CH=133 (W1, W2 in shared memory) and
    CH=389 (B=10240) and 519 (reading them from global memory), K7 at
-   L=193, K9 and K10 at keygen's L=97 and 129;
+   L=193, K9 and K10 at keygen's L=97 and 129; and the kernels off the
+   default engines there (``check_ladder_off_path``, 3072 bits at
+   B=10240 and 4096 bits at B=256): K6 at CH=389 and 519, K8 at L=385,
+   193, 513 and 257, K11 on the limb comb's chain (128 / 171 factors at
+   L=385 / 513), K12-K15 at L=385 and 513, each against its twin at
+   B=256 over a few windows and timed over the whole chain at the
+   rung's batch, held there against K2, K3, K4 or K7;
 4. the first slice at a 2048-bit key (``fixed_key_ints(2048)``): context
    and comb build, encrypt of 4096 floats x and y, ``x + y``,
    ``x.sum()``, decrypt of both checked against numpy, and the 2048-bit
    vector of ``tests/kat_vectors.json`` through the RNS comb and decrypt;
-5. (after phase 11) every kernel's launch counter is > 0 over the phase
+5. (after phase 12) every kernel's launch counter is > 0 over the phase
    whose path runs it;
 6. the second slice at the same key, B=4096: ``x * w`` (w uniform in
    [-1, 1], about half negative), ``x.dot(w)``, ``x.mean()``, ``x - y``,
@@ -113,17 +119,27 @@ failure (so any failure exits non-zero):
    ``x * w`` (about half the weights negative) and ``x.dot(w)``, each
    against numpy and printed with its wall and device kernel time, one
    ciphertext under injected digits against Python's ``pow``, and the
-   4096-bit key's comb window (11) and registered bytes.
+   4096-bit key's comb window (11) and registered bytes;
+12. the engines on the ladder (``engines_rung``): at 3072 bits, B=10240,
+   and 4096 bits, B=256, every value of the runtime knobs on one key
+   made in this process with the device Miller-Rabin (K10, K9): the
+   limb comb (window 12, K3), the limb decrypt (K7), both engines limb
+   (ct*pt and the alignment on K4), ``fixed_shape_ops`` (K5 over the
+   full window count), ``hybridControl`` (4 pipelined chunks; a split
+   with Python's ``pow`` on the host thread) and the sharded layer in a
+   world-size-1 NCCL group, each result against the default engines' on
+   the same inputs and obfuscator r, exactly, and against numpy.
 
-Phases 4, 6, 7, 8, 9 and 10, and each rung of phase 11, set the launch
-counters to 0 just before and read them just after; phase 5 checks
-them all.  The second-to-last lines are the kernels'
-JSON record and the card line; the last line is ``{"ok": true,
-"device": {...}}``.
+Phases 4, 6, 7, 8, 9 and 10, each rung of phase 11 and each engine
+combination of phase 12 set the launch counters to 0 just before and
+read them just after; phase 5 checks them all.  The second-to-last
+lines are the kernels' JSON record and the card line; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -195,6 +211,15 @@ SIXTH_SLICE = ("rns_mul", "rns_exp_sched", "rns_exp_elem", "mm3_mul")
 LADDER_SLICE = ("rns_mul", "rns_exp_sched", "rns_exp_elem", "mm3_mul",
                 "mm3_exp")
 LADDER_KEYGEN = ("mont_exp", "mont_mul")
+# Phase 12 (the engines on the ladder), every rung: the limb comb (K3),
+# the limb decrypt (K7), ct*pt and the exponent alignment on the limb
+# engine (K4); K5 under fixed_shape_ops, and K10, K9 in the keygen
+LADDER_ENGINES = ("mm3_mul", "mm3_exp", "mm3_exp_shared")
+LADDER_FIXED = ("rns_exp_elem",)
+# The limb comb's (window, bytes) at each rung: n_win x L x 2^12 x 4 B
+# (the RNS comb shrinks to window 11 at 4096 bits; the limb comb does not)
+LIMB_COMB = {3072: (12, 128 * 385 * 4096 * 4),
+             4096: (12, 171 * 513 * 4096 * 4)}
 
 # Bounds (published NVIDIA H100 SXM peaks): bytes over the memory rate,
 # int8 operations over the int8 tensor-core rate, the larger of the two.
@@ -319,7 +344,8 @@ TILE_KERNELS = ("rns_mul_kernel", "rns_exp_sched_kernel", "rns_exp_elem_kernel",
 # the keygen window, K9 at the fused decrypt's exit and the keygen's
 # Miller-Rabin ladder, K11 at the limb encrypt chain, K8 at n^2 and p^2,
 # K15 at the limb decrypt's p^2 and a 4096-bit key's, K12, K13 and K14 at
-# the microbench's n^2 and p^2
+# the microbench's n^2 and p^2; then the off-path kernels at the ladder's
+# n^2 (3072 bits, B=10240: L=385; 4096 bits, B=256: L=513)
 COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K10", "mont_exp_kernel", 65, 256),
                ("K9", "mont_mul_kernel", 129, 8192),
@@ -334,7 +360,15 @@ COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K13", "mm2_sqr_kernel", 257, 4096),
                ("K13", "mm2_sqr_kernel", 129, 4096),
                ("K14", "mm2_exp_kernel", 257, 4096),
-               ("K14", "mm2_exp_kernel", 129, 4096))
+               ("K14", "mm2_exp_kernel", 129, 4096),
+               ("K8", "mm3_sqr_kernel", 385, 10240),
+               ("K11", "mont_chain_kernel", 385, 10240),
+               ("K12", "mm2_mul_kernel", 385, 10240),
+               ("K15", "mm2_exp_shared_kernel", 385, 10240),
+               ("K8", "mm3_sqr_kernel", 513, 256),
+               ("K11", "mont_chain_kernel", 513, 256),
+               ("K14", "mm2_exp_kernel", 513, 256),
+               ("K15", "mm2_exp_shared_kernel", 513, 256))
 
 
 def tile_kernel_report() -> None:
@@ -447,7 +481,12 @@ def check_kernels(dev, kd) -> dict:
 
     def record(name, got, want, shape, ms, plain_ms, n_bytes, ops,
                headline=False):
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        """One row: the kernel's output `got` against its twin's `want`.
+        A row with `want` and `plain_ms` None is a timing at a shape
+        whose twin is too slow to run (a whole chain at the ladder's
+        batch); its caller holds `got` against another kernel there."""
+        err = 0 if want is None else int(
+            (got.to(torch.int64) - want.to(torch.int64)).abs().max())
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
         b_ms, b_by = bound(n_bytes, ops)
         check = dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -455,9 +494,10 @@ def check_kernels(dev, kd) -> dict:
         res[name]["checks"].append(check)
         if headline:
             res[name]["headline"] = check
+        plain_s = "   (not run)" if plain_ms is None else f"{plain_ms:10.3f}"
         print(f"  {name:14s} {shape:34s} kernel {ms:10.3f} ms   plain "
-              f"{plain_ms:10.3f} ms   bound {b_ms:.6f} ms ({b_by})   "
-              f"max|diff| {err}", flush=True)
+              f"{plain_s} ms   bound {b_ms:.6f} ms ({b_by})   "
+              f"max|diff| {err if want is not None else '-'}", flush=True)
         if err:
             raise AssertionError(f"{name} differs from its plain twin "
                                  f"at {shape}")
@@ -699,6 +739,7 @@ def check_kernels(dev, kd) -> dict:
     check_fourth_slice(dev, kd, rng, record)
     check_fifth_slice(dev, kd, rng, record)
     check_ladder_kernels(dev, rng, record)
+    check_ladder_off_path(dev, rng, record)
     return res
 
 
@@ -850,6 +891,124 @@ def check_k7(record, a, dig, ctx, window: int, headline=False) -> None:
            headline=headline)
 
 
+def same(got, want, what) -> None:
+    """Raise `what` unless the tensors are equal."""
+    import torch
+    if not torch.equal(got, want):
+        raise AssertionError(what)
+
+
+def equals(name, other, got, fn, L, note=""):
+    """got equals kernel `other` on the same input; its time beside."""
+    same(got, fn(), f"{name} differs from {other} at L={L}")
+    print(f"  {name:14s} equals {other}{note} at L={L} ({other} on the "
+          f"same input {ms_of(fn, 20):.4f} ms)", flush=True)
+
+
+def k12_k13(dev, record, a, b, m, L, Bn, ctx, head=False):
+    """K12 (where b is given) and K13 against their twins, with the
+    floor and (g, K); K12 against K3 and against K9 on the same
+    modulus, K13 against K8 and K12(a, a)."""
+    from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
+    from pailliercryptolib_python_tpu_torch.ops import mont, mont2, mont3
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    mc = mm.MatmulMontCtx(m, L, device=dev)
+    w = (mc.W_mu, mc.W_m)
+    c9 = mg.MontCtx.for_modulus(m, min_bits=16 * L, mxu=False,
+                                device=dev)
+    if b is not None:
+        got = mont2.mm2_mul(a, b, *w)
+        record("mm2_mul", got, mont2.mm2_mul_plain(a, b, *w),
+               f"L={L} B={Bn}", ms_of(lambda: mont2.mm2_mul(a, b, *w), 20),
+               ms_of(lambda: mont2.mm2_mul_plain(a, b, *w), 1),
+               nbytes(a, b, got, mc.m_limbs), limb_ops(L, 1, Bn),
+               headline=head)
+        coop_note(L, Bn, 1)
+        equals("mm2_mul", "mm3_mul", got,
+               lambda: mont3.mm3_mul(a, b, ctx), L)
+        equals("mm2_mul", "mont_mul", got,
+               lambda: mont.mont_mul_p(a, b, c9.n_limbs, c9.n0inv), L,
+               " (its modulus's limbs given)")
+    got = mont2.mm2_sqr(a, *w)
+    record("mm2_sqr", got, mont2.mm2_sqr_plain(a, *w), f"L={L} B={Bn}",
+           ms_of(lambda: mont2.mm2_sqr(a, *w), 20),
+           ms_of(lambda: mont2.mm2_sqr_plain(a, *w), 1),
+           nbytes(a, got, mc.m_limbs), limb_ops(L, 0, Bn, 1),
+           headline=head)
+    coop_note(L, Bn, 0, 1)
+    equals("mm2_sqr", "mm3_sqr", got, lambda: mont3.mm3_sqr(a, ctx), L)
+    same(got, mont2.mm2_mul(a, a, *w), f"K13 differs from K12(a, a) at "
+         f"L={L}")
+
+
+def k15(dev, record, a, dig, m, ctx, window, headline=False):
+    """K15 against its twin (one timed call: the twin takes seconds)
+    and K7 on the same inputs, with its integer-pipe floor."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
+    from pailliercryptolib_python_tpu_torch.ops import mont2, mont3
+    L, Bn = a.shape
+    mc = mm.MatmulMontCtx(m, L, device=dev)
+    w = (mc.W_mu, mc.W_m)
+    nwd = len(dig)
+    dig_dev = torch.from_numpy(dig).to(dev)
+    got = mont2.mm2_exp_shared(a, dig, *w, ctx.one, window)
+    want, plain_ms = timed(lambda: mont2.mm2_exp_shared_plain(
+        a, dig_dev, *w, ctx.one, window))
+    nmul, nsq = (1 << window) - 2 + nwd, nwd * window
+    record("mm2_exp_shared", got, want,
+           f"L={L} B={Bn} w={window} {nwd} windows",
+           ms_of(lambda: mont2.mm2_exp_shared(a, dig, *w, ctx.one,
+                                              window), 2), plain_ms,
+           nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
+           limb_ops(L, nmul, Bn, nsq), headline=headline)
+    coop_note(L, Bn, nmul, nsq)
+    k7, k7_ms = timed(lambda: mont3.mm3_exp_shared(a, dig, ctx, window))
+    same(got, k7, f"K15 differs from K7 at L={L}")
+    print(f"  mm2_exp_shared equals mm3_exp_shared at L={L} (K7 on the "
+          f"same input {k7_ms:.3f} ms)", flush=True)
+
+
+def k14(dev, record, a, digits, ws, m, ctx, headline=False, words=False,
+        reps=20):
+    """K14 against its twin (one timed call), with its integer-pipe
+    floor and (g, K); against K4 and K10 on the same modulus and
+    inputs (their times beside), and, where `words`, against
+    ``mm2_exp_words``' arithmetic (eager, ~2,500 aten ops a product
+    at L=257)."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
+    from pailliercryptolib_python_tpu_torch.ops import mont, mont2, mont3
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    L, Bn = a.shape
+    mc = mm.MatmulMontCtx(m, L, device=dev)
+    w = (mc.W_mu, mc.W_m)
+    dig_dev = torch.from_numpy(digits).to(dev)
+    nw = digits.shape[0] - ws
+    got = mont2.mm2_exp(a, digits, *w, ctx.one, ws)
+    want, plain_ms = timed(lambda: mont2.mm2_exp_plain(
+        a, dig_dev, *w, ctx.one, ws))
+    nmul, nsq = 14 + nw, 4 * nw
+    record("mm2_exp", got, want,
+           f"L={L} B={Bn} win {ws}..{digits.shape[0]}",
+           ms_of(lambda: mont2.mm2_exp(a, digits, *w, ctx.one, ws), reps),
+           plain_ms, nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
+           limb_ops(L, nmul, Bn, nsq), headline=headline)
+    coop_note(L, Bn, nmul, nsq)
+    if words:
+        same(got, mont2.mm2_exp_words(a, dig_dev, mc.W_m, ctx.one, ws),
+             f"K14 differs from mm2_exp_words at L={L}, B={Bn}")
+        print(f"  {'mm2_exp':14s} equals mm2_exp_words at L={L}, "
+              f"B={Bn}", flush=True)
+    equals("mm2_exp", "mm3_exp", got,
+           lambda: mont3.mm3_exp(a, digits, ctx, ws), L)
+    c10 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
+    equals("mm2_exp", "mont_exp", got,
+           lambda: mont.mont_exp_p(a, digits, c10.n_limbs, c10.n0inv,
+                                   c10.one, ws), L,
+           " (its modulus's limbs given)")
+
+
 def check_fifth_slice(dev, kd, rng, record) -> None:
     """Phase 3, the v2 kernels, exact against their twins and against
     the kernels of the same function on the same inputs: K12 at L=257
@@ -869,113 +1028,12 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
     function's (K3's work model over the inputs, the modulus and the
     output), as the CIOS kernels' rows count it."""
     import random
-    import torch
     from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
     from pailliercryptolib_python_tpu_torch.ops import mont, mont2, mont3
     from pailliercryptolib_python_tpu_torch.ops.limb import (ints_to_limbs,
                                                              to_device)
     from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
     n, p = kd["n"], kd["p"]
-
-    def same(got, want, what):
-        if not torch.equal(got, want):
-            raise AssertionError(what)
-
-    def equals(name, other, got, fn, L, note=""):
-        """got equals kernel `other` on the same input; its time beside."""
-        same(got, fn(), f"{name} differs from {other} at L={L}")
-        print(f"  {name:14s} equals {other}{note} at L={L} ({other} on the "
-              f"same input {ms_of(fn, 20):.4f} ms)", flush=True)
-
-    def k12_k13(a, b, m, L, Bn, ctx, head=False):
-        """K12 (where b is given) and K13 against their twins, with the
-        floor and (g, K); K12 against K3 and against K9 on the same
-        modulus, K13 against K8 and K12(a, a)."""
-        mc = mm.MatmulMontCtx(m, L, device=dev)
-        w = (mc.W_mu, mc.W_m)
-        c9 = mg.MontCtx.for_modulus(m, min_bits=16 * L, mxu=False,
-                                    device=dev)
-        if b is not None:
-            got = mont2.mm2_mul(a, b, *w)
-            record("mm2_mul", got, mont2.mm2_mul_plain(a, b, *w),
-                   f"L={L} B={Bn}", ms_of(lambda: mont2.mm2_mul(a, b, *w), 20),
-                   ms_of(lambda: mont2.mm2_mul_plain(a, b, *w), 1),
-                   nbytes(a, b, got, mc.m_limbs), limb_ops(L, 1, Bn),
-                   headline=head)
-            coop_note(L, Bn, 1)
-            equals("mm2_mul", "mm3_mul", got,
-                   lambda: mont3.mm3_mul(a, b, ctx), L)
-            equals("mm2_mul", "mont_mul", got,
-                   lambda: mont.mont_mul_p(a, b, c9.n_limbs, c9.n0inv), L,
-                   " (its modulus's limbs given)")
-        got = mont2.mm2_sqr(a, *w)
-        record("mm2_sqr", got, mont2.mm2_sqr_plain(a, *w), f"L={L} B={Bn}",
-               ms_of(lambda: mont2.mm2_sqr(a, *w), 20),
-               ms_of(lambda: mont2.mm2_sqr_plain(a, *w), 1),
-               nbytes(a, got, mc.m_limbs), limb_ops(L, 0, Bn, 1),
-               headline=head)
-        coop_note(L, Bn, 0, 1)
-        equals("mm2_sqr", "mm3_sqr", got, lambda: mont3.mm3_sqr(a, ctx), L)
-        same(got, mont2.mm2_mul(a, a, *w), f"K13 differs from K12(a, a) at "
-             f"L={L}")
-
-    def k15(a, dig, m, ctx, window, headline=False):
-        """K15 against its twin (one timed call: the twin takes seconds)
-        and K7 on the same inputs, with its integer-pipe floor."""
-        L, Bn = a.shape
-        mc = mm.MatmulMontCtx(m, L, device=dev)
-        w = (mc.W_mu, mc.W_m)
-        nwd = len(dig)
-        dig_dev = torch.from_numpy(dig).to(dev)
-        got = mont2.mm2_exp_shared(a, dig, *w, ctx.one, window)
-        want, plain_ms = timed(lambda: mont2.mm2_exp_shared_plain(
-            a, dig_dev, *w, ctx.one, window))
-        nmul, nsq = (1 << window) - 2 + nwd, nwd * window
-        record("mm2_exp_shared", got, want,
-               f"L={L} B={Bn} w={window} {nwd} windows",
-               ms_of(lambda: mont2.mm2_exp_shared(a, dig, *w, ctx.one,
-                                                  window), 2), plain_ms,
-               nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
-               limb_ops(L, nmul, Bn, nsq), headline=headline)
-        coop_note(L, Bn, nmul, nsq)
-        k7, k7_ms = timed(lambda: mont3.mm3_exp_shared(a, dig, ctx, window))
-        same(got, k7, f"K15 differs from K7 at L={L}")
-        print(f"  mm2_exp_shared equals mm3_exp_shared at L={L} (K7 on the "
-              f"same input {k7_ms:.3f} ms)", flush=True)
-
-    def k14(a, digits, ws, m, ctx, headline=False, words=False):
-        """K14 against its twin (one timed call), with its integer-pipe
-        floor and (g, K); against K4 and K10 on the same modulus and
-        inputs (their times beside), and, where `words`, against
-        ``mm2_exp_words``' arithmetic (eager, ~2,500 aten ops a product
-        at L=257)."""
-        L, Bn = a.shape
-        mc = mm.MatmulMontCtx(m, L, device=dev)
-        w = (mc.W_mu, mc.W_m)
-        dig_dev = torch.from_numpy(digits).to(dev)
-        nw = digits.shape[0] - ws
-        got = mont2.mm2_exp(a, digits, *w, ctx.one, ws)
-        want, plain_ms = timed(lambda: mont2.mm2_exp_plain(
-            a, dig_dev, *w, ctx.one, ws))
-        nmul, nsq = 14 + nw, 4 * nw
-        record("mm2_exp", got, want,
-               f"L={L} B={Bn} win {ws}..{digits.shape[0]}",
-               ms_of(lambda: mont2.mm2_exp(a, digits, *w, ctx.one, ws), 20),
-               plain_ms, nbytes(a, dig_dev, got, ctx.one, mc.m_limbs),
-               limb_ops(L, nmul, Bn, nsq), headline=headline)
-        coop_note(L, Bn, nmul, nsq)
-        if words:
-            same(got, mont2.mm2_exp_words(a, dig_dev, mc.W_m, ctx.one, ws),
-                 f"K14 differs from mm2_exp_words at L={L}, B={Bn}")
-            print(f"  {'mm2_exp':14s} equals mm2_exp_words at L={L}, "
-                  f"B={Bn}", flush=True)
-        equals("mm2_exp", "mm3_exp", got,
-               lambda: mont3.mm3_exp(a, digits, ctx, ws), L)
-        c10 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
-        equals("mm2_exp", "mont_exp", got,
-               lambda: mont.mont_exp_p(a, digits, c10.n_limbs, c10.n0inv,
-                                       c10.one, ws), L,
-               " (its modulus's limbs given)")
 
     for m in (n * n, p * p, p):
         ctx = mg.MontCtx.for_modulus(m, device=dev)
@@ -986,13 +1044,14 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         b = random_cols(rng, [m] * BATCH, L, dev)
         head = m == n * n
         # K12 (not at p, L=65) and K13
-        k12_k13(a, None if m == p else b, m, L, BATCH, ctx, head)
+        k12_k13(dev, record, a, None if m == p else b, m, L, BATCH, ctx,
+                head)
         if m == p:
             continue
         # K14: K4's headline shape, 20-bit exponents, windows 3..8
         exps = [int(e) for e in rng.integers(1, 1 << 20, size=BATCH)]
         digits = mg.exponent_digits(exps, 8, 4).astype(np.int32)
-        k14(a, digits, 3, m, ctx, head, words=True)
+        k14(dev, record, a, digits, 3, m, ctx, head, words=True)
         if head:
             # all 16 windows from 0, the digits covering 0..15, on a
             # ragged batch and one column; win_start = n_win (the output
@@ -1000,8 +1059,9 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
             for Bn in (BATCH - 1, 1):
                 d16 = rng.integers(0, 16, size=(16, Bn)).astype(np.int32)
                 d16.reshape(-1)[:16] = np.arange(16)
-                k14(a[:, :Bn].contiguous(), d16, 0, m, ctx, words=Bn == 1)
-            k14(a, digits, 8, m, ctx)
+                k14(dev, record, a[:, :Bn].contiguous(), d16, 0, m, ctx,
+                    words=Bn == 1)
+            k14(dev, record, a, digits, 8, m, ctx)
         if m != p * p:
             continue
         # K15: the limb decrypt's chain of p-1 at window 5
@@ -1009,7 +1069,7 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         e = p - 1
         nwd = -(-e.bit_length() // window)
         dig = mg.exponent_digits([e], nwd, window)[:, 0].astype(np.int32)
-        k15(a, dig, m, ctx, window, headline=True)
+        k15(dev, record, a, dig, m, ctx, window, headline=True)
     # K15 at a 4096-bit key's p^2 (L=257, K=17) and at L=520, B=64 (its
     # largest), 4 windows each, the digits covering 0 and 2^w - 1
     for bits, Bn, window, seed in ((4096, BATCH, 5, 2), (16 * 520 - 2, 64,
@@ -1019,14 +1079,15 @@ def check_fifth_slice(dev, kd, rng, record) -> None:
         ctx = mg.MontCtx.for_modulus(m, device=dev)
         dig = np.array([(1 << window) - 1, 0, 1, 2], dtype=np.int32)
         a = random_cols(rng, [m] * Bn, ctx.num_limbs, dev)
-        k15(a, dig, m, ctx, window)
+        k15(dev, record, a, dig, m, ctx, window)
         if Bn == 64:
             # K12, K13 and K14 at their largest L
-            k12_k13(a, random_cols(rng, [m] * Bn, ctx.num_limbs, dev), m,
+            k12_k13(dev, record, a,
+                    random_cols(rng, [m] * Bn, ctx.num_limbs, dev), m,
                     ctx.num_limbs, Bn, ctx)
             exps = [int(e) for e in rng.integers(1, 1 << 20, size=Bn)]
-            k14(a, mg.exponent_digits(exps, 8, 4).astype(np.int32), 3, m,
-                ctx)
+            k14(dev, record, a,
+                mg.exponent_digits(exps, 8, 4).astype(np.int32), 3, m, ctx)
     # K12 and K13 over L = 2 to 520 at B=33, 2m - 1, 0 and 1 among the
     # operands: the modulus and n' recovered from the weights at every
     # (g, K), odd and even L, against K9 given the limbs and the twins
@@ -1218,6 +1279,175 @@ def check_ladder_kernels(dev, rng, record) -> None:
                plain_ms, nbytes(ak, dk_dev, got, ck.one, ck.n_limbs,
                                 ck.n0inv), limb_ops(Lk, 14 + 8, 256, 8 * 4))
         coop_note(Lk, 256, 14 + 8, 8 * 4)
+
+
+def random_limbs(gen, m: int, shape: tuple, dev):
+    """Random int32 limbs of the given shape (..., L, B), every value
+    below 2^(bits(m) - 1) < m, drawn on the card by `gen` (host bigints
+    would take seconds at the chains' sizes)."""
+    import torch
+    x = torch.randint(0, 1 << 16, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    top, rem = divmod(m.bit_length() - 1, 16)
+    x[..., top + 1:, :] = 0
+    x[..., top, :].bitwise_and_((1 << rem) - 1)
+    return x
+
+
+def check_ladder_off_path(dev, rng, record) -> None:
+    """Phase 3, the kernels off the default engines at the ladder's
+    shapes: 3072 bits at B=10240 and 4096 bits at B=256, the moduli of
+    ``ladder_halves``.  Each kernel is held against its plain twin at
+    B=256 over a few windows (a twin's chain is host-bound, one launch
+    per aten op) and then timed over the whole chain at the rung's
+    batch, where it is held against another kernel: K6 at each p^2 base
+    (CH=389, 519), 4 windows of w=5 (digits 0 and 2^w - 1 among them),
+    then the window-5 chain of p-1 through a CRT half against K2's
+    sliding chain; K8 at each n^2 and p^2 (L=385, 193; 513, 257) at the
+    rung's batch against its twin and K3(a, a); K11 on the limb comb's
+    chain (shared n^2, L=385 and 513): 8 factors against its twin, then
+    the comb's 128 / 171 factors against the streamed K3 chain (at 3072
+    bits the factor array is 2.0 GB); K12 and K13 at L=385 and 513 at the
+    rung's batch against their twins, K3, K9 and K8; K14 (windows 3..8)
+    against its twin, K4 and K10 at B=256, then against K4 at B=10240;
+    K15 at L=385 and 513, 4 windows of w=5 against its twin and K7 at
+    B=256, then the window-5 chain of p-1 against K7 at the rung's
+    batch."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import matmul_mont as mm
+    from pailliercryptolib_python_tpu_torch.ops import (mont, mont2, mont3,
+                                                        rns,
+                                                        rns_kernels as rk,
+                                                        montgomery as mg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for bits, B in LADDER[1:]:
+        p, q = ladder_halves(bits)
+        nsq, psq, e = (p * q) ** 2, p * p, p - 1
+        # K6: a short chain against its twin, then the decrypt half's
+        # whole chain against K2's
+        Lh = (psq.bit_length() + 2 + 15) // 16
+        pb = rns.RnsBase.for_bits(-(-psq.bit_length() // 16) * 16, dev)
+        pkey = rns.RnsModulus.build(pb, psq, Lh)
+        po = rk.kernel_operands(pb, pkey, dev)
+        ob = nbytes(po["vec"], po["skc"], po["W1f"], po["W2f"])
+        w = 5
+        short = np.array([0, 7, 0, (1 << w) - 1], dtype=np.int32)
+        X = random_state(rng, pb, 256, dev)
+        got = rk.rns_exp_shared_p(X, short, pb, pkey, w)
+        want, plain_ms = timed(lambda: rns.rns_exp_shared_plain(
+            X, short, pb, pkey, w))
+        record("rns_exp_shared", got, want,
+               f"CH={pb.CH} B=256 w={w} 4 windows ({bits}-bit p^2)",
+               ms_of(lambda: rk.rns_exp_shared_p(X, short, pb, pkey, w), 2),
+               plain_ms, nbytes(X, got) + ob + 4 * len(short),
+               rns_ops(pb.k, (1 << w) - 2 + len(short) * (w + 1), 256))
+        dig = mg.exponent_digits([e], -(-e.bit_length() // w), w)[
+            :, 0].astype(np.int32)
+        sq = mg.MontCtx.for_modulus(psq, device=dev)
+        v = random_cols(rng, [psq] * B, Lh, dev)
+        Xv = rns.rns_enter(v, pb, pkey)
+        got = rk.rns_exp_shared_p(Xv, dig, pb, pkey, w)
+        record("rns_exp_shared", got, None,
+               f"CH={pb.CH} B={B} w={w} {len(dig)} windows (p-1)",
+               ms_of(lambda: rk.rns_exp_shared_p(Xv, dig, pb, pkey, w), 1),
+               None, nbytes(Xv, got) + ob + 4 * len(dig),
+               rns_ops(pb.k, (1 << w) - 2 + len(dig) * (w + 1), B))
+        window = rk.plan_sched(pb.CH)
+        sched = rns.sliding_schedule(e, window, e.bit_length())
+        u6, k6_ms = timed(lambda: rns.rns_crt_exp_half(v, dig, pb, pkey, sq,
+                                                       w, Lh))
+        u2, k2_ms = timed(lambda: rns.rns_crt_exp_sched(v, sched, pb, pkey,
+                                                        sq, window, Lh))
+        same(u6, u2, f"K6's CRT half differs from K2's at CH={pb.CH}")
+        print(f"  rns_exp_shared equals rns_exp_sched through a CRT half at "
+              f"CH={pb.CH}, B={B} ({k6_ms:.3f} against {k2_ms:.3f} ms with "
+              f"enter and exit)", flush=True)
+        del v, Xv, u6, u2
+        # K8 at n^2 and p^2, the rung's batch
+        for m in (nsq, psq):
+            c = mg.MontCtx.for_modulus(m, device=dev)
+            L = c.num_limbs
+            a = random_cols(rng, [m] * B, L, dev)
+            got = mont3.mm3_sqr(a, c)
+            record("mm3_sqr", got, mont3.mm3_sqr_plain(a, c.wmu, c.wm, c.off1,
+                                                       c.off2),
+                   f"L={L} B={B} ({bits}-bit key)",
+                   ms_of(lambda: mont3.mm3_sqr(a, c), 5),
+                   ms_of(lambda: mont3.mm3_sqr_plain(a, c.wmu, c.wm, c.off1,
+                                                     c.off2), 1),
+                   nbytes(a, got, c.n_limbs), limb_ops(L, 0, B, 1))
+            coop_note(L, B, 0, 1)
+            same(got, mont3.mm3_mul(a, a, c), f"K8 differs from K3(a, a) at "
+                 f"L={L}")
+        # K11 on the limb comb's chain, shared n^2 (c, a: n^2 from here)
+        c = mg.MontCtx.for_modulus(nsq, device=dev)
+        L = c.num_limbs
+        a = random_cols(rng, [nsq] * B, L, dev)
+        Bt = min(B, 256)                    # the twins' batch
+        f8 = random_limbs(gen, nsq, (8, L, Bt), dev)
+        a8 = a[:, :Bt].contiguous()
+        got = mont.mont_chain_p(f8, a8, c.n_limbs, c.n0inv)
+        want, plain_ms = timed(lambda: mont.mont_chain_plain(
+            f8, a8, c.n_limbs, c.n0inv))
+        record("mont_chain", got, want, f"n_win=8 L={L} B={Bt} shared",
+               ms_of(lambda: mont.mont_chain_p(f8, a8, c.n_limbs, c.n0inv),
+                     5), plain_ms, nbytes(f8, a8, got, c.n_limbs) + 4,
+               limb_ops(L, 8, Bt))
+        coop_note(L, Bt, 8)
+        n_win = -(-(bits // 2) // LIMB_COMB[bits][0])
+        fac = random_limbs(gen, nsq, (n_win, L, B), dev)
+        got = mont.mont_chain_p(fac, a, c.n_limbs, c.n0inv)
+        record("mont_chain", got, None, f"n_win={n_win} L={L} B={B} shared",
+               ms_of(lambda: mont.mont_chain_p(fac, a, c.n_limbs, c.n0inv),
+                     2), None, nbytes(fac, a, got, c.n_limbs) + 4,
+               limb_ops(L, n_win, B))
+        coop_note(L, B, n_win)
+
+        def streamed():
+            acc = a
+            for j in range(n_win):
+                acc = mont3.mm3_mul(acc, fac[j], c)
+            return acc
+        same(got, streamed(), f"K11 differs from the streamed K3 chain at "
+             f"L={L}")
+        print(f"  mont_chain     equals the streamed K3 chain ({n_win} K3 "
+              f"launches, {ms_of(streamed, 1):.3f} ms); factor array "
+              f"{nbytes(fac)} B", flush=True)
+        del fac, got
+        # K12, K13 at the rung's batch; K14 and K15 against their twins at
+        # B=256, then at the rung's batch against K4 and K7
+        k12_k13(dev, record, a, random_cols(rng, [nsq] * B, L, dev), nsq, L,
+                B, c)
+        exps = [int(x) for x in rng.integers(1, 1 << 20, size=B)]
+        d20 = mg.exponent_digits(exps, 8, 4).astype(np.int32)
+        k14(dev, record, a8, np.ascontiguousarray(d20[:, :Bt]), 3, nsq, c,
+            reps=2)
+        mc = mm.MatmulMontCtx(nsq, L, device=dev)
+        wts = (mc.W_mu, mc.W_m)
+        if B > Bt:
+            got = mont2.mm2_exp(a, d20, *wts, c.one, 3)
+            record("mm2_exp", got, None, f"L={L} B={B} win 3..8",
+                   ms_of(lambda: mont2.mm2_exp(a, d20, *wts, c.one, 3), 2),
+                   None, nbytes(a, got, c.one, mc.m_limbs) + 4 * d20.size,
+                   limb_ops(L, 14 + 5, B, 4 * 5))
+            coop_note(L, B, 14 + 5, 4 * 5)
+            equals("mm2_exp", "mm3_exp", got,
+                   lambda: mont3.mm3_exp(a, d20, c, 3), L)
+        k15(dev, record, a8, short, nsq, c, w)
+        got = mont2.mm2_exp_shared(a, dig, *wts, c.one, w)
+        nmul, nsq_w = (1 << w) - 2 + len(dig), len(dig) * w
+        record("mm2_exp_shared", got, None,
+               f"L={L} B={B} w={w} {len(dig)} windows (p-1)",
+               ms_of(lambda: mont2.mm2_exp_shared(a, dig, *wts, c.one, w), 1),
+               None, nbytes(a, got, c.one, mc.m_limbs) + 4 * len(dig),
+               limb_ops(L, nmul, B, nsq_w))
+        coop_note(L, B, nmul, nsq_w)
+        k7, k7_ms = timed(lambda: mont3.mm3_exp_shared(a, dig, c, w))
+        same(got, k7, f"K15 differs from K7 at L={L}, B={B}")
+        print(f"  mm2_exp_shared equals mm3_exp_shared at L={L}, B={B} (K7 "
+              f"on the same input {k7_ms:.3f} ms)", flush=True)
+        del got, k7, a
 
 
 def coop_floor_ms(L: int, products: int, B: int, squares: int = 0) -> float:
@@ -2180,6 +2410,56 @@ def run_example(rel: str, argv: list, done: str):
     return res, secs
 
 
+class Steps:
+    """Timed steps of one rung (phases 11 and 12): ``step(name, fn)``
+    runs fn() and returns its result, recording and printing the wall
+    time (host clock) and device span (CUDA events) of that run and the
+    device kernel time of a profiled second run (of the same run when
+    `once`: keygen is random, a comb is cached, the host share of a split
+    encrypt is slow); the launch counters keep the first run only.  The
+    profiler has missed hand-written launches that the counters saw
+    (K4's, in some runs): such a shortfall is printed beside the sum."""
+
+    def __init__(self, bits: int):
+        self.bits = bits
+        self.steps = {}
+        self.device_kernels = load_script(
+            "tools/torch_profile.py").device_kernels
+
+    def __call__(self, name, fn, once=False):
+        import torch
+        from pailliercryptolib_python_tpu_torch import kernels
+        box = {}
+        c0 = dict(kernels.COUNTS)
+        if once:
+            t0 = time.perf_counter()
+            dk = self.device_kernels(lambda: box.setdefault("out", fn()))
+            secs, span = time.perf_counter() - t0, None
+            c1 = dict(kernels.COUNTS)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, span = timed(lambda: box.setdefault("out", fn()))
+            secs = time.perf_counter() - t0
+            c1 = dict(kernels.COUNTS)
+            dk = self.device_kernels(fn)
+            kernels.COUNTS.update(c1)
+        dev_ms = sum(v[0] for v in dk.values())
+        launched = sum(c1[k] - c0[k] for k in c1)
+        seen = sum(v[1] for k, v in dk.items() if k != "eager")
+        self.steps[name] = dict(wall_s=secs, span_ms=span, kernel_ms=dev_ms,
+                                kernels=dk, launched=launched, seen=seen)
+        parts = ", ".join(f"{k} {v[0]:.1f} ms / {v[1]}" for k, v in
+                          sorted(dk.items(), key=lambda kv: -kv[1][0]))
+        span_s = "" if span is None else f"span {span:9.2f} ms   "
+        short = (f" (the profiler saw {seen} of {launched} hand-written "
+                 f"launches)" if seen != launched else "")
+        print(f"  {self.bits} {name:14s} wall {secs:9.4f} s   {span_s}"
+              f"kernels {dev_ms:9.2f} ms: {parts or 'none'}{short}",
+              flush=True)
+        return box["out"]
+
+
 def ladder_rung(dev, bits: int, B: int, tag: str) -> dict:
     """Phase 11 at one rung of 3072 or 4096 bits, batch B, through the
     public API on the default engines: keygen (3072: the prime pool;
@@ -2192,65 +2472,23 @@ def ladder_rung(dev, bits: int, B: int, tag: str) -> dict:
     and its bytes.  Each step prints its wall time and device span (CUDA
     events) and the device kernel time of a profiled second run (keygen
     and the comb build: their one run, profiled, without a span)."""
-    import torch
     import pailliercryptolib_python_tpu_torch as pt
     from pailliercryptolib_python_tpu_torch import kernels
     from pailliercryptolib_python_tpu_torch.fixedpoint import encode_vector
     from pailliercryptolib_python_tpu_torch.utils.config import comb_registry
 
-    device_kernels = load_script("tools/torch_profile.py").device_kernels
     rng = np.random.default_rng(SEED + bits)
     x = rng.uniform(-1000.0, 1000.0, B)
     y = rng.uniform(-1000.0, 1000.0, B)
     w = rng.uniform(-1.0, 1.0, B)
-    steps = {}
+    step = Steps(bits)
+    steps = step.steps
 
-    def step(name, fn, once=False):
-        """Wall time (host clock) and device span (CUDA events) of
-        fn(), and the device kernel time of a profiled second run (of
-        the same run when `once`: keygen is random, the comb cached);
-        the launch counters keep the first run only.  The profiler has
-        missed hand-written launches that the counters saw (K4's, in
-        some runs): such a shortfall is printed beside the sum."""
-        box = {}
-        c0 = dict(kernels.COUNTS)
-        if once:
-            t0 = time.perf_counter()
-            dk = device_kernels(lambda: box.setdefault("out", fn()))
-            secs, span = time.perf_counter() - t0, None
-            c1 = dict(kernels.COUNTS)
-        else:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, span = timed(lambda: box.setdefault("out", fn()))
-            secs = time.perf_counter() - t0
-            c1 = dict(kernels.COUNTS)
-            dk = device_kernels(fn)
-            kernels.COUNTS.update(c1)
-        dev_ms = sum(v[0] for v in dk.values())
-        launched = sum(c1[k] - c0[k] for k in c1)
-        seen = sum(v[1] for k, v in dk.items() if k != "eager")
-        steps[name] = dict(wall_s=secs, span_ms=span, kernel_ms=dev_ms,
-                           kernels=dk, launched=launched, seen=seen)
-        parts = ", ".join(f"{k} {v[0]:.1f} ms / {v[1]}" for k, v in
-                          sorted(dk.items(), key=lambda kv: -kv[1][0]))
-        span_s = "" if span is None else f"span {span:9.2f} ms   "
-        short = (f" (the profiler saw {seen} of {launched} hand-written "
-                 f"launches)" if seen != launched else "")
-        print(f"  {bits} {name:14s} wall {secs:9.4f} s   {span_s}kernels "
-              f"{dev_ms:9.2f} ms: {parts or 'none'}{short}", flush=True)
-        return box["out"]
-
-    cfg = pt.get_config()
-    saved = (cfg.keygen_device, cfg.keygen_parallel)
-    if bits >= 4096:
-        pt.set_config(keygen_device="1", keygen_parallel="0")
     kernels.reset_counts()
-    try:
+    with knobs(**(dict(keygen_device="1", keygen_parallel="0")
+                  if bits >= 4096 else {})):
         pk, sk = step("keygen", lambda: pt.PaillierKeypair.generate_keypair(
             bits, device=dev), once=True)
-    finally:
-        pt.set_config(keygen_device=saved[0], keygen_parallel=saved[1])
     pub = pk.pubkey.context
     if pk.n.bit_length() != bits:
         raise AssertionError(f"keygen({bits}) made a {pk.n.bit_length()}-bit "
@@ -2343,6 +2581,400 @@ def ladder(dev, tag: str) -> dict:
     return rungs
 
 
+@contextlib.contextmanager
+def knobs(**kw):
+    """The port's config knobs set to `kw` inside the block, restored
+    after it."""
+    import pailliercryptolib_python_tpu_torch as pt
+    cfg = pt.get_config()
+    saved = {k: getattr(cfg, k) for k in kw}
+    pt.set_config(**kw)
+    try:
+        yield cfg
+    finally:
+        pt.set_config(**saved)
+
+
+class Inject:
+    """A stand-in for ``PublicContext.sample_obfuscator_digits``: hands out
+    the columns of fixed digits in turn, wrapping at their width, so a
+    chunked or split encrypt takes the same obfuscator r per value as one
+    call over the same values."""
+
+    def __init__(self, digits: np.ndarray):
+        self.digits, self.at = digits, 0
+
+    def __call__(self, b: int) -> np.ndarray:
+        width = self.digits.shape[1]
+        cols = (self.at + np.arange(b)) % width
+        self.at = (self.at + b) % width
+        return np.ascontiguousarray(self.digits[:, cols])
+
+
+class HostR:
+    """A stand-in for the ``secrets`` module of ``models/paillier.py``
+    while a split encrypt runs: its host leg (``host_encrypt``) draws r
+    by ``randbits`` and gets the given values in turn."""
+
+    def __init__(self, rs: list):
+        self.rs = list(rs)
+
+    def randbits(self, k: int) -> int:
+        r = self.rs.pop(0)
+        if r >> k:
+            raise AssertionError(f"injected r has more than {k} bits")
+        return r
+
+    def __getattr__(self, name):
+        import secrets
+        return getattr(secrets, name)
+
+
+def engines_rung(dev, bits: int, B: int, tag: str) -> dict:
+    """Phase 12 at one rung of ``LADDER`` (3072 bits at B=10240, 4096 at
+    B=256): every engine the runtime knobs offer, on one key, each result
+    against the default engines' on the same inputs and obfuscator r.
+
+    e. keygen with ``keygen_device="1"``, ``keygen_parallel="0"``: the
+       device base-2 Miller-Rabin (K10, K9) in this process;
+    -  the default engines (the RNS comb, K1; decrypt on K2; ct*pt on K5):
+       encrypt of B floats x and y under injected r, decrypt, ``x + y``,
+       ``x.sum()``, ``x * w`` (about half the weights negative),
+       ``x.dot(w)``, the reference of every check below;
+    a. ``encrypt_engine="limb"``: the limb comb (window 12 at both rungs,
+       its bytes asserted), one gather and one K3 product a window;
+    b. ``decrypt_engine="limb"``: stage 2 on K7, a chain per CRT half;
+    c. both engines "limb": ``x + y``, ``x.sum()``, ``x * w``,
+       ``x.dot(w)`` on K4 (ct*pt and the exponent alignment) and K3 (the
+       inversion tree, the folds), decrypted on K7;
+    d. ``fixed_shape_ops=True`` on the default engines: ``x * w`` and
+       ``x.dot(w)`` over the full mod-n window count of K5 (its shared
+       memory checked first), the inversion over the whole batch;
+    f. ``hybridControl``: OPTIMAL (4 pipelined chunks; at B=256 over x
+       four times, so the chunks engage) and, after
+       ``context.initializeContext``, PREF_QAT90 (a tenth of 256 values
+       through Python's ``pow`` on the host thread, their r injected too);
+    g. the sharded layer in a world-size-1 NCCL group: ``sharded_decrypt``,
+       ``sharded_mul_pt`` and ``sharded_he_sum`` against the unsharded
+       ops, no collective in the chains and one all-gather in the sum.
+
+    Every plaintext and exported ciphertext equals the default engines',
+    every decrypted result is allclose to numpy, and one column of each
+    encrypt engine equals (1 + m n) hs^r mod n^2 from Python's ``pow``.
+    The launch counters are set to 0 before each combination and read
+    after it."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import pailliercryptolib_python_tpu_torch as pt
+    from pailliercryptolib_python_tpu_torch import kernels
+    from pailliercryptolib_python_tpu_torch.fixedpoint import (decode_vector,
+                                                              encode_vector)
+    from pailliercryptolib_python_tpu_torch.models import paillier as sch
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    from pailliercryptolib_python_tpu_torch.ops.limb import limbs_to_ints
+    from pailliercryptolib_python_tpu_torch.parallel import collective as coll
+    from pailliercryptolib_python_tpu_torch.parallel import distributed as pd
+    from pailliercryptolib_python_tpu_torch.parallel import mesh as pmesh
+    from pailliercryptolib_python_tpu_torch.parallel import sharded_ops as so
+    from pailliercryptolib_python_tpu_torch.utils.context import (
+        context, hybridControl, hybridMode)
+
+    rng = np.random.default_rng(SEED + 12 + bits)
+    x = rng.uniform(-1000.0, 1000.0, B)
+    y = rng.uniform(-1000.0, 1000.0, B)
+    w = rng.uniform(-1.0, 1.0, B)
+    step = Steps(bits)
+    counts = {}
+
+    def combo(name, fn):
+        """fn() with the launch counters set to 0 before and read after."""
+        kernels.reset_counts()
+        out = fn()
+        counts[name] = dict(kernels.COUNTS)
+        print(f"  {bits} {name}: launches {counts[name]}", flush=True)
+        return out
+
+    # e. the key, with the device Miller-Rabin in this process
+    def keygen():
+        with knobs(keygen_device="1", keygen_parallel="0"):
+            return step("keygen (device MR)", lambda: (
+                pt.PaillierKeypair.generate_keypair(bits, device=dev)),
+                once=True)
+    pk, sk = combo("e keygen", keygen)
+    pub, priv = pk.pubkey.context, sk.prikey.context
+    n, nsq, p, q = pk.n, pk.n * pk.n, priv.p, priv.q
+    if not (n.bit_length() == bits and sch.is_probable_prime(p)
+            and sch.is_probable_prime(q)):
+        raise AssertionError(f"{bits}-bit device-MR keygen: p, q or n wrong")
+
+    # obfuscator r < 2^randbits a column, as digits of each comb's window
+    rbytes = -(-pub.randbits // 8)
+    rs = [int.from_bytes(rng.bytes(rbytes), "little")
+          & ((1 << pub.randbits) - 1) for _ in range(B)]
+
+    def inject(ctx):
+        nw = -(-ctx.randbits // ctx.comb_window)
+        ctx.sample_obfuscator_digits = Inject(mg.exponent_digits(
+            rs, nw, ctx.comb_window, msb_first=False).astype(np.uint16))
+
+    encs = encode_vector(x, n, pk.max_int)[0]
+
+    def pow_check(ct, what):
+        """Column 0 and the last column of `ct` (B values of x) against
+        Python's pow."""
+        got = ct.ciphertext().host_ints()
+        for b in (0, B - 1):
+            if got[b] != (1 + encs[b] * n) * pow(pub.hs, rs[b], nsq) % nsq:
+                raise AssertionError(f"{bits} bits, {what}: column {b} "
+                                     f"differs from Python's pow")
+
+    def cts(ct):
+        return ct.ciphertext().host_ints()
+
+    def plain(key, ct):
+        """(plaintext ints, decoded floats) of one decrypt."""
+        ints = key.prikey.context.decrypt_to_ints(
+            ct.ciphertext().device_array(), len(ct))
+        return ints, np.asarray(decode_vector(ints, np.atleast_1d(
+            ct.exponent()), n, pk.max_int), dtype=float)
+
+    def agree(what, got, want, ints=None, ref_ints=None):
+        if got != want:
+            raise AssertionError(f"{bits} bits, {what}: ciphertexts differ "
+                                 f"from the default engines'")
+        if ints is not None and ints != ref_ints:
+            raise AssertionError(f"{bits} bits, {what}: plaintexts differ "
+                                 f"from the default engines'")
+
+    # the default engines: the reference of every combination
+    def default():
+        step("comb build (RNS)", lambda: pub.comb_rns, once=True)
+        inject(pub)
+        ct_x = step("encrypt (RNS)", lambda: pk.encrypt(x))
+        ct_y = pk.encrypt(y)
+        ref = dict(x=ct_x, y=ct_y, ops={})
+        ref["float_x"] = step("decrypt (K2)", lambda: sk.decrypt(ct_x))
+        ref["plain_x"] = plain(sk, ct_x)
+        for label, fn in (("x + y", lambda: ct_x + ct_y),
+                          ("x.sum()", lambda: ct_x.sum()),
+                          ("x * w", lambda: ct_x * w),
+                          ("x.dot(w)", lambda: ct_x.dot(w))):
+            ref["ops"][label] = step(label + " (RNS)", fn)
+        return ref
+    ref = combo("default", default)
+    pow_check(ref["x"], "RNS comb")
+    want = {"x + y": x + y, "x.sum()": x.sum(), "x * w": x * w,
+            "x.dot(w)": x @ w}
+    ref_cts = {k: cts(v) for k, v in ref["ops"].items()}
+    ref_plain = {k: plain(sk, v) for k, v in ref["ops"].items()}
+    for k, (_, fl) in list(ref_plain.items()) + [
+            ("x", ref["plain_x"]), ("x (API)", (None, ref["float_x"]))]:
+        if not np.allclose(fl, want.get(k, x)):
+            raise AssertionError(f"{bits} bits, default engines: {k} "
+                                 f"differs from numpy")
+    ref_x = cts(ref["x"])
+
+    # a. the limb comb (the RNS window shrink is skipped: window 12)
+    def limb_encrypt():
+        with knobs(encrypt_engine="limb", decrypt_engine="limb"):
+            lpk = pt.PaillierPublicKey(pt.ipclPublicKey(
+                n, bits, True, pub.hs, pub.randbits, device=dev))
+            lpub = lpk.pubkey.context
+            comb = step("comb build (limb)", lambda: lpub.comb_table,
+                        once=True)
+            inject(lpub)
+            lct_x = step("encrypt (limb)", lambda: lpk.encrypt(x))
+            lct_y = lpk.encrypt(y)
+        return lpk, comb, lct_x, lct_y
+    lpk, comb, lct_x, lct_y = combo("a limb encrypt", limb_encrypt)
+    lpub = lpk.pubkey.context
+    nwl = -(-lpub.randbits // lpub.comb_window)
+    comb_bytes = comb.numel() * comb.element_size()
+    print(f"  {bits} limb comb: window {lpub.comb_window}, {nwl} windows x "
+          f"L={lpub.L} x {1 << lpub.comb_window} entries = {comb_bytes} B "
+          f"(the RNS comb: window {pub.comb_window})", flush=True)
+    if (lpub.comb_window, comb_bytes) != LIMB_COMB[bits] or \
+            comb_bytes != nwl * lpub.L * (1 << lpub.comb_window) * 4:
+        raise AssertionError(f"{bits}-bit limb comb: window "
+                             f"{lpub.comb_window}, {comb_bytes} B")
+    del comb
+    pow_check(lct_x, "limb comb")
+    agree("the limb comb", cts(lct_x), ref_x,
+          plain(sk, lct_x)[0], ref["plain_x"][0])
+    agree("the limb comb (y)", cts(lct_y), cts(ref["y"]))
+
+    # b. the limb decrypt: stage 2 on K7, one chain per CRT half
+    def limb_decrypt():
+        with knobs(decrypt_engine="limb"):
+            lsk = pt.PaillierPrivateKey(pk, p, q)
+        lpriv = lsk.prikey.context
+        if lpriv.use_rns or lpriv._sq_p.wmu is None:
+            raise AssertionError(f"{bits} bits: the limb decrypt is not on "
+                                 f"K7")
+        print(f"  {bits} limb decrypt: Lh={lpriv.Lh}, window "
+              f"{lpriv.dec_window}, {len(lpriv.dig_p)} windows a half",
+              flush=True)
+        fl = step("decrypt (K7)", lambda: lsk.decrypt(ref["x"]))
+        return lsk, fl, plain(lsk, ref["x"])
+    lsk, fl, got = combo("b limb decrypt", limb_decrypt)
+    if got[0] != ref["plain_x"][0] or not (np.allclose(got[1], x)
+                                           and np.allclose(fl, x)):
+        raise AssertionError(f"{bits} bits: the K7 decrypt differs")
+
+    # c. both engines limb: ct*pt and the alignment on K4, the inversion
+    # tree and the folds on K3, decrypted on K7
+    def limb_ops():
+        out = {}
+        with knobs(encrypt_engine="limb", decrypt_engine="limb"):
+            for label, fn in (("x + y", lambda: lct_x + lct_y),
+                              ("x.sum()", lambda: lct_x.sum()),
+                              ("x * w", lambda: lct_x * w),
+                              ("x.dot(w)", lambda: lct_x.dot(w))):
+                out[label] = step(label + " (limb)", fn)
+            if lpub._rns_mul_plan() is not None:
+                raise AssertionError("both engines limb: the RNS ct*pt "
+                                     "plan is on")
+            return out, {k: plain(lsk, v) for k, v in out.items()}
+    lops, lplain = combo("c limb ops", limb_ops)
+    for k, ct in lops.items():
+        agree(f"{k} (limb)", cts(ct), ref_cts[k], lplain[k][0],
+              ref_plain[k][0])
+        if not np.allclose(lplain[k][1], want[k]):
+            raise AssertionError(f"{bits} bits, {k} (limb) differs from "
+                                 f"numpy")
+
+    # d. fixed_shape_ops on the default engines: K5 over the full mod-n
+    # window count, the inversion over the whole batch
+    base = pub.rns_plan()[0]
+    nw_full = -(-pub.bits // sch.WINDOW)
+    sm = rns_smem(base.k, base.CH, nw_full)
+    print(f"  {bits} fixed shape: K5 over {nw_full} windows at CH={base.CH} "
+          f"asks {sm['k5']} B of shared memory (limit 232448)", flush=True)
+    if sm["k5"] > 232448:
+        raise AssertionError(f"K5 at {nw_full} windows asks {sm['k5']} B")
+
+    def fixed():
+        with knobs(fixed_shape_ops=True):
+            return {label: step(label + " (fixed)", fn) for label, fn in (
+                ("x * w", lambda: ref["x"] * w),
+                ("x.dot(w)", lambda: ref["x"].dot(w)))}
+    fops = combo("d fixed shape", fixed)
+    for k, ct in fops.items():
+        agree(f"{k} (fixed shape)", cts(ct), ref_cts[k],
+              plain(sk, ct)[0], ref_plain[k][0])
+
+    # f. hybridControl: four pipelined chunks, then a split with Python's
+    # pow on the host thread
+    xs = x if B >= 1024 else np.tile(x, 1024 // B)
+    Bs = 256
+
+    def hybrid():
+        cfg = pt.get_config()
+        with knobs(encrypt_pipeline_chunks=cfg.encrypt_pipeline_chunks,
+                   encrypt_host_ratio=cfg.encrypt_host_ratio):
+            try:
+                hybridControl.setHybridMode(hybridMode.OPTIMAL)
+                if (cfg.encrypt_pipeline_chunks,
+                        cfg.encrypt_host_ratio) != (4, 0.0):
+                    raise AssertionError("OPTIMAL: not 4 chunks, no host")
+                inject(pub)
+                ct4 = step("encrypt, 4 chunks", lambda: pk.encrypt(xs))
+                context.initializeContext("QAT")
+                hybridControl.setHybridMode(hybridMode.PREF_QAT90)
+                nh = int(Bs * cfg.encrypt_host_ratio)
+                if nh != Bs // 10:
+                    raise AssertionError(f"PREF_QAT90: host share {nh}")
+                inject(pub)
+                host = HostR(rs[Bs - nh:Bs])
+                sch.secrets, saved = host, sch.secrets
+                try:
+                    cts_split = step("encrypt, split QAT90",
+                                     lambda: pk.encrypt(x[:Bs]), once=True)
+                finally:
+                    sch.secrets = saved
+                if host.rs:
+                    raise AssertionError(f"the host leg drew {nh - len(host.rs)}"
+                                         f" of {nh} r")
+            finally:
+                hybridControl.setHybridMode(hybridMode.UNDEFINED)
+                context.terminateContext()
+        return ct4, cts_split, nh
+    ct4, ct_split, nh = combo("f hybrid", hybrid)
+    agree("4 pipelined chunks", cts(ct4), ref_x * (len(xs) // B))
+    agree(f"the split ({nh} of {Bs} on the host)", cts(ct_split),
+          ref_x[:Bs])
+    print(f"  {bits} hybrid: 4 chunks of {len(xs) // 4}, and a split with "
+          f"{nh} of {Bs} values through Python's pow, equal the default "
+          f"engines' ciphertexts", flush=True)
+
+    # g. the sharded layer, one rank
+    def sharded():
+        tmp = tempfile.TemporaryDirectory()
+        pd.initialize(init_method=f"file://{tmp.name}/store",
+                      num_processes=1, process_id=0, device=dev)
+        try:
+            mesh = pmesh.make_mesh(device_type=dev.type)
+            dx = ref["x"].ciphertext().device_array()
+            shard = pmesh.shard_batch(dx, mesh)
+            exps = [int(v) for v in rng.integers(1, 1 << 53, size=B)]
+            out = {}
+            # the group's first all-gather also sets up NCCL's
+            # communicator: once here, outside the timed calls
+            coll.sharded_he_sum(shard, pub.ctx, mesh)
+            with knobs(fixed_shape_ops=True):
+                for name, fn, plain_fn, allowed in (
+                        ("sharded_decrypt",
+                         lambda: so.sharded_decrypt(priv, shard, mesh),
+                         lambda: priv.decrypt_device(dx), {}),
+                        ("sharded_mul_pt",
+                         lambda: so.sharded_mul_pt(pub, shard, exps, mesh),
+                         lambda: pub.mul_pt(dx, exps), {}),
+                        ("sharded_he_sum",
+                         lambda: coll.sharded_he_sum(shard, pub.ctx, mesh),
+                         lambda: pub.tree_reduce(dx, B)[:, :1],
+                         {"all_gather": 1})):
+                    with coll.count_collectives() as calls:
+                        got, ms = timed(fn)
+                    want_t, plain_ms = timed(plain_fn)
+                    if not torch.equal(got, want_t):
+                        raise AssertionError(f"{bits} bits: {name} differs "
+                                             f"from the unsharded op")
+                    if dict(calls) != allowed:
+                        raise AssertionError(f"{name} ran collectives "
+                                             f"{dict(calls)}")
+                    out[name] = got
+                    print(f"  {bits} {name:16s} equals the unsharded op; "
+                          f"{dict(calls) or 'no collectives'}; {ms:.3f} ms "
+                          f"against {plain_ms:.3f} ms unsharded", flush=True)
+            return out, exps
+        finally:
+            pd.shutdown()
+            tmp.cleanup()
+    sh, exps = combo("g sharded", sharded)
+    if dist.is_initialized():
+        raise AssertionError("the process group outlived phase 12")
+    if limbs_to_ints(sh["sharded_decrypt"])[:B] != ref["plain_x"][0]:
+        raise AssertionError(f"{bits} bits: sharded_decrypt plaintexts")
+    if priv.decrypt_to_ints(sh["sharded_mul_pt"], B) != [
+            e * v % n for e, v in zip(ref["plain_x"][0], exps)]:
+        raise AssertionError(f"{bits} bits: sharded_mul_pt decrypts wrong")
+
+    print(f"  {bits} bits, B={B}: every engine's plaintexts and exported "
+          f"ciphertexts equal the default engines', every result allclose "
+          f"to numpy, each comb's columns equal Python's pow ({tag})",
+          flush=True)
+    lpub.free()
+    pub.free()
+    total = {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+    return dict(steps=step.steps, counts=counts, total=total)
+
+
+def engines_ladder(dev, tag: str) -> dict:
+    """Phase 12: ``engines_rung`` at each rung of 3072 and 4096 bits."""
+    return {bits: engines_rung(dev, bits, B, tag) for bits, B in LADDER[1:]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2414,6 +3046,12 @@ def main() -> int:
     s11 = ladder(dev, card)
     print(f"    phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"[12] the engines on the ladder: " + ", ".join(
+        f"{b} bits B={n}" for b, n in LADDER[1:]) + f" ({card})", flush=True)
+    t0 = time.perf_counter()
+    s12 = engines_ladder(dev, card)
+    print(f"    phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
     missing = ([k for k in FIRST_SLICE if mp["counts"][k] <= 0]
                + [k for k in SECOND_SLICE if s2["counts"][k] <= 0]
                + [k for k in THIRD_SLICE if s3["counts"][k] <= 0]
@@ -2423,17 +3061,26 @@ def main() -> int:
                + [f"{k} ({b} bits)" for b, r in s11.items()
                   for k in LADDER_SLICE + (LADDER_KEYGEN if b >= 4096
                                            else ())
-                  if r["counts"][k] <= 0])
+                  if r["counts"][k] <= 0]
+               + [f"{k} (phase 12, {b} bits, {c})" for b, r in s12.items()
+                  for c, ks in (("all", LADDER_ENGINES),
+                                ("d fixed shape", LADDER_FIXED),
+                                ("e keygen", LADDER_KEYGEN))
+                  for k in ks
+                  if (r["total"] if c == "all" else r["counts"][c])[k] <= 0])
     if missing:
         raise AssertionError(f"a phase never launched {missing}")
     phases = (mp, s2, s3, s4, s5, s6, *s11.values())
-    launches = {k: sum(s["counts"][k] for s in phases) for k in KERNELS}
+    launches = {k: sum(s["counts"][k] for s in phases)
+                + sum(r["total"][k] for r in s12.values()) for k in KERNELS}
     print(f"[5] every kernel launched: phase 4 {mp['counts']}, phase 6 "
           f"{s2['counts']}, phase 7 {s3['counts']}, phase 8 {s4['counts']}, "
           f"phase 9 {s5['counts']}, phase 10 {s6['counts']}, phase 11 "
-          + ", ".join(f"{b} bits {r['counts']}" for b, r in s11.items()),
+          + ", ".join(f"{b} bits {r['counts']}" for b, r in s11.items())
+          + ", phase 12 " + ", ".join(f"{b} bits {r['total']}"
+                                      for b, r in s12.items()),
           flush=True)
-    print(f"    phases 3-11: {time.perf_counter() - t_all:.1f} s; library "
+    print(f"    phases 3-12: {time.perf_counter() - t_all:.1f} s; library "
           f"call: none (no single PyTorch call computes an RNS product or "
           f"a modular exponentiation)", flush=True)
 
