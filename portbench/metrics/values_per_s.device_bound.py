@@ -1,0 +1,8 @@
+"""values_per_s.device_bound: values_per_s, read in the cells
+whose device is busy most of the window, under a bound of their own:
+their runs spread several times less than those of the cells that the
+host's Python paces."""
+
+
+def read(run):
+    return run.metric("values_per_s")
