@@ -31,6 +31,7 @@ from .ops import montgomery as mg
 from .ops.limb import h2d
 from .utils import config as _config
 from .utils.context import context as _context
+from .utils.profiling import annotate
 
 
 class BNUtils:
@@ -165,42 +166,45 @@ class PaillierPublicKey:
         batch of at least 256 per chunk runs chunked: each chunk's host
         stage (fixed-point encode, limb pack, entropy) overlaps the
         device work enqueued for the chunk before."""
-        if np.isscalar(values):
-            values = [values]
-        arr = np.asarray(values)
-        if arr.dtype.kind not in "fiu":
-            if not all(isinstance(v, (int, float, np.integer, np.floating))
-                       for v in values):
-                raise ValueError(
-                    "PaillierPublicKey.encrypt: input value(s) should be "
-                    "integer or float")
-        B = len(values)
-        cfg = _config.get_config()
-        chunks = cfg.encrypt_pipeline_chunks
-        split_active = cfg.encrypt_host_ratio > 0
-        if chunks > 1 and not split_active and B >= 256 * chunks:
-            csize = pad_batch(-(-B // chunks))
-            sliceable = arr if arr.dtype.kind in "fiu" else values
-            devs, expos_parts = [], []
-            for i in range(0, B, csize):
-                encs, exps = encode_vector(sliceable[i:i + csize],
-                                           self.n, self.max_int)
-                devs.append(self.pubkey.context.encrypt(
-                    encs, apply_obfuscator, pad_to=csize))
-                expos_parts.append(exps)
-            ct_dev = torch.cat(devs, dim=1)[:, :pad_batch(B)]
-            ct = ipclCipherText(self.pubkey, _dev=ct_dev, _length=B)
-            return PaillierEncryptedNumber(
-                self, ct, exponents=np.concatenate(expos_parts), length=B)
+        with annotate("pct.api.encrypt"):
+            if np.isscalar(values):
+                values = [values]
+            arr = np.asarray(values)
+            if arr.dtype.kind not in "fiu":
+                if not all(isinstance(v, (int, float, np.integer, np.floating))
+                           for v in values):
+                    raise ValueError(
+                        "PaillierPublicKey.encrypt: input value(s) should be "
+                        "integer or float")
+            B = len(values)
+            cfg = _config.get_config()
+            chunks = cfg.encrypt_pipeline_chunks
+            split_active = cfg.encrypt_host_ratio > 0
+            if chunks > 1 and not split_active and B >= 256 * chunks:
+                csize = pad_batch(-(-B // chunks))
+                sliceable = arr if arr.dtype.kind in "fiu" else values
+                devs, expos_parts = [], []
+                for i in range(0, B, csize):
+                    encs, exps = encode_vector(sliceable[i:i + csize],
+                                               self.n, self.max_int)
+                    devs.append(self.pubkey.context.encrypt(
+                        encs, apply_obfuscator, pad_to=csize))
+                    expos_parts.append(exps)
+                ct_dev = torch.cat(devs, dim=1)[:, :pad_batch(B)]
+                ct = ipclCipherText(self.pubkey, _dev=ct_dev, _length=B)
+                return PaillierEncryptedNumber(
+                    self, ct, exponents=np.concatenate(expos_parts), length=B)
 
-        encodings, expos = encode_vector(values, self.n, self.max_int)
-        ct_dev = _hybrid_split_encrypt(self.pubkey.context, encodings,
-                                       apply_obfuscator)
-        if ct_dev is None:
-            ct_dev = self.pubkey.context.encrypt(encodings, apply_obfuscator)
-        ct = ipclCipherText(self.pubkey, _dev=ct_dev, _length=len(encodings))
-        return PaillierEncryptedNumber(self, ct, exponents=expos,
-                                       length=len(encodings))
+            encodings, expos = encode_vector(values, self.n, self.max_int)
+            ct_dev = _hybrid_split_encrypt(self.pubkey.context, encodings,
+                                           apply_obfuscator)
+            if ct_dev is None:
+                ct_dev = self.pubkey.context.encrypt(encodings,
+                                                     apply_obfuscator)
+            ct = ipclCipherText(self.pubkey, _dev=ct_dev,
+                                _length=len(encodings))
+            return PaillierEncryptedNumber(self, ct, exponents=expos,
+                                           length=len(encodings))
 
 
 class PaillierPrivateKey:
@@ -245,7 +249,9 @@ class PaillierPrivateKey:
             raise ValueError(
                 "PaillierPrivateKey.raw_decrypt: Public key mismatch")
         ct = ciphertext.ciphertext()
-        ret = self.prikey.context.decrypt_to_ints(ct.device_array(), len(ct))
+        with annotate("pct.api.decrypt"):
+            ret = self.prikey.context.decrypt_to_ints(ct.device_array(),
+                                                      len(ct))
         return ret if len(ciphertext) > 1 else ret[0]
 
     def decrypt(self, encrypted_number: "PaillierEncryptedNumber"):
@@ -253,10 +259,13 @@ class PaillierPrivateKey:
         if encrypted_number.public_key.n != self.__n:
             raise ValueError("PailierPrivateKey.decrypt: Public key mismatch")
         ct = encrypted_number.ciphertext()
-        m_dev = self.prikey.context.decrypt_device(ct.device_array())
-        ret = decode_limbs_vector(m_dev.cpu().numpy(), len(ct),
-                                  encrypted_number._expos_np(),
-                                  self.__n, self.__max_int)
+        with annotate("pct.api.decrypt"):
+            m_dev = self.prikey.context.decrypt_device(ct.device_array())
+            with annotate("pct.api.readback"):
+                m_host = m_dev.cpu().numpy()
+            ret = decode_limbs_vector(m_host, len(ct),
+                                      encrypted_number._expos_np(),
+                                      self.__n, self.__max_int)
         return ret if len(encrypted_number) > 1 else ret[0]
 
 
@@ -338,8 +347,9 @@ class PaillierEncryptedNumber:
         """ct * BASE^diff per element: one batched ct*pt."""
         if not np.any(diffs > 0):
             return ct_dev
-        exps = [1 << int(d) if d > 0 else 1 for d in diffs]
-        return self._ctx().mul_pt(ct_dev, exps)
+        with annotate("pct.api.align"):
+            exps = [1 << int(d) if d > 0 else 1 for d in diffs]
+            return self._ctx().mul_pt(ct_dev, exps)
 
     def increase_exponent_to(self, x_ct: ipclCipherText, x_expo,
                              exponent: int) -> ipclCipherText:
@@ -359,19 +369,21 @@ class PaillierEncryptedNumber:
         back.  Under fixed_shape_ops the whole batch is inverted and the
         flagged columns are picked by a mask, so nothing depends on the
         sign pattern."""
-        ctx = self._ctx()
-        if _config.get_config().fixed_shape_ops:
-            inv = mg.mont_inv_tree_hostroot(ct_dev, ctx.ctx, ctx.nsquare)
-            mask = np.zeros(ct_dev.shape[1], dtype=bool)
-            mask[:len(flags)] = flags
-            return torch.where(h2d(torch.from_numpy(mask), ct_dev.device)[
-                None, :], inv, ct_dev)
-        idx = np.nonzero(flags)[0]
-        inv = mg.mont_inv_tree_hostroot(ctx.gather_batch(ct_dev, idx),
-                                        ctx.ctx, ctx.nsquare)
-        out = ct_dev.clone()
-        out[:, h2d(torch.from_numpy(idx), ct_dev.device)] = inv[:, :len(idx)]
-        return out
+        with annotate("pct.api.invert"):
+            ctx = self._ctx()
+            if _config.get_config().fixed_shape_ops:
+                inv = mg.mont_inv_tree_hostroot(ct_dev, ctx.ctx, ctx.nsquare)
+                mask = np.zeros(ct_dev.shape[1], dtype=bool)
+                mask[:len(flags)] = flags
+                return torch.where(h2d(torch.from_numpy(mask), ct_dev.device)[
+                    None, :], inv, ct_dev)
+            idx = np.nonzero(flags)[0]
+            inv = mg.mont_inv_tree_hostroot(ctx.gather_batch(ct_dev, idx),
+                                            ctx.ctx, ctx.nsquare)
+            out = ct_dev.clone()
+            out[:, h2d(torch.from_numpy(idx), ct_dev.device)] = \
+                inv[:, :len(idx)]
+            return out
 
     # -- addition --------------------------------------------------------------
 
@@ -395,37 +407,38 @@ class PaillierEncryptedNumber:
         return (self * (-1.0)).__raw_add(other)
 
     def __raw_add(self, other) -> "PaillierEncryptedNumber":
-        if isinstance(other, (np.ndarray, list)):
-            if self.__length != len(other):
-                raise ValueError(
-                    "PaillierEncryptedNumber.__raw_add: array(list) size"
-                    " mismatch with PaillierEncryptedNumber")
-            other = self.public_key.encrypt(other, apply_obfuscator=False)
-        elif np.isscalar(other) and isinstance(other, (int, float)):
-            other = self.public_key.encrypt(other, apply_obfuscator=False)
-        elif isinstance(other, PaillierEncryptedNumber):
-            if self.public_key != other.public_key:
-                raise ValueError(
-                    "PaillierEncryptedNumber.__raw_add: PublicKey mismatch")
-            if self.__length != len(other) and len(other) > 1:
-                raise ValueError(
-                    "PaillierEncryptedNumber.__raw_add: CipherText size"
-                    " mismatch with PaillierEncryptedNumber")
-        ctx = self._ctx()
-        b = self.__length
-        x_dev = self.__ct.device_array()
-        y_dev = other.ciphertext().device_array()
-        ex = self.__expos
-        ey = other._expos_np()
-        if len(other) == 1 and b > 1:
-            y_dev = ctx.gather_batch(y_dev, np.zeros(b, dtype=np.int64))
-            ey = np.broadcast_to(ey, (b,))
-        target = np.maximum(ex, ey)
-        x_dev = self._scale_by_pow2(x_dev, target - ex)
-        y_dev = self._scale_by_pow2(y_dev, target - ey)
-        res = ctx.add_ct(x_dev, y_dev)
-        ct = ipclCipherText(self.public_key.pubkey, _dev=res, _length=b)
-        return PaillierEncryptedNumber(self.public_key, ct, target, b)
+        with annotate("pct.api.add"):
+            if isinstance(other, (np.ndarray, list)):
+                if self.__length != len(other):
+                    raise ValueError(
+                        "PaillierEncryptedNumber.__raw_add: array(list) size"
+                        " mismatch with PaillierEncryptedNumber")
+                other = self.public_key.encrypt(other, apply_obfuscator=False)
+            elif np.isscalar(other) and isinstance(other, (int, float)):
+                other = self.public_key.encrypt(other, apply_obfuscator=False)
+            elif isinstance(other, PaillierEncryptedNumber):
+                if self.public_key != other.public_key:
+                    raise ValueError("PaillierEncryptedNumber.__raw_add: "
+                                     "PublicKey mismatch")
+                if self.__length != len(other) and len(other) > 1:
+                    raise ValueError(
+                        "PaillierEncryptedNumber.__raw_add: CipherText size"
+                        " mismatch with PaillierEncryptedNumber")
+            ctx = self._ctx()
+            b = self.__length
+            x_dev = self.__ct.device_array()
+            y_dev = other.ciphertext().device_array()
+            ex = self.__expos
+            ey = other._expos_np()
+            if len(other) == 1 and b > 1:
+                y_dev = ctx.gather_batch(y_dev, np.zeros(b, dtype=np.int64))
+                ey = np.broadcast_to(ey, (b,))
+            target = np.maximum(ex, ey)
+            x_dev = self._scale_by_pow2(x_dev, target - ex)
+            y_dev = self._scale_by_pow2(y_dev, target - ey)
+            res = ctx.add_ct(x_dev, y_dev)
+            ct = ipclCipherText(self.public_key.pubkey, _dev=res, _length=b)
+            return PaillierEncryptedNumber(self.public_key, ct, target, b)
 
     # -- multiplication / division ---------------------------------------------
 
@@ -441,45 +454,50 @@ class PaillierEncryptedNumber:
         """ct * plaintext (scalar or vector).  A negative plaintext
         (encoding >= n - max_int) is rewritten: the column is raised to
         the small n - pt and then inverted."""
-        b = self.__length
-        n = self.public_key.n
-        if np.isscalar(other):
-            enc = FixedPointNumber.encode(other, n, self.public_key.max_int)
-            if not 0 <= enc.encoding < n:
-                raise ValueError(
-                    f"PaillierEncryptedNumber.__mul__: Scalar out of"
-                    f"bounds: {enc.encoding}")
-            pts = [enc.encoding] * b
-            pt_expos = np.full(b, enc.exponent, dtype=np.int64)
-        else:
-            if len(other) != b:
-                raise ValueError(
-                    "PaillierEncryptedNumber.__mul__: Multiply size mismatch")
-            pts, pt_expos = encode_vector(other, n, self.public_key.max_int)
-            for pt in pts:
-                if not 0 <= pt < n:
-                    raise ValueError(f"Scalar out of bounds: {pt}")
-        cond = n - self.public_key.max_int
-        flags = np.array([pt >= cond for pt in pts], dtype=bool)
-        exps = [int(n - pt) if f else int(pt) for pt, f in zip(pts, flags)]
-        dev = self._ctx().mul_pt(self.__ct.device_array(), exps)
-        if flags.any():
-            dev = self._invert_columns(dev, flags, b)
-        ct = ipclCipherText(self.public_key.pubkey, _dev=dev, _length=b)
-        return PaillierEncryptedNumber(self.public_key, ct,
-                                       self.__expos + pt_expos, b)
+        with annotate("pct.api.mul"):
+            b = self.__length
+            n = self.public_key.n
+            max_int = self.public_key.max_int
+            if np.isscalar(other):
+                enc = FixedPointNumber.encode(other, n, max_int)
+                if not 0 <= enc.encoding < n:
+                    raise ValueError(
+                        f"PaillierEncryptedNumber.__mul__: Scalar out of"
+                        f"bounds: {enc.encoding}")
+                pts = [enc.encoding] * b
+                pt_expos = np.full(b, enc.exponent, dtype=np.int64)
+            else:
+                if len(other) != b:
+                    raise ValueError("PaillierEncryptedNumber.__mul__: "
+                                     "Multiply size mismatch")
+                pts, pt_expos = encode_vector(other, n, max_int)
+                for pt in pts:
+                    if not 0 <= pt < n:
+                        raise ValueError(f"Scalar out of bounds: {pt}")
+            with annotate("pct.api.flags"):
+                cond = n - max_int
+                flags = np.array([pt >= cond for pt in pts], dtype=bool)
+                exps = [int(n - pt) if f else int(pt)
+                        for pt, f in zip(pts, flags)]
+            dev = self._ctx().mul_pt(self.__ct.device_array(), exps)
+            if flags.any():
+                dev = self._invert_columns(dev, flags, b)
+            ct = ipclCipherText(self.public_key.pubkey, _dev=dev, _length=b)
+            return PaillierEncryptedNumber(self.public_key, ct,
+                                           self.__expos + pt_expos, b)
 
     # -- reductions -------------------------------------------------------------
 
     def sum(self) -> "PaillierEncryptedNumber":
-        ctx = self._ctx()
-        max_expo = int(self.__expos.max())
-        dev = self._scale_by_pow2(self.__ct.device_array(),
-                                  max_expo - self.__expos)
-        red = ctx.tree_reduce(dev, self.__length)
-        ct = ipclCipherText(self.public_key.pubkey, _dev=red, _length=1)
-        return PaillierEncryptedNumber(self.public_key, ct,
-                                       exponents=[max_expo], length=1)
+        with annotate("pct.api.sum"):
+            ctx = self._ctx()
+            max_expo = int(self.__expos.max())
+            dev = self._scale_by_pow2(self.__ct.device_array(),
+                                      max_expo - self.__expos)
+            red = ctx.tree_reduce(dev, self.__length)
+            ct = ipclCipherText(self.public_key.pubkey, _dev=red, _length=1)
+            return PaillierEncryptedNumber(self.public_key, ct,
+                                           exponents=[max_expo], length=1)
 
     def mean(self) -> "PaillierEncryptedNumber":
         return self.sum() / len(self)
@@ -500,55 +518,60 @@ class PaillierEncryptedNumber:
         inversion of negative columns, per-group alignment and a segmented
         tree reduce; processed in chunks of whole reduction groups of at
         most matmul_chunk_columns columns (one group if it is wider)."""
-        ctx = self._ctx()
-        G = m * k
-        nn = self.public_key.n
-        dev_self = self.__ct.device_array()
-        flat_pt = other.reshape(-1) if other.ndim == 2 else other
-        encs, pt_expos = encode_vector(flat_pt, nn, self.public_key.max_int)
-        for pt in encs:
-            if not 0 <= pt < nn:
-                raise ValueError(f"Scalar out of bounds: {pt}")
-        cond = nn - self.public_key.max_int
-        flags_flat = np.array([pt >= cond for pt in encs], dtype=bool)
-        exps_flat = np.empty(len(encs), dtype=object)
-        exps_flat[:] = [int(nn - pt) if f else int(pt)
-                        for pt, f in zip(encs, flags_flat)]
+        with annotate("pct.api.matmul"):
+            ctx = self._ctx()
+            G = m * k
+            nn = self.public_key.n
+            dev_self = self.__ct.device_array()
+            flat_pt = other.reshape(-1) if other.ndim == 2 else other
+            max_int = self.public_key.max_int
+            encs, pt_expos = encode_vector(flat_pt, nn, max_int)
+            with annotate("pct.api.flags"):
+                for pt in encs:
+                    if not 0 <= pt < nn:
+                        raise ValueError(f"Scalar out of bounds: {pt}")
+                cond = nn - max_int
+                flags_flat = np.array([pt >= cond for pt in encs], dtype=bool)
+                exps_flat = np.empty(len(encs), dtype=object)
+                exps_flat[:] = [int(nn - pt) if f else int(pt)
+                                for pt, f in zip(encs, flags_flat)]
 
-        g_per = max(1, _config.get_config().matmul_chunk_columns // n)
-        red_parts, tg_parts = [], []
-        for g0 in range(0, G, g_per):
-            gc = min(G, g0 + g_per) - g0
-            i = np.arange(g0 * n, (g0 + gc) * n)
-            if rhs:
-                idx_self = i % n * k + i // n % k
-                ox, oy = i // (n * k), i % n
-                pidx = ox * n + oy if other.ndim == 2 else oy
-            else:
-                idx_self = i // (n * k) * n + i % n
-                ox, oy = i % n, i // n % k
-                pidx = ox * k + oy if other.ndim == 2 else ox
-            temp = ctx.mul_pt(ctx.gather_batch(dev_self, idx_self),
-                              list(exps_flat[pidx]))
-            flags = flags_flat[pidx]
-            if flags.any():
-                temp = self._invert_columns(temp, flags, len(i))
-            temp_expo = self.__expos[idx_self] + pt_expos[pidx]
-            # align each group of n to its largest exponent, then reduce
-            tg = temp_expo.reshape(gc, n).max(axis=1)
-            diffs = (tg[:, None] - temp_expo.reshape(gc, n)).reshape(-1)
-            temp = self._scale_by_pow2(temp, diffs)
-            red_parts.append(ctx.segment_tree_reduce(temp, gc, n)[:, :gc])
-            tg_parts.append(tg)
+            g_per = max(1, _config.get_config().matmul_chunk_columns // n)
+            red_parts, tg_parts = [], []
+            for g0 in range(0, G, g_per):
+                gc = min(G, g0 + g_per) - g0
+                i = np.arange(g0 * n, (g0 + gc) * n)
+                if rhs:
+                    idx_self = i % n * k + i // n % k
+                    ox, oy = i // (n * k), i % n
+                    pidx = ox * n + oy if other.ndim == 2 else oy
+                else:
+                    idx_self = i // (n * k) * n + i % n
+                    ox, oy = i % n, i // n % k
+                    pidx = ox * k + oy if other.ndim == 2 else ox
+                with annotate("pct.api.flags"):
+                    exps = list(exps_flat[pidx])
+                temp = ctx.mul_pt(ctx.gather_batch(dev_self, idx_self), exps)
+                flags = flags_flat[pidx]
+                if flags.any():
+                    temp = self._invert_columns(temp, flags, len(i))
+                temp_expo = self.__expos[idx_self] + pt_expos[pidx]
+                # align each group of n to its largest exponent, then reduce
+                tg = temp_expo.reshape(gc, n).max(axis=1)
+                diffs = (tg[:, None] - temp_expo.reshape(gc, n)).reshape(-1)
+                temp = self._scale_by_pow2(temp, diffs)
+                red_parts.append(
+                    ctx.segment_tree_reduce(temp, gc, n)[:, :gc])
+                tg_parts.append(tg)
 
-        red = torch.cat(red_parts, dim=1)
-        pad = pad_batch(G)
-        if red.shape[1] < pad:
-            red = torch.cat([red, ctx.ctx.one.to(red.dtype).expand(
-                ctx.L, pad - red.shape[1])], dim=1)
-        ct = ipclCipherText(self.public_key.pubkey, _dev=red, _length=G)
-        return PaillierEncryptedNumber(self.public_key, ct,
-                                       np.concatenate(tg_parts), G)
+            red = torch.cat(red_parts, dim=1)
+            pad = pad_batch(G)
+            if red.shape[1] < pad:
+                red = torch.cat([red, ctx.ctx.one.to(red.dtype).expand(
+                    ctx.L, pad - red.shape[1])], dim=1)
+            ct = ipclCipherText(self.public_key.pubkey, _dev=red, _length=G)
+            return PaillierEncryptedNumber(self.public_key, ct,
+                                           np.concatenate(tg_parts), G)
 
     def __matmul__(self, other) -> "PaillierEncryptedNumber":
         if len(self) % len(other) != 0:

@@ -12,7 +12,9 @@ The behaviour is the same bit for bit:
   else OverflowError.
 
 ``encode_vector`` / ``decode_vector`` / ``decode_limbs_vector`` are the
-batched paths used by the API layer.
+batched paths used by the API layer; ``encode_vector`` and
+``decode_limbs_vector`` run inside the spans ``pct.fixedpoint.encode`` and
+``pct.fixedpoint.decode`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import math
 import sys
 
 import numpy as np
+
+from .utils.profiling import annotate
 
 
 class FixedPointNumber:
@@ -231,6 +235,11 @@ def encode_vector(values, n: int, max_int: int):
     exponents: np.int64 array.  Bit-exact with FixedPointNumber.encode
     applied per element.
     """
+    with annotate("pct.fixedpoint.encode"):
+        return _encode_vector(values, n, max_int)
+
+
+def _encode_vector(values, n: int, max_int: int):
     if not isinstance(values, np.ndarray):
         # Python sequences keep per-element types (a list may mix ints and
         # floats, and int vs float changes the exponent rule) — use the
@@ -298,11 +307,12 @@ def decode_limbs_vector(limbs, count: int, exponents, n: int, max_int: int):
     decode_vector over unpacked ints, which remains the fallback."""
     from . import native
 
-    out = native.decode_limbs16(limbs, count, exponents, n, max_int)
-    if out is not None:
-        return out
-    ints = native.unpack_limbs16(limbs)[:count]
-    return decode_vector(ints, exponents[:count], n, max_int)
+    with annotate("pct.fixedpoint.decode"):
+        out = native.decode_limbs16(limbs, count, exponents, n, max_int)
+        if out is not None:
+            return out
+        ints = native.unpack_limbs16(limbs)[:count]
+        return decode_vector(ints, exponents[:count], n, max_int)
 
 
 class FixedPointEndec:

@@ -45,6 +45,8 @@ from ..ops import rns as _rns
 from ..ops import rns_kernels as _rk
 from ..ops.reduction import exact_div
 from ..utils import config as _config
+from ..utils import profiling
+from ..utils.profiling import annotate
 
 WINDOW = 4          # per-element modexp window (ct*pt)
 RNS_MAX_MBITS = 14000
@@ -483,37 +485,41 @@ class PublicContext:
                             pad_to: int | None = None) -> torch.Tensor:
         """B ints (mod n) -> (Ln, B_pad) canonical limbs on the device;
         small values pack only the limbs they need and zero-extend."""
-        B = pad_to or pad_batch(len(encodings))
-        Lb = self.transfer_limbs(
-            max((int(e).bit_length() for e in encodings), default=1))
-        arr = ints_to_limbs(list(encodings) + [0] * (B - len(encodings)), Lb)
-        out = torch.zeros((self.Ln, B), dtype=LIMB_DTYPE, device=self.device)
-        out[:Lb] = to_device(arr, self.device)
-        return out
+        with annotate("pct.paillier.pack"):
+            B = pad_to or pad_batch(len(encodings))
+            Lb = self.transfer_limbs(
+                max((int(e).bit_length() for e in encodings), default=1))
+            arr = ints_to_limbs(
+                list(encodings) + [0] * (B - len(encodings)), Lb)
+            out = torch.zeros((self.Ln, B), dtype=LIMB_DTYPE,
+                              device=self.device)
+            out[:Lb] = to_device(arr, self.device)
+            return out
 
     def sample_obfuscator_digits(self, b: int) -> np.ndarray:
         """Random DJN exponents r < 2^randbits from OS entropy, as
         (n_win, pad_batch(b)) LSB-first base-2^comb_window digits."""
-        B = pad_batch(b)
-        w = self.comb_window
-        n_win = -(-self.randbits // w)
-        rbytes = -(-self.randbits // 8)
-        raw = np.frombuffer(secrets.token_bytes(B * rbytes),
-                            dtype=np.uint8).reshape(B, rbytes).copy()
-        extra = 8 * rbytes - self.randbits
-        if extra:
-            raw[:, -1] &= (1 << (8 - extra)) - 1
-        from .. import native
-        digs = native.extract_windows(raw.tobytes(), B, rbytes, w, n_win)
-        if digs is None:
-            bits = np.unpackbits(raw, axis=1, bitorder="little")
-            need = n_win * w
-            if bits.shape[1] < need:
-                bits = np.pad(bits, ((0, 0), (0, need - bits.shape[1])))
-            bits = bits[:, :need].reshape(B, n_win, w).astype(np.uint32)
-            digs = (bits << np.arange(w, dtype=np.uint32)).sum(
-                axis=2, dtype=np.uint32).T
-        return np.ascontiguousarray(digs).astype(np.uint16)
+        with annotate("pct.paillier.entropy"):
+            B = pad_batch(b)
+            w = self.comb_window
+            n_win = -(-self.randbits // w)
+            rbytes = -(-self.randbits // 8)
+            raw = np.frombuffer(secrets.token_bytes(B * rbytes),
+                                dtype=np.uint8).reshape(B, rbytes).copy()
+            extra = 8 * rbytes - self.randbits
+            if extra:
+                raw[:, -1] &= (1 << (8 - extra)) - 1
+            from .. import native
+            digs = native.extract_windows(raw.tobytes(), B, rbytes, w, n_win)
+            if digs is None:
+                bits = np.unpackbits(raw, axis=1, bitorder="little")
+                need = n_win * w
+                if bits.shape[1] < need:
+                    bits = np.pad(bits, ((0, 0), (0, need - bits.shape[1])))
+                bits = bits[:, :need].reshape(B, n_win, w).astype(np.uint32)
+                digs = (bits << np.arange(w, dtype=np.uint32)).sum(
+                    axis=2, dtype=np.uint32).T
+            return np.ascontiguousarray(digs).astype(np.uint16)
 
     # -- core ops --------------------------------------------------------------
 
@@ -534,12 +540,14 @@ class PublicContext:
         if self.enable_DJN:
             digits = self.sample_obfuscator_digits(B)
             plan = self._rns_enc_plan()
-            if plan is not None:
+            with annotate("pct.paillier.comb"):
+                if plan is None:
+                    return _obfuscate_djn(ct_mont, digits, self.comb_table,
+                                          self.ctx)
                 base, key = plan
                 return _rns.rns_comb_product(
                     ct_mont, self.comb_rns, self._dev_digits(digits), base,
                     key, self.ctx, self.L, mont_input=True)
-            return _obfuscate_djn(ct_mont, digits, self.comb_table, self.ctx)
         rs = [secrets.randbelow(self.n - 1) + 1 for _ in range(B)]
         r_m = mg.to_mont(to_device(ints_to_limbs(rs, self.L), self.device),
                          self.ctx)
@@ -561,14 +569,15 @@ class PublicContext:
         if apply_obfuscator and self.enable_DJN:
             digits = self.sample_obfuscator_digits(m.shape[1])
             plan = self._rns_enc_plan()
-            if plan is not None:
+            with annotate("pct.paillier.comb"):
+                if plan is None:
+                    return _encrypt_djn(m, digits, self.comb_table,
+                                        self.n_limbs, self.ctx, self.L)
                 base, key = plan
                 raw = _encrypt_raw_canonical(m, self.n_limbs, self.L)
                 return _rns.rns_comb_product(raw, self.comb_rns,
                                              self._dev_digits(digits),
                                              base, key, self.ctx, self.L)
-            return _encrypt_djn(m, digits, self.comb_table, self.n_limbs,
-                                self.ctx, self.L)
         ct = self.encrypt_raw(m)
         if apply_obfuscator:
             ct = self.obfuscate(ct)
@@ -597,7 +606,8 @@ class PublicContext:
 
     def add_ct(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """HE addition: ciphertext product mod n^2 (kernel K3)."""
-        return mg.mont_mul(a, b, self.ctx)
+        with annotate("pct.paillier.add"):
+            return mg.mont_mul(a, b, self.ctx)
 
     def mul_pt(self, ct: torch.Tensor, exponents: list) -> torch.Tensor:
         """HE ct*pt: ct^e per column, exponents >= 0.
@@ -607,36 +617,49 @@ class PublicContext:
         max(4, next power of two), capped at ceil(bits/4).  Limb route
         (kernel K4) otherwise, with the leading all-zero windows skipped.
         Under fixed_shape_ops both run the full mod-n window count and
-        every exponent takes the RNS route when the plan is on."""
-        B = ct.shape[1]
-        exps = list(exponents) + [0] * (B - len(exponents))
-        fixed = _config.get_config().fixed_shape_ops
-        maxbits = max((int(e).bit_length() for e in exps), default=1)
-        rplan = self._rns_mul_plan()
-        if rplan is not None and not fixed and -(-maxbits // WINDOW) < 8:
-            rplan = None
-        if rplan is not None:
-            base, key, w = rplan
-            nw_full = -(-self.bits // w)
-            needed = max(1, -(-maxbits // w))
-            nw = nw_full if fixed else min(
-                nw_full, max(4, 1 << max(0, needed - 1).bit_length()))
-            digits = mg.exponent_digits(exps, nw, w)
-            return _rns.rns_pow_elem(ct, digits, base, key, self.ctx, w,
-                                     self.L)
-        n_win_needed = (self.n_win_ct if fixed
-                        else max(1, -(-maxbits // WINDOW)))
-        n_win_total = max(self.n_win_ct, n_win_needed)
-        digits = mg.exponent_digits(exps, n_win_total, WINDOW)
-        return mg.mont_exp(ct, digits, self.ctx, window=WINDOW,
-                           win_start=n_win_total - n_win_needed)
+        every exponent takes the RNS route when the plan is on.  While a
+        profiler is active the launch is counted in
+        ``profiling.COUNTERS``."""
+        with annotate("pct.paillier.ctpt"):
+            B = ct.shape[1]
+            exps = list(exponents) + [0] * (B - len(exponents))
+            fixed = _config.get_config().fixed_shape_ops
+            bits = [int(e).bit_length() for e in exps]
+            maxbits = max(bits, default=1)
+            rplan = self._rns_mul_plan()
+            if rplan is not None and not fixed and -(-maxbits // WINDOW) < 8:
+                rplan = None
+            if rplan is not None:
+                base, key, w = rplan
+                nw_full = -(-self.bits // w)
+                needed = max(1, -(-maxbits // w))
+                nw = nw_full if fixed else min(
+                    nw_full, max(4, 1 << max(0, needed - 1).bit_length()))
+                profiling.count_exp(bits, w, nw)
+                with annotate("pct.paillier.digits"):
+                    digits = mg.exponent_digits(exps, nw, w)
+                # K5's wrapper copies the digits up after the RNS entry is
+                # enqueued, so that copy's host work overlaps the entry
+                return _rns.rns_pow_elem(ct, digits, base, key, self.ctx, w,
+                                         self.L)
+            n_win_needed = (self.n_win_ct if fixed
+                            else max(1, -(-maxbits // WINDOW)))
+            n_win_total = max(self.n_win_ct, n_win_needed)
+            profiling.count_exp(bits, WINDOW, n_win_needed)
+            with annotate("pct.paillier.digits"):
+                digits = kernels.digit_tensor(
+                    mg.exponent_digits(exps, n_win_total, WINDOW), WINDOW,
+                    ct.device)
+            return mg.mont_exp(ct, digits, self.ctx, window=WINDOW,
+                               win_start=n_win_total - n_win_needed)
 
     def gather_batch(self, ct: torch.Tensor, idx) -> torch.Tensor:
         """out[:, j] = ct[:, idx[j]], padded to pad_batch(len(idx))."""
-        full = np.zeros(pad_batch(len(idx)), dtype=np.int64)
-        full[:len(idx)] = np.asarray(idx, dtype=np.int64)
-        return torch.index_select(ct, 1, h2d(torch.from_numpy(full),
-                                             ct.device))
+        with annotate("pct.paillier.gather"):
+            full = np.zeros(pad_batch(len(idx)), dtype=np.int64)
+            full[:len(idx)] = np.asarray(idx, dtype=np.int64)
+            return torch.index_select(ct, 1, h2d(torch.from_numpy(full),
+                                                 ct.device))
 
     def tree_reduce(self, ct: torch.Tensor, b: int) -> torch.Tensor:
         """HE sum of the first b ciphertexts, total in column 0."""
@@ -646,7 +669,8 @@ class PublicContext:
                             seg: int) -> torch.Tensor:
         """HE sums of `groups` contiguous segments of length `seg`;
         returns (L, pad_batch(groups)) with the group sums in order."""
-        return _segment_tree_reduce(ct, self.ctx, groups, seg, self.L)
+        with annotate("pct.paillier.reduce"):
+            return _segment_tree_reduce(ct, self.ctx, groups, seg, self.L)
 
     def export_cts(self, ct_mont: torch.Tensor, b: int) -> list:
         """Montgomery ciphertexts -> canonical Python ints."""
@@ -871,8 +895,12 @@ class PrivateContext:
     def decrypt_device(self, ct_mont: torch.Tensor) -> torch.Tensor:
         """Montgomery ciphertexts mod n^2 -> canonical plaintext limbs
         (Ln, B) on the device."""
-        return _crt_stage_recombine(
-            self._stage_exp(_crt_stage_reduce(ct_mont, self)), self)
+        with annotate("pct.paillier.crt_reduce"):
+            base_m = _crt_stage_reduce(ct_mont, self)
+        with annotate("pct.paillier.crt_exp"):
+            u = self._stage_exp(base_m)
+        with annotate("pct.paillier.crt_recombine"):
+            return _crt_stage_recombine(u, self)
 
     def _stage_exp(self, base_m: torch.Tensor) -> torch.Tensor:
         """Stage 2 on this context's engine: (Lh, 2B) -> canonical

@@ -4,8 +4,20 @@ Counterpart of ``pailliercryptolib_python_tpu/utils/profiling.py``:
 ``trace(dir)`` captures a ``torch.profiler`` trace (CPU activity, and
 CUDA activity when the port's default device is a CUDA card) and writes
 it as a Chrome trace under ``dir``; ``annotate(name)`` scopes work so the
-HE-level phases (encrypt, obfuscate, CRT decrypt, reduce) show as named
-spans in that trace; ``timed(label, sink)`` is a host wall-clock span.
+HE-level stages show as named spans in that trace; ``timed(label, sink)``
+is a host wall-clock span, and an ``annotate`` span too.
+
+The program's own spans are named ``pct.<layer>.<stage>``: ``pct.api.*``
+and ``pct.fixedpoint.*`` (``api.py``, ``fixedpoint.py``) and
+``pct.paillier.*`` (``models/paillier.py``).  They nest as the calls do,
+so the innermost span in force is the stage the calling thread is in.
+They are ``record_function`` ranges on the calling thread, in the same
+trace as the device's kernels and copies, on one clock.  With no
+profiler active, ``annotate`` is one flag read and returns a shared
+no-op context.
+
+``COUNTERS`` counts the work of the ct*pt modexp (``mul_pt``), only
+while a profiler is active (``count_exp``).
 """
 
 from __future__ import annotations
@@ -13,6 +25,17 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+# ct*pt modexp work, counted only while a profiler is active:
+# exp_columns: columns launched, padding included; exp_windows_run:
+# columns x windows the chosen route runs; exp_windows_needed: the sum over
+# the columns of ceil(bitlen(e) / window), 0 for e <= 1.
+COUNTERS = {"exp_columns": 0, "exp_windows_run": 0, "exp_windows_needed": 0}
 
 
 @contextlib.contextmanager
@@ -43,20 +66,37 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named span context (shows in profiler timelines)."""
-    from torch.profiler import record_function
+    """Named span context (shows in profiler timelines); a shared no-op
+    context unless a profiler is active on this thread."""
+    if not _profiler_enabled():
+        return _OFF
     return record_function(name)
+
+
+def count_exp(bits: list, window: int, windows_run: int) -> None:
+    """Count one ct*pt modexp launch: `bits` the bit length of each
+    column's exponent (padding included), `window` the route's window,
+    `windows_run` the windows each column runs.  Counts only while a
+    profiler is active."""
+    if not _profiler_enabled():
+        return
+    COUNTERS["exp_columns"] += len(bits)
+    COUNTERS["exp_windows_run"] += len(bits) * windows_run
+    COUNTERS["exp_windows_needed"] += sum(-(-b // window) for b in bits
+                                          if b > 1)
 
 
 @contextlib.contextmanager
 def timed(label: str, sink=None):
     """Host wall-clock span: appends (label, seconds) to `sink` (a list)
-    or prints to stderr."""
+    or prints to stderr.  The interval is also an ``annotate(label)``
+    span, so it lies on a profiler trace's clock too."""
     import sys
 
     t0 = time.perf_counter()
     try:
-        yield
+        with annotate(label):
+            yield
     finally:
         dt = time.perf_counter() - t0
         if sink is not None:
