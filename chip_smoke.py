@@ -30,7 +30,9 @@ failure (so any failure exits non-zero):
    1040 (its largest); K9 on a weightless n^2 also against K3; every K9,
    K10 and K11 row with its integer-pipe floor and (g, K) beside; K4 at
    n^2 (windows 3..8 at B=4096; all 16 windows, every digit 0..15, at
-   B=4095 and 1) and at
+   B=4095 and 1; ``mul_pt``'s limb route, digits for 1, 2 and 7 windows
+   from win_start 0, equal to all 512 windows of n with the rest
+   skipped) and at
    p^2, there also against K10, and at L=520, B=64; K7 at p^2 (4 windows
    and the whole chain at B=4096, 4 windows at B=1), at a 4096-bit key's
    p^2 (L=257) and at L=520, where its table entry is read from global
@@ -568,6 +570,9 @@ def check_kernels(dev, kd) -> dict:
                        plain_ms, nbytes(an, d16_dev, got, ctx.one,
                                         ctx.n_limbs),
                        limb_ops(L, 14 + 16, Bn, 16 * 4))
+        if m == n * n:
+            check_k4_short_digits(record, a, ctx, rng,
+                                  -(-n.bit_length() // 4))
         if m == p * p:
             c0 = mg.MontCtx.for_modulus(m, mxu=False, device=dev)
             if not torch.equal(got, mont.mont_exp_p(
@@ -870,6 +875,39 @@ def check_fourth_slice(dev, kd, rng, record) -> None:
     if not torch.equal(got, acc):
         raise AssertionError("K11 differs from a K9 loop, per-element")
     print("  mont_chain     equals a K9 loop (per-element)", flush=True)
+
+
+def check_k4_short_digits(record, a, ctx, rng, n_win_ct: int) -> None:
+    """K4 as ``mul_pt``'s limb route launches it, digits for the k windows
+    the widest exponent needs (win_start 0), against the same exponents'
+    digits over all n_win_ct windows of n with the first n_win_ct - k
+    skipped: equal limbs, k = 1, 2 and 7; k = 1 also against the twin."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import mont3
+    from pailliercryptolib_python_tpu_torch.ops import montgomery as mg
+    L, B = a.shape
+    for k in (1, 2, 7):
+        exps = [int(e) for e in rng.integers(0, 1 << (4 * k), size=B)]
+        exps[0] = (1 << (4 * k)) - 1
+        short = mg.exponent_digits(exps, k, 4)
+        full = mg.exponent_digits(exps, n_win_ct, 4)
+        if full[:-k].any() or not np.array_equal(full[-k:], short):
+            raise AssertionError(f"K4 digits: the last {k} of {n_win_ct} "
+                                 f"windows differ from the short build")
+        got = mont3.mm3_exp(a, short, ctx, 0)
+        want = mont3.mm3_exp(a, full, ctx, n_win_ct - k)
+        if k == 1:
+            same(got, mont3.mm3_exp_plain(
+                a, torch.from_numpy(short.astype(np.int32)).to(a.device),
+                ctx.wmu, ctx.wm, ctx.off1, ctx.off2, ctx.one, 0),
+                f"K4 differs from its twin at L={L}, one window")
+        record("mm3_exp", got, want,
+               f"L={L} B={B} {k} of {n_win_ct} windows",
+               ms_of(lambda: mont3.mm3_exp(a, short, ctx, 0), 2), None,
+               nbytes(a, got, ctx.one, ctx.n_limbs) + short.nbytes,
+               limb_ops(L, 14 + k, B, k * 4))
+    print(f"  mm3_exp        short digits (win_start 0) equal the full "
+          f"{n_win_ct}-window digits at L={L}", flush=True)
 
 
 def check_k7(record, a, dig, ctx, window: int, headline=False) -> None:

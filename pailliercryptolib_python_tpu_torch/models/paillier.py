@@ -615,10 +615,12 @@ class PublicContext:
         RNS route (kernel K5) when the plan is on and the widest exponent
         needs 8 or more 4-bit windows: the window count is bucketed to
         max(4, next power of two), capped at ceil(bits/4).  Limb route
-        (kernel K4) otherwise, with the leading all-zero windows skipped.
+        (kernel K4, K10 without mm3 weights) otherwise, over the
+        ceil(maxbits/4) windows the widest exponent needs.  Either way
+        the host builds and uploads digits for the windows run only.
         Under fixed_shape_ops both run the full mod-n window count and
         every exponent takes the RNS route when the plan is on.  While a
-        profiler is active the launch is counted in
+        profiler is active the launch and its digits are counted in
         ``profiling.COUNTERS``."""
         with annotate("pct.paillier.ctpt"):
             B = ct.shape[1]
@@ -638,20 +640,19 @@ class PublicContext:
                 profiling.count_exp(bits, w, nw)
                 with annotate("pct.paillier.digits"):
                     digits = mg.exponent_digits(exps, nw, w)
+                    profiling.count_digits(digits)
                 # K5's wrapper copies the digits up after the RNS entry is
                 # enqueued, so that copy's host work overlaps the entry
                 return _rns.rns_pow_elem(ct, digits, base, key, self.ctx, w,
                                          self.L)
-            n_win_needed = (self.n_win_ct if fixed
-                            else max(1, -(-maxbits // WINDOW)))
-            n_win_total = max(self.n_win_ct, n_win_needed)
-            profiling.count_exp(bits, WINDOW, n_win_needed)
+            n_win = (self.n_win_ct if fixed
+                     else max(1, -(-maxbits // WINDOW)))
+            profiling.count_exp(bits, WINDOW, n_win)
             with annotate("pct.paillier.digits"):
-                digits = kernels.digit_tensor(
-                    mg.exponent_digits(exps, n_win_total, WINDOW), WINDOW,
-                    ct.device)
-            return mg.mont_exp(ct, digits, self.ctx, window=WINDOW,
-                               win_start=n_win_total - n_win_needed)
+                host = mg.exponent_digits(exps, n_win, WINDOW)
+                profiling.count_digits(host)
+                digits = kernels.digit_tensor(host, WINDOW, ct.device)
+            return mg.mont_exp(ct, digits, self.ctx, window=WINDOW)
 
     def gather_batch(self, ct: torch.Tensor, idx) -> torch.Tensor:
         """out[:, j] = ct[:, idx[j]], padded to pad_batch(len(idx))."""

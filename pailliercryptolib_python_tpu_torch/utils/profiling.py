@@ -17,7 +17,7 @@ profiler active, ``annotate`` is one flag read and returns a shared
 no-op context.
 
 ``COUNTERS`` counts the work of the ct*pt modexp (``mul_pt``), only
-while a profiler is active (``count_exp``).
+while a profiler is active (``count_exp``, ``count_digits``).
 """
 
 from __future__ import annotations
@@ -34,8 +34,10 @@ _OFF = contextlib.nullcontext()
 # ct*pt modexp work, counted only while a profiler is active:
 # exp_columns: columns launched, padding included; exp_windows_run:
 # columns x windows the chosen route runs; exp_windows_needed: the sum over
-# the columns of ceil(bitlen(e) / window), 0 for e <= 1.
-COUNTERS = {"exp_columns": 0, "exp_windows_run": 0, "exp_windows_needed": 0}
+# the columns of ceil(bitlen(e) / window), 0 for e <= 1; exp_digits_built:
+# columns x windows of exponent digits built on the host.
+COUNTERS = {"exp_columns": 0, "exp_windows_run": 0, "exp_windows_needed": 0,
+            "exp_digits_built": 0}
 
 
 @contextlib.contextmanager
@@ -84,6 +86,14 @@ def count_exp(bits: list, window: int, windows_run: int) -> None:
     COUNTERS["exp_windows_run"] += len(bits) * windows_run
     COUNTERS["exp_windows_needed"] += sum(-(-b // window) for b in bits
                                           if b > 1)
+
+
+def count_digits(digits) -> None:
+    """Count the host exponent digits of one ct*pt launch, `digits` an
+    array of (windows, columns).  Counts only while a profiler is
+    active."""
+    if _profiler_enabled():
+        COUNTERS["exp_digits_built"] += digits.size
 
 
 @contextlib.contextmanager

@@ -165,18 +165,28 @@ def test_mont_inv_and_trees():
 # mul_pt: the RNS route (K5), the limb route (K4), fixed_shape_ops.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("bits,fixed", [(50, False), (9, False), (50, True)],
-                         ids=["rns", "limb", "fixed"])
-def test_mul_pt_routes(bits, fixed):
+# Random exponents of up to `bits` bits; or, where `top` is given, of at
+# most top's bits with one equal to it, so that the limb route runs
+# exactly ceil(bitlen(top) / 4) windows (1, 1, 2 and 7 below).
+@pytest.mark.parametrize("bits,fixed,top", [
+    (50, False, None), (9, False, None), (50, True, None),
+    (None, False, 1), (None, False, 1 << 3), (None, False, 1 << 4),
+    (None, False, 1 << 27)],
+    ids=["rns", "limb", "fixed", "limb-win1-01", "limb-win1", "limb-win2",
+         "limb-win7"])
+def test_mul_pt_routes(bits, fixed, top):
     jcfg.set_config(fixed_shape_ops=fixed)
     tcfg.set_config(fixed_shape_ops=fixed)
     jpub = jsch.PublicContext(KD["n"], KD["bits"], True, KD["hs"],
                               KD["randbits"])
     tpub = tsch.PublicContext(KD["n"], KD["bits"], True, KD["hs"],
                               KD["randbits"], device=CPU)
-    rng = random.Random(63 + bits)
+    rng = random.Random(63 + (bits or top))
     cts = _units(rng, KD["n"] ** 2, 7)
-    es = [rng.getrandbits(bits) for _ in range(7)]
+    if top is None:
+        es = [rng.getrandbits(bits) for _ in range(7)]
+    else:
+        es = [top] + [rng.randrange(top + 1) for _ in range(6)]
     want = jpub.export_cts(jpub.mul_pt(jpub.import_cts(cts), es), 7)
     tct = tpub.import_cts(cts)
     assert tpub.export_cts(tpub.mul_pt(tct, es), 7) == want
