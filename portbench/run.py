@@ -20,8 +20,15 @@ metrics read from it.  Each
 number the judge compared is printed beside its limit as the last lines
 on stderr and under ``checks``, the line's last key.
 
+A cell on several cards (``chips`` above 1) runs one process a card,
+in lockstep: this process is rank 0, which starts the others and alone
+times, traces, judges and prints (``ranks.py``); ``--rank <r>`` is the
+entry of rank r, which reads the run's description from stdin.  A cell
+on one card takes none of that path.
+
 Exit codes: 0 with a result; 2 without a card (or fewer than the cell
-asks for); 3 when a JAX module was loaded; 1 on any other failure.
+asks for); 3 when a JAX module was loaded; 1 on any other failure, a
+rank that failed or stalled included.
 """
 
 from __future__ import annotations
@@ -118,13 +125,14 @@ class Run:
             return []
         return list(zip(self.requests, self.trace.requests))
 
-    def roofline_pct(self, op: str):
-        """Least chip time of the op's requests over the device time
-        inside them, in %; None where there is nothing to read."""
+    def roofline_pct(self, *kinds: str):
+        """Least chip time of the requests of these kinds (``Kind.op``)
+        over the device time inside them, in %; None where there is
+        nothing to read."""
         from portbench.workmodel import least_seconds
         least = busy = 0.0
         for r, (lo, hi) in self.traced_spans():
-            if self.kinds[r.kind].op != op:
+            if self.kinds[r.kind].op not in kinds:
                 continue
             ops, n_bytes = self.work(r.kind, r.v)
             least += least_seconds(n_bytes, ops)
@@ -160,10 +168,15 @@ def card_line() -> str:
 
 def run_cell(cell: str, config: dict, mix: dict, seed: int, seconds: float,
              trace: bool, system_factory, device: str, metrics: list,
-             t_start: float, log=sys.stderr, max_requests=None) -> dict:
+             t_start: float, log=sys.stderr, max_requests=None,
+             ranks=None) -> dict | None:
     """One run of a cell: set-up, the window, the judge, the metrics.
     Returns the result object (``checks`` last).  `max_requests` ends
-    the window early (the control's runs)."""
+    the window early (the control's runs).  `ranks` (``ranks.Lockstep``)
+    runs this process as one rank of a run over several cards: every
+    rank issues rank 0's requests; a rank other than 0 returns None
+    once the window's readings, the JAX modules it loaded among them,
+    are gathered."""
     from contextlib import nullcontext
     from portbench import kinds as kinds_mod
     from portbench import reference as ref
@@ -175,21 +188,31 @@ def run_cell(cell: str, config: dict, mix: dict, seed: int, seconds: float,
     kinds = kinds_mod.make(mix, seed)
     order = traffic.cycle([k.n_variants for k in kinds], seed)
     system = system_factory(config["key"], device)
+    lead = ranks is None or ranks.rank == 0
+    if ranks is not None:
+        ranks.join()
+        ranks.beat()
     t_system = time.perf_counter()
     for k in kinds:
         k.setup(system)
     system.sync()
+    if ranks is not None:
+        ranks.beat()
     t_pools = time.perf_counter()
     for k in kinds:                       # each request shape once
         for v in k.warm_variants():
             k.call(system, v)
     system.sync()
+    if ranks is not None:                 # every rank has warmed up
+        ranks.barrier()
     t_warm = time.perf_counter()
     setup_s = t_warm - t_start
-    print(f"setup: {t_system - t_start:.3f} s to the key's contexts "
-          f"(imports, CUDA, kernel library), {t_pools - t_system:.3f} s "
-          f"input pools, {t_warm - t_pools:.3f} s warm-up", file=log)
+    if lead:
+        print(f"setup: {t_system - t_start:.3f} s to the key's contexts "
+              f"(imports, CUDA, kernel library), {t_pools - t_system:.3f} "
+              f"s input pools, {t_warm - t_pools:.3f} s warm-up", file=log)
 
+    trace = trace and lead
     caps = [max_requests]
     if trace:
         seconds = min(seconds, TRACE_SECONDS)
@@ -204,17 +227,22 @@ def run_cell(cell: str, config: dict, mix: dict, seed: int, seconds: float,
     pairs = [[] for _ in kinds]
     host = HostClock()
     requests, failed, errors = [], 0, []
+    last = None                           # the window's last answer
     counts0 = system.counters()
     cuda = system.device.type == "cuda"
 
     def window():
-        nonlocal failed
+        nonlocal failed, last
         span = request_span if trace else nullcontext
         deadline = time.perf_counter() + seconds
         i = 0
         while True:
             t0 = time.perf_counter()
-            if t0 >= deadline or (cap is not None and len(requests) >= cap):
+            more = t0 < deadline and (cap is None or len(requests) < cap)
+            if ranks is not None:          # rank 0's word, off the clock
+                more = ranks.go(more)
+                t0 = time.perf_counter()
+            if not more:
                 break
             ki, v = order[i % len(order)]
             i += 1
@@ -224,12 +252,16 @@ def run_cell(cell: str, config: dict, mix: dict, seed: int, seconds: float,
                 with span():
                     ans = kind.call(system, v)
             except Exception as e:          # a failed request is counted
+                if ranks is not None:       # the ranks would fall apart
+                    raise
                 ok, ans = False, None
                 failed += 1
                 errors.append(f"{kind.op}: {type(e).__name__}: {e}")
             t1 = time.perf_counter()
             requests.append(Request(ki, v, kind.values(v) if ok else 0,
                                     t0, t1))
+            if ok and ranks is not None:
+                last = (len(requests) - 1, ans)
             if ok and kind.fresh and len(pairs[ki]) < 2 and (
                     not pairs[ki] or requests[pairs[ki][0][0]].v == v):
                 pairs[ki].append((len(requests) - 1, ans))
@@ -248,8 +280,17 @@ def run_cell(cell: str, config: dict, mix: dict, seed: int, seconds: float,
     counts1 = system.counters()
     memory_peak = system.memory_peak()
     window_s = (requests[-1].t1 - requests[0].t0) if requests else 0.0
+    if ranks is not None:
+        if last is not None:
+            ri, ans = last
+            last = (ri, kinds[requests[ri].kind].collect(system, ans))
+        memory_peak, disagree, elsewhere = ranks.finish(
+            memory_peak, last, forbidden_modules())
+        system.close()
+        if not lead:
+            return None
 
-    found = forbidden_modules()
+    found = forbidden_modules() + (elsewhere if ranks is not None else [])
     if found:
         raise ForbiddenModules(found)
 
@@ -280,6 +321,8 @@ def run_cell(cell: str, config: dict, mix: dict, seed: int, seconds: float,
         checks["unfresh_ciphertexts"] = {"value": sum(
             ref.unfresh(key, [got[0] for _, got in answers[ki]])
             for ki in fresh), "limit": 0}
+    if ranks is not None:
+        checks["ranks_disagree"] = {"value": disagree, "limit": 0}
     judge_s = time.perf_counter() - t_judge
     correct = (failed == 0 and checked > 0
                and all(c["value"] <= c["limit"] for c in checks.values()))
@@ -296,7 +339,8 @@ def run_cell(cell: str, config: dict, mix: dict, seed: int, seconds: float,
             values[m["name"]] = {"value": v, "unit": m["unit"]}
 
     dev = {"platform": "gpu" if cuda else "cpu",
-           "kind": device_name(system), "count": 1,
+           "kind": device_name(system),
+           "count": 1 if ranks is None else ranks.world,
            "memory_peak_bytes": memory_peak}
     result = {"correct": correct, "attempted": len(requests),
               "failed": failed, "metrics": values, "device": dev}
@@ -374,14 +418,49 @@ def breakdown(run: Run) -> dict:
             "idle_gaps": [[k, v] for k, v in gaps]}
 
 
+def run_spec(spec: dict, rank: int, lockstep) -> dict | None:
+    """``run_cell`` as rank `rank` of the run `spec` describes
+    (``ranks.py``)."""
+    from portbench import ranks
+    return run_cell(spec["workload"], spec["config"], spec["mix"],
+                    spec["seed"], spec["seconds"], bool(spec["trace"]),
+                    ranks.load_factory(spec["system"]),
+                    ranks.device_of(spec, rank), spec["metrics"], T_START,
+                    max_requests=spec.get("max_requests"), ranks=lockstep)
+
+
+def emit(run) -> int:
+    """Print the result of `run()` and its checks; the exit code."""
+    try:
+        result = run()
+    except ForbiddenModules as e:
+        print(f"portbench: JAX modules loaded: {e.args[0]}", file=sys.stderr)
+        return 3
+    print(json.dumps(result), flush=True)
+    for name, c in result["checks"].items():
+        print(f"check {name}: {c['value']} (limit {c['limit']})",
+              file=sys.stderr, flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     _prepare_process()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--workload")
+    ap.add_argument("--seed", type=int)
+    ap.add_argument("--seconds", type=float)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
+    if a.rank is not None:                # one rank of a run, spec on stdin
+        from portbench import ranks
+        if a.rank:
+            ranks.follow(a.rank, run_spec)
+            return 0
+        spec, procs = ranks.launch(json.load(sys.stdin))
+        return emit(lambda: ranks.lead(spec, procs, run_spec))
+    if a.workload is None or a.seed is None or a.seconds is None:
+        ap.error("--workload, --seed and --seconds are required")
     seed = a.seed & ((1 << 63) - 1)
 
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
@@ -398,27 +477,30 @@ def main(argv=None) -> int:
     mix = traffic.load(cell["traffic"])
     group = bench["per_layer"] if a.trace else bench["end_to_end"]
     metrics = [m for m in group if applies(m, a.workload)]
+    procs = None
+    if cell["chips"] > 1:                 # the other ranks import meanwhile
+        from portbench import ranks
+        spec, procs = ranks.launch(
+            {"workload": a.workload, "config": config, "mix": mix,
+             "seed": seed, "seconds": a.seconds, "trace": a.trace,
+             "metrics": metrics, "world": cell["chips"], "device": "cuda",
+             "system": ranks.DEFAULT_SYSTEM})
 
     import torch
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < cell["chips"]:
+        if procs is not None:
+            ranks.stop(procs)
         print(f"portbench: the cell needs {cell['chips']} CUDA card(s); "
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    try:
-        from portbench.systems import PortSystem
-        result = run_cell(a.workload, config, mix, seed, a.seconds,
-                          bool(a.trace), PortSystem, "cuda:0", metrics,
-                          T_START)
-    except ForbiddenModules as e:
-        print(f"portbench: JAX modules loaded: {e.args[0]}", file=sys.stderr)
-        return 3
-    print(json.dumps(result), flush=True)
-    for name, c in result["checks"].items():
-        print(f"check {name}: {c['value']} (limit {c['limit']})",
-              file=sys.stderr, flush=True)
-    return 0
+    if procs is not None:
+        return emit(lambda: ranks.lead(spec, procs, run_spec))
+    from portbench.systems import PortSystem
+    return emit(lambda: run_cell(a.workload, config, mix, seed, a.seconds,
+                                 bool(a.trace), PortSystem, "cuda:0",
+                                 metrics, T_START))
 
 
 if __name__ == "__main__":

@@ -8,6 +8,11 @@ engines.  From the program the benchmark takes only these calls, the
 exported ciphertexts and exponents of their answers, and the launch
 counters of ``kernels.COUNTS``.
 
+``ShardedPortSystem`` is the port as one rank of a process group, one
+card a rank: the group joined through ``parallel.distributed``, a (1,
+ranks) mesh from ``parallel.mesh``, and the sharded calls of
+``parallel.collective`` on this rank's columns.
+
 ``ControlSystem`` puts the plain reference in the program's place,
 computed one precision below the configuration's: the floats it is
 handed are rounded to float32 (24-bit mantissas) before they are
@@ -19,6 +24,7 @@ the same judge reads them.  A correct judge must find it wrong.
 
 from __future__ import annotations
 
+import os
 import types
 
 import numpy as np
@@ -71,6 +77,53 @@ class PortSystem:
         if self.device.type != "cuda":
             return 0
         return int(self._torch.cuda.max_memory_allocated(self.device))
+
+
+class ShardedPortSystem(PortSystem):
+    """One rank of a run over several cards (``ranks.py``): the port's
+    process group from its launch contract (``PAILLIER_COORDINATOR``,
+    ``PAILLIER_NUM_PROCESSES``, ``PAILLIER_PROCESS_ID``; NCCL on a card,
+    gloo on the CPU), a (1, ranks) mesh, the key's public context."""
+
+    def __init__(self, key: dict, device: str):
+        import torch
+        from pailliercryptolib_python_tpu_torch.parallel import (
+            collective, distributed, mesh)
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(torch.device(device))
+        super().__init__(key, device)
+        self._collective, self._mesh, self._dist = collective, mesh, \
+            distributed
+        distributed.initialize(os.environ["PAILLIER_COORDINATOR"],
+                               int(os.environ["PAILLIER_NUM_PROCESSES"]),
+                               int(os.environ["PAILLIER_PROCESS_ID"]),
+                               device=self.device)
+        self.rank, self.world = distributed.process_info()
+        self.mesh = mesh.make_mesh(1, self.world, self.device.type)
+        self.pub = self.pk.pubkey.context
+
+    def columns(self, B: int) -> tuple:
+        """(lo, hi): this rank's columns of a B-wide batch."""
+        return self._mesh.batch_bounds(self.mesh, B, self.rank)
+
+    def encrypt_ints(self, x: np.ndarray):
+        """Obfuscated Montgomery ciphertexts (L, len(x)) of integers."""
+        return self.pub.encrypt(x.tolist(), pad_to=len(x))
+
+    def sharded_sum(self, parts: list):
+        """The HE sum of every column of the parties' batches, over every
+        rank: the parties combined elementwise, then the encrypted
+        all-reduce; (L, 1), the same on every rank."""
+        agg = self._collective.federated_aggregate(parts, self.pub.ctx,
+                                                   self.mesh)
+        return self._collective.sharded_he_sum(agg, self.pub.ctx, self.mesh)
+
+    def export_total(self, total) -> list:
+        """Canonical ciphertext ints of an (L, k) answer."""
+        return self.pub.export_cts(total, total.shape[1])
+
+    def close(self) -> None:
+        self._dist.shutdown()
 
 
 class RefCts:

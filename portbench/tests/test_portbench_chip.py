@@ -1,6 +1,7 @@
 """On the card: each cell runs short and is correct; the control, at
-the cell's own sizes, is not.  The chip tests skip without a card; the
-control needs none (it computes on the host), so it runs everywhere."""
+the cell's own sizes, is not.  The chip tests skip without the cards
+a cell asks for; the control needs none (it computes on the host), so
+it runs everywhere."""
 
 import json
 import os
@@ -12,7 +13,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CELLS = ["p2048.hetero_lr", "p3072.decrypt", "p2048.encrypt",
-         "p2048.fedavg_sum"]
+         "p2048.fedavg_sum", "p2048.fl_sharded_x4"]
 
 
 def last_line(cmd, timeout):
@@ -28,6 +29,10 @@ def test_cell_is_correct_on_the_card(cell):
     import torch
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    chips = {w["name"]: w["chips"] for w in json.load(
+        open(os.path.join(ROOT, "BENCHMARK.json")))["workloads"]}[cell]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA cards")
     res = last_line(["portbench/run.py", "--workload", cell, "--seed",
                      str(2**31 + 7), "--seconds", "2", "--trace", "0"], 1500)
     assert res["correct"] and res["device"]["platform"] == "gpu", res

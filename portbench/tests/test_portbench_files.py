@@ -42,10 +42,11 @@ def test_benchmark_names_and_files():
         assert os.path.exists(os.path.join(ROOT, c["file"]))
         assert c["file"].startswith("portbench/")
     for w in b["workloads"]:
-        assert w["config"] in confs and w["chips"] == 1
+        assert w["config"] in confs and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200
         assert os.path.exists(os.path.join(ROOT, "portbench", "workloads",
                                            w["traffic"] + ".json"))
+    assert sum(w["chips"] == 4 for w in b["workloads"]) <= 1
     e2e = {m["name"] for m in b["end_to_end"]}
     assert {"setup_s", "values_per_s", "request_ms_p50",
             "request_ms_p95"} <= e2e
@@ -109,7 +110,8 @@ def test_a_kind_is_found_by_its_file_name():
     ops = sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "portbench",
                                                          "kinds"))
                  if f.endswith(".py") and f != "__init__.py")
-    assert ops == ["decrypt", "encrypt", "matmul", "sum_parties"]
+    assert ops == ["decrypt", "encrypt", "matmul", "sharded_sum",
+                   "sum_parties"]
     assert all(kinds.load(op).op == op for op in ops)
     with pytest.raises(ValueError):
         kinds.load("../run")

@@ -97,6 +97,16 @@ def test_trace_reductions():
     assert len(b["idle_gaps"]) <= 10
 
 
+@pytest.mark.parametrize("op", ["sum_parties", "sharded_sum"])
+def test_add_roofline_reads_both_k3_add_kinds(monkeypatch, op):
+    monkeypatch.setattr(FakeKind, "op", op)
+    run = make_run([0.010, 0.010], trace=synthetic_trace(),
+                   launches={"rns_mul": 1})
+    assert abs(R.load_reader("add_roofline")(run)
+               - 100 * 0.004 / 0.007) < 1e-9
+    assert R.load_reader("matmul_roofline")(run) is None
+
+
 def test_reader_returns_nothing_without_a_trace():
     run = make_run([0.01, 0.01])
     for name in ("device_idle_pct", "matmul_roofline",

@@ -21,6 +21,12 @@ import time
 REQUEST_SPAN = "portbench.request"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_IDLE = "host Python outside aten ops"
+COLLECTIVE_KERNEL = "nccl"       # NCCL's kernels: ncclDevKernel_*, ncclKernel_*
+
+
+def is_collective(kernel_name: str) -> bool:
+    """A kernel of the collectives library (NCCL), not of the program."""
+    return COLLECTIVE_KERNEL in kernel_name
 
 
 @contextlib.contextmanager
@@ -159,6 +165,12 @@ class Trace:
 
     def busy(self, lo: float, hi: float) -> float:
         return covered(self.busy_merged, lo, hi)
+
+    def collective(self, lo: float, hi: float) -> float:
+        """Length of [lo, hi] covered by collective kernels (NCCL)."""
+        return covered(union([(s, e) for s, e, n, c in self.device
+                              if c == "kernel" and is_collective(n)]),
+                       lo, hi)
 
     def kernels(self, lo: float, hi: float) -> list:
         """[(name, seconds)] of each kernel that starts in [lo, hi]."""

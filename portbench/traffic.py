@@ -13,7 +13,9 @@ requests of a traced run.
 Sizes: an integer is fixed; ``{"dist": "loguniform", "low", "high",
 "levels"}`` is `levels` sizes at the midpoints of equal steps of log size
 (the same sizes for every seed).  Values: ``{"dist": "uniform", "low",
-"high"}`` or ``{"dist": "normal", "mean", "std"}``, float64; an optional
+"high"}`` or ``{"dist": "normal", "mean", "std"}``, float64, or
+``{"dist": "integers", "low", "high"}``, int64 uniform in [low, high)
+(fixed-point values at one shared exponent); an optional
 ``"magnitude": [lo, hi]`` clips |x| into [lo, hi), so that every seed's
 values span the same binary exponents, and the kinds that align
 exponents plant lo and hi where a request's alignment takes its widest
@@ -60,6 +62,8 @@ def sizes(spec) -> list:
 
 
 def draw(spec: dict, shape, rng: np.random.Generator) -> np.ndarray:
+    if spec["dist"] == "integers":
+        return rng.integers(spec["low"], spec["high"], shape, dtype=np.int64)
     if spec["dist"] == "uniform":
         x = rng.uniform(spec["low"], spec["high"], shape)
     elif spec["dist"] == "normal":
