@@ -29,6 +29,7 @@ import torch
 from .limb import LIMB_DTYPE
 from . import rns
 from .. import kernels
+from ..utils import profiling
 
 
 def _pad8(n: int) -> int:
@@ -417,6 +418,12 @@ def rns_exp_sched_p(X: torch.Tensor, sched, base: rns.RnsBase,
     return _rns_exp_sched_cuda(X, sched, base, key, window)
 
 
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card `index`, read once a card."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _rns_exp_sched_cuda(X, sched, base, key, window) -> torch.Tensor:
     kernels.require_cuda(X, sched)
     CH, B = base.CH, X.shape[1]
@@ -430,6 +437,7 @@ def _rns_exp_sched_cuda(X, sched, base, key, window) -> torch.Tensor:
     kernels.launch("rns_exp_sched", x, sched, sched.shape[0], out, tab,
                    p["vec"], p["skc"], p["W1f"], p["W2f"], base.k, CH,
                    p["KP"], rns.combine_levels(base.mbits), window, B)
+    profiling.count_sched(B, _sm_count(x.device.index))
     return out
 
 

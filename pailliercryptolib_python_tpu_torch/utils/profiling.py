@@ -16,8 +16,9 @@ trace as the device's kernels and copies, on one clock.  With no
 profiler active, ``annotate`` is one flag read and returns a shared
 no-op context.
 
-``COUNTERS`` counts the work of the ct*pt modexp (``mul_pt``), only
-while a profiler is active (``count_exp``, ``count_digits``).
+``COUNTERS`` counts the work of the ct*pt modexp (``mul_pt``) and the
+launch geometry of the decrypt chain (K2), only while a profiler is
+active (``count_exp``, ``count_digits``, ``count_sched``).
 """
 
 from __future__ import annotations
@@ -36,8 +37,12 @@ _OFF = contextlib.nullcontext()
 # columns x windows the chosen route runs; exp_windows_needed: the sum over
 # the columns of ceil(bitlen(e) / window), 0 for e <= 1; exp_digits_built:
 # columns x windows of exponent digits built on the host.
+# K2 (``rns_exp_sched``) launches, counted the same way: sched_launches;
+# sched_ctas: CTAs launched; sched_sm_slots: the SM slots of the waves
+# those CTAs take at one CTA an SM, ceil(ctas / SMs) x SMs.
 COUNTERS = {"exp_columns": 0, "exp_windows_run": 0, "exp_windows_needed": 0,
-            "exp_digits_built": 0}
+            "exp_digits_built": 0, "sched_launches": 0, "sched_ctas": 0,
+            "sched_sm_slots": 0}
 
 
 @contextlib.contextmanager
@@ -94,6 +99,19 @@ def count_digits(digits) -> None:
     active."""
     if _profiler_enabled():
         COUNTERS["exp_digits_built"] += digits.size
+
+
+def count_sched(columns: int, sms: int) -> None:
+    """Count one K2 launch over `columns` columns on a card of `sms` SMs:
+    one CTA a tile of ``rns_kernels.TILE_COLS`` columns, one CTA an SM
+    (K2's launch bounds).  Counts only while a profiler is active."""
+    if not _profiler_enabled():
+        return
+    from ..ops.rns_kernels import TILE_COLS
+    ctas = -(-columns // TILE_COLS)
+    COUNTERS["sched_launches"] += 1
+    COUNTERS["sched_ctas"] += ctas
+    COUNTERS["sched_sm_slots"] += -(-ctas // sms) * sms
 
 
 @contextlib.contextmanager
