@@ -8,14 +8,14 @@ the repository root).  Imports nothing of JAX.  Phases, each raising on
 failure (so any failure exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build the fifteen CUDA kernels from ``pailliercryptolib_python_tpu_torch/
+2. build the sixteen CUDA kernels from ``pailliercryptolib_python_tpu_torch/
    csrc`` (one nvcc per source, in parallel, into the package's
    git-ignored ``build/``), with the ``-Xptxas -v`` report of the tile
    kernels K1, K2, K5, K6 (``csrc/rns_tile.cuh``) and K3, K4, K7
    (``csrc/mm3_tile.cuh``), the shared memory their launches ask for,
    and their tensor-core (IMMA) instructions in the SASS where the
    toolkit has ``cuobjdump`` (none is a failure), and the registers,
-   stack and local memory of the instantiations of K8-K15 (the
+   stack and local memory of the instantiations of K8-K16 (the
    cooperative routine of ``csrc/coop.cuh``) at the main path's shapes
    (K12-K14: the microbench's; a spill in one of them is a failure);
 3. each kernel against its plain PyTorch twin on the card, at the main
@@ -39,7 +39,9 @@ failure (so any failure exits non-zero):
    memory instead of staged; K6 at the
    decrypt chain's shape, a short chain at B=256, 4095 and 1, and where
    W1, W2 are read from global memory (CH=521); K8 at L=257/129/65 also
-   against K3(a, a),
+   against K3(a, a), K16 (the alignment's squaring chain) at L=257 over
+   B=4096 and 32,768 at d=15 and 24, the alignment's own mix of shifts,
+   one column, and L = 2 to 520 at B=33 with d up to 64,
    K11 at the limb encrypt chain's shape also against the streamed K3
    chain (both timed), at B=4095 and 1 (8 factors), and per-element
    against a K9 loop; the v2 kernels K12 at L=257/129 also against K3
@@ -193,9 +195,12 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "mm2_exp_shared": ("pailliercryptolib_python_tpu_torch/csrc/mont2.cu",
                        "pailliercryptolib_python_tpu/ops/pallas_mont2.py"
                        ":521"),
+    # K16 replaces no TPU kernel: the alignment's ct*pt by 2^d (K4 there)
+    "mm3_sqr_chain": ("pailliercryptolib_python_tpu_torch/csrc/mont3.cu",
+                      "none (the alignment's ct*pt by 2^d)"),
 }
-FIRST_SLICE = ("rns_mul", "rns_exp_sched", "mm3_mul", "mm3_exp")
-SECOND_SLICE = FIRST_SLICE + ("rns_exp_elem", "mm3_exp_shared")
+FIRST_SLICE = ("rns_mul", "rns_exp_sched", "mm3_mul", "mm3_sqr_chain")
+SECOND_SLICE = FIRST_SLICE + ("rns_exp_elem", "mm3_exp_shared", "mm3_exp")
 THIRD_SLICE = ("mont_mul", "mont_exp")
 FOURTH_SLICE = ("rns_exp_shared", "mm3_sqr", "mont_chain", "rns_mul",
                 "rns_exp_sched", "mm3_mul", "mm3_exp_shared", "mont_mul",
@@ -208,15 +213,15 @@ FIFTH_SLICE = ("mm2_mul", "mm2_sqr", "mm2_exp", "mm2_exp_shared", "mont_mul",
 # ct*pt (K5), the folds and products (K3)
 SIXTH_SLICE = ("rns_mul", "rns_exp_sched", "rns_exp_elem", "mm3_mul")
 # Phase 11 (the ladder), every rung: encrypt (K1), the default decrypt
-# (K2), ct*pt (K5), the products and the exponent alignment (K3, K4);
+# (K2), ct*pt (K5), the products and the exponent alignment (K3, K16);
 # the 4096-bit keygen's device Miller-Rabin adds K10 and K9
 LADDER_SLICE = ("rns_mul", "rns_exp_sched", "rns_exp_elem", "mm3_mul",
-                "mm3_exp")
+                "mm3_sqr_chain")
 LADDER_KEYGEN = ("mont_exp", "mont_mul")
 # Phase 12 (the engines on the ladder), every rung: the limb comb (K3),
-# the limb decrypt (K7), ct*pt and the exponent alignment on the limb
-# engine (K4); K5 under fixed_shape_ops, and K10, K9 in the keygen
-LADDER_ENGINES = ("mm3_mul", "mm3_exp", "mm3_exp_shared")
+# the limb decrypt (K7), ct*pt on the limb engine (K4), the exponent
+# alignment (K16); K5 under fixed_shape_ops, and K10, K9 in the keygen
+LADDER_ENGINES = ("mm3_mul", "mm3_exp", "mm3_exp_shared", "mm3_sqr_chain")
 LADDER_FIXED = ("rns_exp_elem",)
 # The limb comb's (window, bytes) at each rung: n_win x L x 2^12 x 4 B
 # (the RNS comb shrinks to window 11 at 4096 bits; the limb comb does not)
@@ -370,7 +375,11 @@ COOP_SHAPES = (("K10", "mont_exp_kernel", 129, 8192),
                ("K8", "mm3_sqr_kernel", 513, 256),
                ("K11", "mont_chain_kernel", 513, 256),
                ("K14", "mm2_exp_kernel", 513, 256),
-               ("K15", "mm2_exp_shared_kernel", 513, 256))
+               ("K15", "mm2_exp_shared_kernel", 513, 256),
+               ("K16", "mm3_sqr_chain_kernel", 257, 4096),
+               ("K16", "mm3_sqr_chain_kernel", 257, 32768),
+               ("K16", "mm3_sqr_chain_kernel", 257, 1024),
+               ("K16", "mm3_sqr_chain_kernel", 513, 256))
 
 
 def tile_kernel_report() -> None:
@@ -434,7 +443,8 @@ def tile_kernel_report() -> None:
     res, fn = {}, None
     for line in usage.splitlines():
         m = re.search(r"Function \S*\d(mont_(?:mul|exp|chain)_kernel|"
-                      r"mm3_sqr_kernel|mm2_exp_shared_kernel|mm2_mul_kernel|"
+                      r"mm3_sqr_(?:chain_)?kernel|mm2_exp_shared_kernel|"
+                      r"mm2_mul_kernel|"
                       r"mm2_sqr_kernel|mm2_exp_kernel)ILi(\d+)E", line)
         if m:
             fn = (m.group(1), int(m.group(2)))
@@ -742,6 +752,7 @@ def check_kernels(dev, kd) -> dict:
            + 4 * len(s2), rns_ops(b2.k, (1 << (w2 - 1)) + len(s2), 100))
     check_per_element(dev, kd, rng, record)
     check_fourth_slice(dev, kd, rng, record)
+    check_k16(dev, kd, rng, record)
     check_fifth_slice(dev, kd, rng, record)
     check_ladder_kernels(dev, rng, record)
     check_ladder_off_path(dev, rng, record)
@@ -1045,6 +1056,83 @@ def k14(dev, record, a, digits, ws, m, ctx, headline=False, words=False,
            lambda: mont.mont_exp_p(a, digits, c10.n_limbs, c10.n0inv,
                                    c10.one, ws), L,
            " (its modulus's limbs given)")
+
+
+def check_k16(dev, kd, rng, record) -> None:
+    """Phase 3, K16 (``mm3_sqr_chain``, the alignment's squaring chain)
+    against its twin, d applications of K8's: at n^2 (L=257) every column
+    of B=4096 and 32,768 shifted by d=15 and by d=24 (timed, with the ms
+    a square of 4,096 columns beside K8's 0.0483 and the integer-pipe
+    floor), the shifts of a `+` in the fedavg cell's shape (~60% at 0,
+    the rest 1-15, listed by d descending as ``scale_pow2`` lists them)
+    at B=4096, one column at d=27, and L = 2 to 520 at B=33 with d in
+    {0, 1, 2, 15, 27, 64} unsorted and one column left out; the host's
+    ``mont3.coop_shape`` against the library's (g, K) at each launch's
+    width (``mont3.sqr_chain_width``)."""
+    import torch
+    from pailliercryptolib_python_tpu_torch import kernels
+    from pailliercryptolib_python_tpu_torch.ops import (mont3,
+                                                        montgomery as mg)
+
+    def twin(a, cols, d, c):
+        return mont3.mm3_sqr_chain_plain(a, cols, d, lambda x: (
+            mont3.mm3_sqr_plain(x, c.wmu, c.wm, c.off1, c.off2)))
+
+    def row(c, a, cols, d, label, headline=False, plain=True):
+        L, B = a.shape
+        width = mont3.sqr_chain_width(d)
+        if mont3.coop_shape(L, width) != kernels.mont_exp_shape(L, width):
+            raise AssertionError(f"mont3.coop_shape differs from the "
+                                 f"library's at L={L}, B={width}")
+        g, K = kernels.mont_exp_shape(L, width)
+        got = mont3.mm3_sqr_chain(a, cols, d, c)
+        want, plain_ms = timed(lambda: twin(a, cols, d, c)) if plain \
+            else (None, None)
+        ms = ms_of(lambda: mont3.mm3_sqr_chain(a, cols, d, c), 5)
+        record("mm3_sqr_chain", got, want,
+               f"L={L} B={B} {label}; g={g} K={K}", ms,
+               plain_ms, nbytes(c.n_limbs) + cols.size * (8 * L + 8),
+               limb_ops(L, 0, int(d.sum()), 1), headline=headline)
+        return got, ms
+
+    n = kd["n"]
+    ctx = mg.MontCtx.for_modulus(n * n, device=dev)
+    L = ctx.num_limbs
+    for B in (BATCH, 8 * BATCH):
+        a = random_cols(rng, [n * n] * B, L, dev)
+        cols = np.arange(B)
+        for dd in (15, 24):
+            d = np.full(B, dd)
+            _, ms = row(ctx, a, cols, d, f"d={dd} every column",
+                        headline=B == BATCH and dd == 15)
+            coop_note(L, B, 0, dd)
+            print(f"  {'':14s} {ms / dd * BATCH / B:.4f} ms a square of "
+                  f"{BATCH} columns (K8: 0.0483), "
+                  f"{1e6 * ms / (dd * B):.2f} ns a column-square",
+                  flush=True)
+    # the shifts of a `+` at the fedavg cell's shape, as scale_pow2 lists
+    # them: the columns with d > 0 by d descending
+    a = random_cols(rng, [n * n] * BATCH, L, dev)
+    d = np.minimum(rng.geometric(0.55, BATCH) - 1, 15)
+    cols = np.flatnonzero(d > 0)
+    cols = cols[np.argsort(-d[cols])]
+    got, _ = row(ctx, a, cols, d[cols], f"the alignment's mix, {cols.size} "
+                 f"columns, sum(d)={int(d.sum())}")
+    if not torch.equal(got[:, d == 0], a[:, d == 0]):
+        raise AssertionError("K16 touched a column it was not given")
+    row(ctx, a[:, :1], np.zeros(1, dtype=np.int64), np.array([27]), "d=27")
+    # L = 2 to 520, odd and even: random odd moduli with 4m < R
+    mix = np.array([0, 1, 2, 15, 27, 64])
+    for Lm in (2, 3, 16, 17, 64, 65, 129, 130, 193, 257, 385, 513, 519,
+               520):
+        bits = 16 * Lm - 3
+        m = int.from_bytes(rng.bytes(2 * Lm), "little") % (1 << bits)
+        m |= 1 | (1 << (bits - 1))
+        c = mg.MontCtx.for_modulus(m, mxu=True, device=dev)
+        a = random_cols(rng, [m] * 33, Lm, dev)
+        d = mix[rng.permutation(33) % 6]
+        cols = rng.permutation(33)[:32]
+        row(c, a, cols, d[cols], "d in {0, 1, 2, 15, 27, 64}, unsorted")
 
 
 def check_fifth_slice(dev, kd, rng, record) -> None:

@@ -344,16 +344,16 @@ class PaillierEncryptedNumber:
         return self.public_key.pubkey.context
 
     def _scale_by_pow2(self, ct_dev, diffs: np.ndarray):
-        """ct * BASE^diff per element: one batched ct*pt."""
+        """ct * BASE^diff per element, BASE 2: ct^(2^diff), diff
+        squarings of each shifted column (``PublicContext.scale_pow2``)."""
         if not np.any(diffs > 0):
             return ct_dev
         with annotate("pct.api.align"):
-            exps = [1 << int(d) if d > 0 else 1 for d in diffs]
-            return self._ctx().mul_pt(ct_dev, exps)
+            return self._ctx().scale_pow2(ct_dev, diffs)
 
     def increase_exponent_to(self, x_ct: ipclCipherText, x_expo,
                              exponent: int) -> ipclCipherText:
-        """Raise the elements below `exponent` to it (one batched ct*pt by
+        """Raise the elements below `exponent` to it (each ciphertext to
         BASE^(exponent - x_expo[i])); the others are left unchanged."""
         expo_diff = exponent - np.fromiter(x_expo, np.int64)
         if not np.any(expo_diff > 0):

@@ -1,5 +1,5 @@
 // The cooperative 32-bit-word Montgomery routine of kernels K9, K10, K11
-// (csrc/mont.cu), K8 (csrc/mont3.cu), K12, K13, K14 and K15
+// (csrc/mont.cu), K8 and K16 (csrc/mont3.cu), K12, K13, K14 and K15
 // (csrc/mont2.cu), for Hopper (sm_90a), and the 4-bit fixed-window chain
 // K10 and K14 share (exp_chain, its launch: exp_threads, exp_smem,
 // launch_exp).

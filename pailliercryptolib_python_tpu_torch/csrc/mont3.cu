@@ -1,6 +1,6 @@
-// Kernels K3 (mm3_mul), K4 (mm3_exp), K7 (mm3_exp_shared) and K8
-// (mm3_sqr): shared-modulus Montgomery arithmetic over 16-bit limbs, for
-// Hopper (sm_90a).
+// Kernels K3 (mm3_mul), K4 (mm3_exp), K7 (mm3_exp_shared), K8 (mm3_sqr)
+// and K16 (mm3_sqr_chain): shared-modulus Montgomery arithmetic over
+// 16-bit limbs, for Hopper (sm_90a).
 //
 // K3 replaces pailliercryptolib_python_tpu/ops/pallas_mont3.py
 //    _mm3_mul_kernel (:239, wrapper mm3_mul_p :247): a*b*R^-1 mod m.
@@ -69,6 +69,30 @@
 // L(L+1)/2 + L^2 16x16-bit limb products (the function's work; the
 // routine runs it as a product, 4W^2 IMAD); bytes: a read once, the
 // modulus, the output written once.
+//
+// K16 (mm3_sqr_chain) replaces no TPU kernel: the exponent alignment of
+// `+`, `sum` and `@` (models/paillier.py PublicContext.scale_pow2) raises
+// a column to 2^d, which is d Montgomery squarings (a square maps the
+// Montgomery form to itself), where the reference runs K4's windowed
+// ct*pt by 2^d over the whole batch.  It runs K8's routine d times a
+// column with the operand in registers between squarings, as
+// coop::exp_chain keeps its accumulator, and writes each column once.  Its
+// (g, K) is K8's rule (coop_shape) at the chain's mean width, sum(d) /
+// max(d) columns a squaring step on average, which the caller passes: at
+// one d for every column that is K8's own choice; where a few columns run
+// far longer than the rest (an alignment's planted extremes) the launch
+// lasts the longest column's chain and the least K, whose square has the
+// shortest latency, wins (on an H100, 0.23 against 0.47 ms at 2,200
+// columns, 4,447 squarings, d up to 15; PERF.md).  The listed columns are
+// read and written in place of the batch through their index list, so the
+// columns with d = 0 are not touched (the wrapper's out is a copy of the
+// batch).  coop_mul shuffles under the full mask, so the loop is
+// warp-uniform: a warp runs to the largest d among its columns, and a
+// column is stored after its own d-th square.  The caller orders the
+// columns by d, descending, so a warp's columns share one d.  The counts
+// d are public (differences of the ciphertexts' fixed-point exponents).
+// Work: sum(d) squares of K8's work each; bytes: the listed columns read
+// and written once, the index list, the modulus.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -174,6 +198,26 @@ mm3_sqr_kernel(const uint32_t* a, uint32_t* out, const uint32_t* n,
   if (ln.live) coop::store_words(x, out + ln.col, B, L, ln.j);
 }
 
+// K16: column cd[c] of the (L, B) batch raised to 2^cd[C + c], c < C, by
+// that many K8 squarings in registers; out[:, cd[c]] is written once.
+template <int K>
+__global__ void __launch_bounds__(coop::kCoopThreads, 1)
+mm3_sqr_chain_kernel(const uint32_t* a, uint32_t* out, const int32_t* cd,
+                     const uint32_t* n, uint32_t n0, int L, int B, int C,
+                     int g) {
+  coop::Lane<K> ln;
+  coop::lane_setup(ln, n, n0, L, C, g);
+  const int col = __ldg(cd + ln.col);
+  const int d = ln.live ? __ldg(cd + C + ln.col) : 0;
+  const int d_warp = __reduce_max_sync(coop::kFull, d);
+  uint32_t x[K];
+  coop::load_words(x, a + col, B, L, ln.j);
+  for (int s = 1; s <= d_warp; ++s) {
+    coop::coop_mul(x, x, x, ln.n, ln.np, ln.W, ln.shift, ln.j, g);
+    if (s == d) coop::store_words(x, out + col, B, L, ln.j);
+  }
+}
+
 mm3_tile::Ops tile_ops(const uint8_t* Wmu, const uint8_t* Wm, int L) {
   return {reinterpret_cast<const uint4*>(Wmu),
           reinterpret_cast<const uint4*>(Wm), L, (2 * L + 15) / 16,
@@ -259,6 +303,26 @@ extern "C" int pct_mm3_sqr(const uint32_t* a, uint32_t* out,
     constexpr int K = decltype(k)::value;
     mm3_sqr_kernel<K><<<coop::blocks_for(B, g, coop::kCoopThreads),
                         coop::kCoopThreads, 0, st>>>(a, out, n, n0, L, B, g);
+    return cudaGetLastError();
+  });
+}
+
+// cd: (2, C) int32, the C distinct columns (< B) and their counts (>= 0);
+// width, in [1, C], the columns the shape is chosen for (see K16 above).
+extern "C" int pct_mm3_sqr_chain(const uint32_t* a, uint32_t* out,
+                                 const int32_t* cd, const uint32_t* n,
+                                 unsigned n0, int L, int B, int C, int width,
+                                 void* stream) {
+  if (L < 2 || L > kMaxLimbs || B < 1 || C < 1 || C > B || width < 1
+      || width > C) {
+    return cudaErrorInvalidValue;
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  return coop::with_shape(L, width, [&](auto k, int g) {
+    constexpr int K = decltype(k)::value;
+    mm3_sqr_chain_kernel<K><<<coop::blocks_for(C, g, coop::kCoopThreads),
+                              coop::kCoopThreads, 0, st>>>(
+        a, out, cd, n, n0, L, B, C, g);
     return cudaGetLastError();
   });
 }

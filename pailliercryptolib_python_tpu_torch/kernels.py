@@ -44,7 +44,7 @@ COUNTS = {"rns_mul": 0, "rns_exp_sched": 0, "rns_exp_elem": 0,
           "rns_exp_shared": 0, "mm3_mul": 0, "mm3_exp": 0,
           "mm3_exp_shared": 0, "mm3_sqr": 0, "mont_mul": 0, "mont_exp": 0,
           "mont_chain": 0, "mm2_mul": 0, "mm2_sqr": 0, "mm2_exp": 0,
-          "mm2_exp_shared": 0}
+          "mm2_exp_shared": 0, "mm3_sqr_chain": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +55,7 @@ _SIGS = {
     "mm3_mul": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mm3_exp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mm3_sqr": [_P, _P, _P, _U, _I, _I, _P],
+    "mm3_sqr_chain": [_P, _P, _P, _P, _U, _I, _I, _I, _I, _P],
     "rns_mul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rns_exp_sched": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _P],
@@ -143,7 +144,7 @@ def lib() -> ctypes.CDLL:
 
 
 def mont_exp_shape(L: int, B: int) -> tuple:
-    """(g, K) of the cooperative kernels K8-K15 at L limbs and B
+    """(g, K) of the cooperative kernels K8-K16 at L limbs and B
     columns: a group of g lanes per column, K 32-bit words a lane
     (``csrc/coop.cuh`` ``coop_shape``), read from the built library."""
     v = int(lib().pct_mont_exp_shape(L, B))

@@ -11,7 +11,8 @@ the limb comb (``encrypt_engine="limb"``, and every key past the RNS
 bound: one K3 or K9 product per window); a plain-Paillier key multiplies
 by r^n (K4, or K10 without mm3 weights).  ct*pt runs the per-element RNS
 chain (K5) for exponents of 8 or more 4-bit windows, the limb modexp (K4
-or K10) below.  Decryption reduces into the p^2/q^2 domains (stage 1),
+or K10) below; the exponent alignment raises the shifted columns to 2^d
+by d squarings (K16).  Decryption reduces into the p^2/q^2 domains (stage 1),
 exponentiates (stage 2: per CRT half the RNS sliding-window chain K2 or,
 with ``decrypt_engine="limb"``, the shared-exponent limb modexp K7; on
 contexts without mm3 weights the fused per-element chain over
@@ -653,6 +654,31 @@ class PublicContext:
                 profiling.count_digits(host)
                 digits = kernels.digit_tensor(host, WINDOW, ct.device)
             return mg.mont_exp(ct, digits, self.ctx, window=WINDOW)
+
+    def scale_pow2(self, ct: torch.Tensor, diffs) -> torch.Tensor:
+        """ct^(2^d) per column for d = diffs[j] >= 0 (host integers, at
+        most B of them): the exponent alignment of ``+``, ``sum`` and
+        ``@``.  The columns with d > 0, ordered by d descending so that
+        the columns of a warp share one d, run d squarings each in one
+        chain (kernel K16, its shape chosen at the chain's mean width,
+        ``mont3.sqr_chain_width``); the others, padding included, are
+        not touched.  Under fixed_shape_ops, and past K16's widest modulus,
+        one ct*pt by 2^d over the batch (``mul_pt``), whose launch shape
+        does not follow the data.  While a profiler is active the chain
+        is counted (``profiling.count_align``)."""
+        with annotate("pct.paillier.align"):
+            d = np.asarray(diffs, dtype=np.int64)
+            if (_config.get_config().fixed_shape_ops
+                    or self.L > mg.MontCtx.MXU_MAX_LIMBS):
+                return self.mul_pt(ct, [1 << int(x) if x > 0 else 1
+                                        for x in d])
+            cols = np.flatnonzero(d > 0)
+            if not cols.size:
+                return ct
+            cols = cols[np.argsort(-d[cols])]
+            d = d[cols]
+            profiling.count_align(d, self.L)
+            return _m3.mm3_sqr_chain(ct, cols, d, self.ctx)
 
     def gather_batch(self, ct: torch.Tensor, idx) -> torch.Tensor:
         """out[:, j] = ct[:, idx[j]], padded to pad_batch(len(idx))."""

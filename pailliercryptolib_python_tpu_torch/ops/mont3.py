@@ -1,5 +1,5 @@
 """Shared-modulus Montgomery product (K3), per-element modexp (K4),
-shared-exponent modexp (K7) and square (K8).
+shared-exponent modexp (K7), square (K8) and squaring chain (K16).
 
 Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
 
@@ -12,6 +12,8 @@ Counterpart of ``pailliercryptolib_python_tpu/ops/pallas_mont3.py``.
   tensor, ``mm3_exp_shared_plain`` on a CPU tensor.
 * ``mm3_sqr(a, ctx)`` -- kernel K8 on a CUDA tensor, ``mm3_sqr_plain``
   on a CPU tensor.
+* ``mm3_sqr_chain(a, cols, d, ctx)`` -- kernel K16 on a CUDA tensor,
+  ``mm3_sqr_chain_plain`` on a CPU tensor.
 
 The plain twins keep the TPU kernel's algorithm: the schoolbook product,
 then the Montgomery reduction as two signed-byte Toeplitz matrix products
@@ -19,8 +21,8 @@ then the Montgomery reduction as two signed-byte Toeplitz matrix products
 and K7 (``csrc/mm3_tile.cuh``: one tile product, or a tile's whole
 chain of them) reduce with the same two Toeplitz products, on unsigned
 bytes (``tile_weights``) as u8 tensor-core products; ``mm3_mul_tile`` is
-the product's arithmetic in plain PyTorch, for the CPU tests.  K8 uses a
-CIOS reduction instead.  All give the unique (a*b + q*m)/R with
+the product's arithmetic in plain PyTorch, for the CPU tests.  K8 and
+K16 use a CIOS reduction instead.  All give the unique (a*b + q*m)/R with
 q = -a*b*m^-1 mod R, so they agree limb for limb.
 """
 
@@ -29,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, big_mul, idot,
+from .limb import (LIMB_BITS, LIMB_DTYPE, LIMB_MASK, big_mul, h2d, idot,
                    int_to_limbs, normalize)
 from .rns_kernels import MMA_K, MMA_M, TILE_COLS, fragment_order
 from .. import kernels
@@ -248,6 +250,20 @@ def mm3_sqr_plain(a, wmu, wm, off1, off2) -> torch.Tensor:
     return _mm3_reduce(big_sqr(a), wmu, wm, off1, off2, a.shape[0])
 
 
+def mm3_sqr_chain_plain(a, cols, d, sqr) -> torch.Tensor:
+    """Plain twin of K16: a copy of the (L, B) batch a with column cols[i]
+    raised to 2^d[i] by d[i] applications of `sqr` (K8's twin); the other
+    columns as they are."""
+    out = a.clone()
+    cols = torch.as_tensor(cols, dtype=torch.int64, device=a.device)
+    d = torch.as_tensor(d, dtype=torch.int64, device=a.device)
+    x = a[:, cols]
+    for s in range(int(d.max()) if len(d) else 0):
+        x = torch.where(d > s, sqr(x), x)
+    out[:, cols] = x.to(out.dtype)
+    return out
+
+
 def mm3_exp_plain(base, digits, wmu, wm, off1, off2, one,
                   win_start: int = 0) -> torch.Tensor:
     """Plain twin of K4: 4-bit fixed window, 16-entry table, per-element
@@ -363,4 +379,76 @@ def _mm3_sqr_cuda(a, ctx) -> torch.Tensor:
     out = torch.empty((L, B), dtype=LIMB_DTYPE, device=a.device)
     kernels.launch("mm3_sqr", a, out, ctx.n_limbs.contiguous(), ctx.n0inv,
                    L, B)
+    return out
+
+
+def coop_shape(L: int, B: int) -> tuple:
+    """(g, K) of the cooperative kernels K8-K16 at L limbs and B columns,
+    g lanes a column and K 32-bit words a lane: the rule of
+    ``csrc/coop.cuh`` ``coop_shape`` (the least padding g*K where the
+    batch fills 132 SMs with 4 warps each, else the least K), for a host
+    that has no kernel library; ``kernels.mont_exp_shape`` reads the
+    library's, and chip_smoke.py holds the two equal."""
+    W = (L + 1) // 2
+    pad = lat = None
+    for K in (3, 5, 9, 17):
+        g = 8
+        while g * K < W + 1:
+            g *= 2
+        if g > 32:
+            continue
+        if pad is None or g * K < pad[0] * pad[1]:
+            pad = (g, K)
+        lat = lat or (g, K)
+    return pad if B * pad[0] // 32 >= 4 * 132 else lat
+
+
+def sqr_chain_width(d) -> int:
+    """The columns K16's (g, K) is chosen for, given the squarings d of
+    its listed columns (not all 0): their mean width sum(d) / max(d), the
+    columns a squaring step has on average.  At one d for every column
+    that is their count, K8's choice; a chain whose few longest columns
+    set its time takes the least K, whose square has the least
+    latency."""
+    return max(1, -(-int(np.sum(d)) // int(np.max(d))))
+
+
+def mm3_sqr_chain(a: torch.Tensor, cols, d, ctx) -> torch.Tensor:
+    """A copy of the (L, B) batch a (Montgomery form, shared modulus m,
+    canonical limbs < 2m) with column cols[i] raised to 2^d[i]: d[i]
+    Montgomery squarings, each equal to ``mm3_sqr``.  cols (distinct,
+    below B) and d (>= 0) are host integer arrays; list the columns by d
+    descending, so that the columns of a warp share one d.  The other
+    columns are returned as they are."""
+    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+    d = np.asarray(d, dtype=np.int64).reshape(-1)
+    B = a.shape[1]
+    if cols.shape != d.shape or cols.size and (
+            cols.min() < 0 or cols.max() >= B or d.min() < 0
+            or d.max() >= 1 << 31 or np.bincount(cols).max() > 1):
+        raise ValueError("mm3_sqr_chain: columns must be distinct and in "
+                         "[0, B), each with a count in [0, 2^31)")
+    if a.device.type == "cpu":
+        if ctx.wmu is not None:
+            sqr = lambda x: mm3_sqr_plain(x, ctx.wmu, ctx.wm, ctx.off1,
+                                          ctx.off2)
+        else:                         # K9's twin: the same unique square
+            from . import mont
+            sqr = lambda x: mont.mont_mul_p(x, x, ctx.n_limbs, ctx.n0inv)
+        return mm3_sqr_chain_plain(a, cols, d, sqr)
+    return _mm3_sqr_chain_cuda(a, cols, d, ctx)
+
+
+def _mm3_sqr_chain_cuda(a, cols, d, ctx) -> torch.Tensor:
+    kernels.require_cuda(a, ctx.n_limbs)
+    L, B = a.shape
+    a = _cols(a, L, B)
+    out = a.clone()
+    if cols.size and d.max() > 0:
+        cd = np.empty((2, cols.size), dtype=np.int32)
+        cd[0], cd[1] = cols, d
+        kernels.launch("mm3_sqr_chain", a, out,
+                       h2d(torch.from_numpy(cd), a.device),
+                       ctx.n_limbs.contiguous(), ctx.n0inv, L, B, cols.size,
+                       sqr_chain_width(d))
     return out

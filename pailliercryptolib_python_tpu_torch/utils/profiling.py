@@ -16,9 +16,10 @@ trace as the device's kernels and copies, on one clock.  With no
 profiler active, ``annotate`` is one flag read and returns a shared
 no-op context.
 
-``COUNTERS`` counts the work of the ct*pt modexp (``mul_pt``) and the
-launch geometry of the decrypt chain (K2), only while a profiler is
-active (``count_exp``, ``count_digits``, ``count_sched``).
+``COUNTERS`` counts the work of the ct*pt modexp (``mul_pt``), of the
+exponent alignment's squaring chain (K16) and the launch geometry of the
+decrypt chain (K2), only while a profiler is active (``count_exp``,
+``count_digits``, ``count_align``, ``count_sched``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+
+import numpy as np
 
 from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
@@ -40,9 +43,14 @@ _OFF = contextlib.nullcontext()
 # K2 (``rns_exp_sched``) launches, counted the same way: sched_launches;
 # sched_ctas: CTAs launched; sched_sm_slots: the SM slots of the waves
 # those CTAs take at one CTA an SM, ceil(ctas / SMs) x SMs.
+# The alignment's squaring chain (K16, ``PublicContext.scale_pow2``):
+# align_launches; align_columns: the shifted columns; align_squarings_needed:
+# the sum of their shifts d; align_squarings_run: over the warps, the
+# warp's largest d times its columns.
 COUNTERS = {"exp_columns": 0, "exp_windows_run": 0, "exp_windows_needed": 0,
             "exp_digits_built": 0, "sched_launches": 0, "sched_ctas": 0,
-            "sched_sm_slots": 0}
+            "sched_sm_slots": 0, "align_launches": 0, "align_columns": 0,
+            "align_squarings_needed": 0, "align_squarings_run": 0}
 
 
 @contextlib.contextmanager
@@ -99,6 +107,26 @@ def count_digits(digits) -> None:
     active."""
     if _profiler_enabled():
         COUNTERS["exp_digits_built"] += digits.size
+
+
+def count_align(d, L: int) -> None:
+    """Count one launch of the alignment's squaring chain (K16) at L
+    limbs: `d` the squarings of each listed column in launch order (not
+    all 0); a warp holds 32 // g columns at the launch's g lanes a column
+    (``ops.mont3.coop_shape`` at ``sqr_chain_width(d)``) and runs their
+    largest d.  Counts only while a profiler is active."""
+    if not _profiler_enabled():
+        return
+    from ..ops.mont3 import coop_shape, sqr_chain_width
+    d = np.asarray(d, dtype=np.int64)
+    g = coop_shape(L, sqr_chain_width(d))[0]
+    starts = np.arange(0, d.size, 32 // g)
+    widths = np.diff(np.append(starts, d.size))
+    COUNTERS["align_launches"] += 1
+    COUNTERS["align_columns"] += int(d.size)
+    COUNTERS["align_squarings_needed"] += int(d.sum())
+    COUNTERS["align_squarings_run"] += int(
+        (np.maximum.reduceat(d, starts) * widths).sum())
 
 
 def count_sched(columns: int, sms: int) -> None:

@@ -2,10 +2,11 @@
 fixed key: the plain twin of kernel K5 (``rns_exp_elem``) and
 ``rns_pow_elem``, the batched inversion, both ``mul_pt`` routes, the API
 operators built on them (``*`` by negatives, ``-``, ``/``, ``mean``,
-``dot``, ``@``, iteration, ``increase_exponent_to``) and
-re-randomization.  Limbs, states and ciphertexts must be equal; decoded
-floats ``allclose``.  Every ciphertext batch here is at most 8 wide, so
-the JAX package compiles its decrypt once."""
+``dot``, ``@``, iteration, ``increase_exponent_to``), re-randomization,
+and the exponent alignment by squaring (K16's twin) against the ct*pt by
+2^d it replaces.  Limbs, states and ciphertexts must be equal; decoded
+floats ``allclose``.  Every ciphertext batch here is at most 8 wide, so the
+JAX package compiles its decrypt once."""
 
 import random
 
@@ -24,6 +25,7 @@ from pailliercryptolib_python_tpu.utils.fixtures import fixed_key_ints
 
 import pailliercryptolib_python_tpu_torch as tpt
 from pailliercryptolib_python_tpu_torch.models import paillier as tsch
+from pailliercryptolib_python_tpu_torch.ops import mont3 as tm3
 from pailliercryptolib_python_tpu_torch.ops import montgomery as tmg
 from pailliercryptolib_python_tpu_torch.ops import rns as tr
 from pailliercryptolib_python_tpu_torch.ops import rns_kernels as trk
@@ -31,6 +33,7 @@ from pailliercryptolib_python_tpu_torch.ops.limb import (LIMB_BITS,
                                                          ints_to_limbs,
                                                          limbs_to_ints)
 from pailliercryptolib_python_tpu_torch.utils import config as tcfg
+from pailliercryptolib_python_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
 KD = fixed_key_ints(256)
@@ -312,3 +315,111 @@ def test_plain_paillier_obfuscator(monkeypatch):
     raw.apply_obfuscator()
     assert _cts(raw) != _cts(tpk.raw_encrypt(x))
     np.testing.assert_allclose(tsk.decrypt(raw), x, rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The exponent alignment: d squarings of each shifted column (K16's twin).
+# ---------------------------------------------------------------------------
+
+ALIGN_X = np.array([0.5, -1.25, 3e-3, 7.0, 1e-5, 1000.0, 2.0 ** -40])
+ALIGN_Y = np.array([3.0, 1e-7, -0.75, 2.0 ** 20, 0.1, -5e-3, 1.0])
+
+
+def _ctpt_align(self, ct, diffs):
+    """The alignment as one ct*pt by 2^d over the batch (``mul_pt``)."""
+    return self.mul_pt(ct, [1 << int(d) if d > 0 else 1 for d in diffs])
+
+
+def _port_keys(mxu):
+    tpk = tpt.PaillierPublicKey(tpt.ipclPublicKey(
+        KD["n"], KD["bits"], True, KD["hs"], KD["randbits"], device=CPU))
+    if mxu:                      # the mm3 weights, as a CUDA context has
+        pub = tpk.pubkey.context
+        pub.ctx = tmg.MontCtx.for_modulus(pub.nsquare, mxu=True, device=CPU)
+    return tpk, tpt.PaillierPrivateKey(tpk, KD["p"], KD["q"])
+
+
+@pytest.mark.parametrize("mxu", [False, True], ids=["K9-twin", "K8-twin"])
+def test_alignment_by_squaring_equals_ctpt_by_pow2(monkeypatch, mxu):
+    """``+`` between different exponents, ``sum``, ``@`` and
+    ``increase_exponent_to`` give the ciphertext integers and exponents of
+    the ct*pt route, and ct^(2^d) by Python's pow."""
+    tpk, tsk = _port_keys(mxu)
+    x, y = tpk.encrypt(ALIGN_X), tpk.encrypt(ALIGN_Y)
+    W = np.linspace(-1.0, 1.0, 14).reshape(7, 2)
+    target = max(x.exponent()) + 5
+    ops = {"x + y": lambda: x + y, "x.sum()": lambda: x.sum(),
+           "x @ W": lambda: x @ W,
+           "increase_exponent_to": lambda: tpt.PaillierEncryptedNumber(
+               tpk, x.increase_exponent_to(x.ciphertext(), x.exponent(),
+                                           target), [target] * 7, 7)}
+    chains = []
+    chain = tsch._m3.mm3_sqr_chain
+    monkeypatch.setattr(tsch._m3, "mm3_sqr_chain",
+                        lambda *a: chains.append(a[2]) or chain(*a))
+    got = {k: f() for k, f in ops.items()}
+    assert len(chains) >= len(ops)
+    monkeypatch.setattr(tsch.PublicContext, "scale_pow2", _ctpt_align)
+    want = {k: f() for k, f in ops.items()}
+    for k in ops:
+        assert _cts(got[k]) == _cts(want[k]), k
+        assert got[k].exponent() == want[k].exponent(), k
+    nsq = KD["n"] ** 2
+    assert _cts(got["increase_exponent_to"]) == [
+        pow(c, 1 << (target - e), nsq) for c, e in zip(_cts(x), x.exponent())]
+    np.testing.assert_allclose(tsk.decrypt(got["x + y"]), ALIGN_X + ALIGN_Y,
+                               rtol=1e-12)
+    np.testing.assert_allclose(tsk.decrypt(got["x @ W"]), ALIGN_X @ W,
+                               rtol=1e-9, atol=1e-12)
+
+
+def test_fixed_shape_alignment_stays_on_mul_pt(monkeypatch):
+    """Under fixed_shape_ops the alignment is one ct*pt by 2^d over the
+    batch, as before the squaring chain: the same ciphertexts."""
+    tpk, _ = _port_keys(False)
+    x, y = tpk.encrypt(ALIGN_X), tpk.encrypt(ALIGN_Y)
+    calls = []
+    chain, mul_pt = tsch._m3.mm3_sqr_chain, tsch.PublicContext.mul_pt
+    monkeypatch.setattr(tsch._m3, "mm3_sqr_chain",
+                        lambda *a: calls.append("chain") or chain(*a))
+    monkeypatch.setattr(tsch.PublicContext, "mul_pt",
+                        lambda self, ct, e: calls.append(list(e))
+                        or mul_pt(self, ct, e))
+    default = x + y
+    assert calls and set(calls) == {"chain"}
+    calls.clear()
+    tcfg.set_config(fixed_shape_ops=True)
+    fixed = x + y
+    assert calls and "chain" not in calls
+    assert _cts(fixed) == _cts(default)
+    tx, ty = np.array(x.exponent()), np.array(y.exponent())
+    target = np.maximum(tx, ty)
+    assert [e for e in calls if any(v > 1 for v in e)] == [
+        [1 << int(d) for d in target - ex] for ex in (tx, ty)
+        if np.any(target > ex)]
+
+
+def test_align_counters_count_squarings_and_warp_padding(monkeypatch):
+    """One chain over the 7 shifted columns of 9, ordered by d: at this
+    modulus and the chain's mean width (22 / 7 -> 4 columns) 8 lanes a
+    column, so warps of 4 columns, (7, 5, 3, 3) and (2, 1, 1), run 7 x 4
+    + 2 x 3 squarings for the 22 needed."""
+    from torch.profiler import ProfilerActivity, profile
+    monkeypatch.setattr(profiling, "COUNTERS",
+                        dict.fromkeys(profiling.COUNTERS, 0))
+    pub = tsch.PublicContext(KD["n"], KD["bits"], True, KD["hs"],
+                             KD["randbits"], device=CPU)
+    assert tm3.sqr_chain_width([7, 5, 3, 3, 2, 1, 1]) == 4
+    assert tm3.coop_shape(pub.L, 4) == (8, 3)
+    nsq = KD["n"] ** 2
+    cts = _units(random.Random(9), nsq, 9)
+    diffs = np.array([0, 5, 1, 3, 3, 0, 2, 7, 1])
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = pub.scale_pow2(pub.import_cts(cts), diffs)
+    assert profiling.COUNTERS == dict(
+        dict.fromkeys(profiling.COUNTERS, 0), align_launches=1,
+        align_columns=7, align_squarings_needed=22, align_squarings_run=34)
+    assert pub.export_cts(out, 9) == [pow(c, 1 << int(d), nsq)
+                                      for c, d in zip(cts, diffs)]
+    out = pub.scale_pow2(pub.import_cts(cts), diffs)      # no profiler
+    assert profiling.COUNTERS["align_launches"] == 1

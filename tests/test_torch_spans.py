@@ -1,7 +1,8 @@
 """The port's program spans and ct*pt work counters on the CPU, at the
 256-bit fixed key, under a CPU ``torch.profiler``: each public operation
 emits its ``pct.api.*`` span with the expected ``pct.*`` stages nested
-inside it on one thread; with no profiler active ``annotate`` enters no
+inside it on one thread (the alignment's ``pct.paillier.align`` inside
+``pct.api.align``); with no profiler active ``annotate`` enters no
 ``record_function`` and ``COUNTERS`` stays still; the counters of
 ``mul_pt`` are exact on both routes."""
 
@@ -75,8 +76,7 @@ CASES = {
                  ("pct.paillier.comb", "pct.api.encrypt")]),
     "add": (lambda pk, sk, cx, cy: cx + cy, "pct.api.add",
             [("pct.api.align", "pct.api.add"),
-             ("pct.paillier.ctpt", "pct.api.align"),
-             ("pct.paillier.digits", "pct.paillier.ctpt"),
+             ("pct.paillier.align", "pct.api.align"),
              ("pct.paillier.add", "pct.api.add")]),
     "mul": (lambda pk, sk, cx, cy: cx * W, "pct.api.mul",
             [("pct.fixedpoint.encode", "pct.api.mul"),
@@ -93,10 +93,11 @@ CASES = {
                 ("pct.paillier.ctpt", "pct.api.matmul"),
                 ("pct.api.invert", "pct.api.matmul"),
                 ("pct.api.align", "pct.api.matmul"),
+                ("pct.paillier.align", "pct.api.align"),
                 ("pct.paillier.reduce", "pct.api.matmul")]),
     "sum": (lambda pk, sk, cx, cy: cx.sum(), "pct.api.sum",
             [("pct.api.align", "pct.api.sum"),
-             ("pct.paillier.ctpt", "pct.api.align"),
+             ("pct.paillier.align", "pct.api.align"),
              ("pct.paillier.reduce", "pct.api.sum")]),
     "decrypt": (lambda pk, sk, cx, cy: sk.decrypt(cx), "pct.api.decrypt",
                 [("pct.paillier.crt_reduce", "pct.api.decrypt"),
@@ -188,6 +189,9 @@ def test_exp_counters_are_exact(route, fixed, run):
                                   "exp_windows_needed": 15,
                                   "exp_digits_built": run,
                                   "sched_launches": 0, "sched_ctas": 0,
-                                  "sched_sm_slots": 0}
+                                  "sched_sm_slots": 0, "align_launches": 0,
+                                  "align_columns": 0,
+                                  "align_squarings_needed": 0,
+                                  "align_squarings_run": 0}
     assert pub.export_cts(out, 5) == [pow(c, e, nsq)
                                       for c, e in zip(cts, EXPS)]
