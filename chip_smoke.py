@@ -2243,8 +2243,7 @@ def fourth_slice(dev, kd, tag: str, mp: dict, limb) -> dict:
         rns.rns_crt_exp_half(base_m[:, B:], priv.rdig_q, priv.rns_base,
                              priv.rns_q, priv._sq_q, priv.rns_window,
                              priv.Lh)], dim=1))
-    u2, times["stage2_K2_s"] = wall(lambda: torch.cat(
-        priv._rns_exp_halves(base_m), dim=1))
+    u2, times["stage2_K2_s"] = wall(lambda: priv._stage_exp(base_m))
     if not torch.equal(u6, u2):
         raise AssertionError("stage 2: K6's halves differ from K2's")
     ints6 = limbs_to_ints(sch._crt_stage_recombine(u6, priv))[:BATCH]
@@ -2260,8 +2259,7 @@ def fourth_slice(dev, kd, tag: str, mp: dict, limb) -> dict:
         lpriv = sch.PrivateContext(pctx, kd["p"], kd["q"])
     finally:
         pt.set_config(decrypt_engine="auto")
-    u7, times["stage2_K7_s"] = wall(lambda: torch.cat(
-        lpriv._limb_exp_halves(base_m), dim=1))
+    u7, times["stage2_K7_s"] = wall(lambda: lpriv._stage_exp(base_m))
     u10, times["stage2_K10_s"] = wall(lambda: sch._crt_stage_exp(
         base_m, lpriv._sq_ctx(B), lpriv.exp_digits_pq, lpriv.n_win_dec))
     if not (torch.equal(u7, u10) and torch.equal(u7, u2)):

@@ -27,8 +27,6 @@ from .bindings.containers import (
     BigNumber, ipclBigNumber, ipclKeypair, ipclPublicKey, ipclPrivateKey,
     ipclCipherText)
 from .models.paillier import pad_batch
-from .ops import montgomery as mg
-from .ops.limb import h2d
 from .utils import config as _config
 from .utils.context import context as _context
 from .utils.profiling import annotate
@@ -103,12 +101,23 @@ def _hybrid_split_encrypt(pctx, encodings, apply_obfuscator):
         cols = host_dev[:, :nh]
     else:
         cols = torch.cat([dev[:, :B - nh], host_dev[:, :nh]], dim=1)
-    BP = pad_batch(B)
-    if cols.shape[1] < BP:
-        pad = pctx.ctx.one.to(cols.dtype).expand(cols.shape[0],
-                                                 BP - cols.shape[1])
-        cols = torch.cat([cols, pad], dim=1)
-    return cols
+    return pctx.pad_columns(cols, B)
+
+
+def _signed_exponents(pts: list, n: int, max_int: int, out_of_bounds: str):
+    """The ct*pt rewrite of signed encodings: (flags, exponents), an
+    encoding >= n - max_int standing for a negative value, whose column
+    is raised to the small n - pt and then inverted (flags); exponents an
+    object array of ints.  An encoding outside [0, n) raises ValueError
+    with `out_of_bounds` before it."""
+    for pt in pts:
+        if not 0 <= pt < n:
+            raise ValueError(f"{out_of_bounds}{pt}")
+    cond = n - max_int
+    flags = np.array([pt >= cond for pt in pts], dtype=bool)
+    exps = np.empty(len(pts), dtype=object)
+    exps[:] = [int(n - pt) if f else int(pt) for pt, f in zip(pts, flags)]
+    return flags, exps
 
 
 class PaillierPublicKey:
@@ -363,28 +372,6 @@ class PaillierEncryptedNumber:
         return ipclCipherText(self.public_key.pubkey, _dev=dev,
                               _length=len(x_ct))
 
-    def _invert_columns(self, ct_dev, flags: np.ndarray, b: int):
-        """Invert the flagged ciphertext columns mod n^2: gather them,
-        invert by the product tree with a host root (K3 on CUDA), scatter
-        back.  Under fixed_shape_ops the whole batch is inverted and the
-        flagged columns are picked by a mask, so nothing depends on the
-        sign pattern."""
-        with annotate("pct.api.invert"):
-            ctx = self._ctx()
-            if _config.get_config().fixed_shape_ops:
-                inv = mg.mont_inv_tree_hostroot(ct_dev, ctx.ctx, ctx.nsquare)
-                mask = np.zeros(ct_dev.shape[1], dtype=bool)
-                mask[:len(flags)] = flags
-                return torch.where(h2d(torch.from_numpy(mask), ct_dev.device)[
-                    None, :], inv, ct_dev)
-            idx = np.nonzero(flags)[0]
-            inv = mg.mont_inv_tree_hostroot(ctx.gather_batch(ct_dev, idx),
-                                            ctx.ctx, ctx.nsquare)
-            out = ct_dev.clone()
-            out[:, h2d(torch.from_numpy(idx), ct_dev.device)] = \
-                inv[:, :len(idx)]
-            return out
-
     # -- addition --------------------------------------------------------------
 
     def __add__(self, other):
@@ -460,28 +447,22 @@ class PaillierEncryptedNumber:
             max_int = self.public_key.max_int
             if np.isscalar(other):
                 enc = FixedPointNumber.encode(other, n, max_int)
-                if not 0 <= enc.encoding < n:
-                    raise ValueError(
-                        f"PaillierEncryptedNumber.__mul__: Scalar out of"
-                        f"bounds: {enc.encoding}")
                 pts = [enc.encoding] * b
                 pt_expos = np.full(b, enc.exponent, dtype=np.int64)
+                bad = ("PaillierEncryptedNumber.__mul__: Scalar out of"
+                       "bounds: ")
             else:
                 if len(other) != b:
                     raise ValueError("PaillierEncryptedNumber.__mul__: "
                                      "Multiply size mismatch")
                 pts, pt_expos = encode_vector(other, n, max_int)
-                for pt in pts:
-                    if not 0 <= pt < n:
-                        raise ValueError(f"Scalar out of bounds: {pt}")
+                bad = "Scalar out of bounds: "
             with annotate("pct.api.flags"):
-                cond = n - max_int
-                flags = np.array([pt >= cond for pt in pts], dtype=bool)
-                exps = [int(n - pt) if f else int(pt)
-                        for pt, f in zip(pts, flags)]
+                flags, exps = _signed_exponents(pts, n, max_int, bad)
             dev = self._ctx().mul_pt(self.__ct.device_array(), exps)
             if flags.any():
-                dev = self._invert_columns(dev, flags, b)
+                with annotate("pct.api.invert"):
+                    dev = self._ctx().invert_columns(dev, flags)
             ct = ipclCipherText(self.public_key.pubkey, _dev=dev, _length=b)
             return PaillierEncryptedNumber(self.public_key, ct,
                                            self.__expos + pt_expos, b)
@@ -527,14 +508,8 @@ class PaillierEncryptedNumber:
             max_int = self.public_key.max_int
             encs, pt_expos = encode_vector(flat_pt, nn, max_int)
             with annotate("pct.api.flags"):
-                for pt in encs:
-                    if not 0 <= pt < nn:
-                        raise ValueError(f"Scalar out of bounds: {pt}")
-                cond = nn - max_int
-                flags_flat = np.array([pt >= cond for pt in encs], dtype=bool)
-                exps_flat = np.empty(len(encs), dtype=object)
-                exps_flat[:] = [int(nn - pt) if f else int(pt)
-                                for pt, f in zip(encs, flags_flat)]
+                flags_flat, exps_flat = _signed_exponents(
+                    encs, nn, max_int, "Scalar out of bounds: ")
 
             g_per = max(1, _config.get_config().matmul_chunk_columns // n)
             red_parts, tg_parts = [], []
@@ -554,7 +529,8 @@ class PaillierEncryptedNumber:
                 temp = ctx.mul_pt(ctx.gather_batch(dev_self, idx_self), exps)
                 flags = flags_flat[pidx]
                 if flags.any():
-                    temp = self._invert_columns(temp, flags, len(i))
+                    with annotate("pct.api.invert"):
+                        temp = ctx.invert_columns(temp, flags)
                 temp_expo = self.__expos[idx_self] + pt_expos[pidx]
                 # align each group of n to its largest exponent, then reduce
                 tg = temp_expo.reshape(gc, n).max(axis=1)
@@ -564,11 +540,7 @@ class PaillierEncryptedNumber:
                     ctx.segment_tree_reduce(temp, gc, n)[:, :gc])
                 tg_parts.append(tg)
 
-            red = torch.cat(red_parts, dim=1)
-            pad = pad_batch(G)
-            if red.shape[1] < pad:
-                red = torch.cat([red, ctx.ctx.one.to(red.dtype).expand(
-                    ctx.L, pad - red.shape[1])], dim=1)
+            red = ctx.pad_columns(torch.cat(red_parts, dim=1), G)
             ct = ipclCipherText(self.public_key.pubkey, _dev=red, _length=G)
             return PaillierEncryptedNumber(self.public_key, ct,
                                            np.concatenate(tg_parts), G)

@@ -44,7 +44,7 @@ from ..ops import mont3 as _m3
 from ..ops import montgomery as mg
 from ..ops import rns as _rns
 from ..ops import rns_kernels as _rk
-from ..ops.reduction import exact_div
+from ..ops.reduction import exact_div, tree_fold
 from ..utils import config as _config
 from ..utils import profiling
 from ..utils.profiling import annotate
@@ -443,11 +443,9 @@ class PublicContext:
         self._comb_rns = None
 
     def free(self) -> None:
-        """Retire the key: drop its comb tables, leave the registry and
-        evict its cached kernel operand bundle."""
+        """Retire the key: drop its comb tables and leave the registry."""
         self._drop_comb()
         _config.comb_registry.unregister(self)
-        _rk.pack_evict(self.nsquare)
 
     @property
     def n_exp_digits(self) -> np.ndarray:
@@ -610,7 +608,8 @@ class PublicContext:
         with annotate("pct.paillier.add"):
             return mg.mont_mul(a, b, self.ctx)
 
-    def mul_pt(self, ct: torch.Tensor, exponents: list) -> torch.Tensor:
+    def mul_pt(self, ct: torch.Tensor, exponents: list, *,
+               full: bool | None = None) -> torch.Tensor:
         """HE ct*pt: ct^e per column, exponents >= 0.
 
         RNS route (kernel K5) when the plan is on and the widest exponent
@@ -619,40 +618,41 @@ class PublicContext:
         (kernel K4, K10 without mm3 weights) otherwise, over the
         ceil(maxbits/4) windows the widest exponent needs.  Either way
         the host builds and uploads digits for the windows run only.
-        Under fixed_shape_ops both run the full mod-n window count and
-        every exponent takes the RNS route when the plan is on.  While a
-        profiler is active the launch and its digits are counted in
+        With `full` (None reads fixed_shape_ops; ``sharded_mul_pt`` passes
+        True, so every rank runs the same chain) both run the full mod-n
+        window count and every exponent takes the RNS route when the plan
+        is on.  While a profiler is active the launch is counted in
         ``profiling.COUNTERS``."""
         with annotate("pct.paillier.ctpt"):
             B = ct.shape[1]
             exps = list(exponents) + [0] * (B - len(exponents))
-            fixed = _config.get_config().fixed_shape_ops
+            if full is None:
+                full = _config.get_config().fixed_shape_ops
             bits = [int(e).bit_length() for e in exps]
             maxbits = max(bits, default=1)
             rplan = self._rns_mul_plan()
-            if rplan is not None and not fixed and -(-maxbits // WINDOW) < 8:
+            if rplan is not None and not full and -(-maxbits // WINDOW) < 8:
                 rplan = None
             if rplan is not None:
                 base, key, w = rplan
                 nw_full = -(-self.bits // w)
                 needed = max(1, -(-maxbits // w))
-                nw = nw_full if fixed else min(
+                nw = nw_full if full else min(
                     nw_full, max(4, 1 << max(0, needed - 1).bit_length()))
                 profiling.count_exp(bits, w, nw)
                 with annotate("pct.paillier.digits"):
                     digits = mg.exponent_digits(exps, nw, w)
-                    profiling.count_digits(digits)
                 # K5's wrapper copies the digits up after the RNS entry is
                 # enqueued, so that copy's host work overlaps the entry
                 return _rns.rns_pow_elem(ct, digits, base, key, self.ctx, w,
                                          self.L)
-            n_win = (self.n_win_ct if fixed
+            n_win = (self.n_win_ct if full
                      else max(1, -(-maxbits // WINDOW)))
             profiling.count_exp(bits, WINDOW, n_win)
             with annotate("pct.paillier.digits"):
-                host = mg.exponent_digits(exps, n_win, WINDOW)
-                profiling.count_digits(host)
-                digits = kernels.digit_tensor(host, WINDOW, ct.device)
+                digits = kernels.digit_tensor(
+                    mg.exponent_digits(exps, n_win, WINDOW), WINDOW,
+                    ct.device)
             return mg.mont_exp(ct, digits, self.ctx, window=WINDOW)
 
     def scale_pow2(self, ct: torch.Tensor, diffs) -> torch.Tensor:
@@ -697,7 +697,40 @@ class PublicContext:
         """HE sums of `groups` contiguous segments of length `seg`;
         returns (L, pad_batch(groups)) with the group sums in order."""
         with annotate("pct.paillier.reduce"):
-            return _segment_tree_reduce(ct, self.ctx, groups, seg, self.L)
+            arr = tree_fold(ct, self.ctx, groups, seg)
+            out = self.ctx.one.to(LIMB_DTYPE).expand(
+                self.L, pad_batch(groups)).clone()
+            out[:, :groups] = arr
+            return out
+
+    def pad_columns(self, ct: torch.Tensor, b: int) -> torch.Tensor:
+        """ct with its columns padded to pad_batch(b) by the Montgomery
+        one (an encryption of zero)."""
+        short = pad_batch(b) - ct.shape[1]
+        if short <= 0:
+            return ct
+        return torch.cat([ct, self.ctx.one.to(ct.dtype).expand(
+            ct.shape[0], short)], dim=1)
+
+    def invert_columns(self, ct: torch.Tensor, flags) -> torch.Tensor:
+        """ct with the columns flagged in `flags` (host bools, at most B)
+        inverted mod n^2: gathered, inverted by the product tree with a
+        host root (K3 on CUDA; the root's read-back is the one host
+        synchronization), scattered back.  Under fixed_shape_ops the whole
+        batch is inverted and the flagged columns are picked by a mask,
+        so nothing depends on the sign pattern."""
+        if _config.get_config().fixed_shape_ops:
+            inv = mg.mont_inv_tree_hostroot(ct, self.ctx, self.nsquare)
+            mask = np.zeros(ct.shape[1], dtype=bool)
+            mask[:len(flags)] = flags
+            return torch.where(h2d(torch.from_numpy(mask), ct.device)[
+                None, :], inv, ct)
+        idx = np.nonzero(flags)[0]
+        inv = mg.mont_inv_tree_hostroot(self.gather_batch(ct, idx),
+                                        self.ctx, self.nsquare)
+        out = ct.clone()
+        out[:, h2d(torch.from_numpy(idx), ct.device)] = inv[:, :len(idx)]
+        return out
 
     def export_cts(self, ct_mont: torch.Tensor, b: int) -> list:
         """Montgomery ciphertexts -> canonical Python ints."""
@@ -731,33 +764,6 @@ def _build_comb_rns(lad_pos, base, key, *, w, n_win, randbits):
                           lad_b.reshape(CH, n_win * half), base, key)
         T = torch.cat([T, blk.reshape(CH, n_win, half)], dim=2)
     return T.permute(1, 0, 2).contiguous()              # (n_win, CH, 2^w)
-
-
-def _segment_tree_reduce(ct, ctx, groups, seg, L):
-    """HE sums over `groups` contiguous segments of length `seg`: pad each
-    to a power of two with the Montgomery one, then log2 folding rounds,
-    each one product (kernel K3) of the upper half into the lower."""
-    P = 1 << max(0, (seg - 1).bit_length())
-    one = ctx.one.to(LIMB_DTYPE)
-    if seg == P and groups * P == ct.shape[1]:
-        arr = ct
-    else:
-        arr = one.expand(L, groups * P).clone()
-        dst = np.concatenate([np.arange(g * P, g * P + seg)
-                              for g in range(groups)])
-        dst_t = h2d(torch.from_numpy(dst), ct.device)
-        arr[:, dst_t] = ct[:, :groups * seg]
-    width = P
-    while width > 1:
-        half = width // 2
-        a3 = arr.reshape(L, groups, width)
-        lo = a3[:, :, :half].reshape(L, groups * half)
-        hi = a3[:, :, half:].reshape(L, groups * half)
-        arr = mg.mont_mul(lo, hi, ctx)
-        width = half
-    out = one.expand(L, pad_batch(groups)).clone()
-    out[:, :groups] = arr[:, :groups]
-    return out
 
 
 def _encrypt_raw_canonical(m_limbs, n_limbs, L):
@@ -932,45 +938,39 @@ class PrivateContext:
     def _stage_exp(self, base_m: torch.Tensor) -> torch.Tensor:
         """Stage 2 on this context's engine: (Lh, 2B) -> canonical
         c^(p-1) mod p^2 | c^(q-1) mod q^2."""
+        parts = [run() for run in self._stage2(base_m).values()]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    def _stage2(self, base_m: torch.Tensor) -> dict:
+        """Stage 2 as named thunks whose results, in order, make its
+        output: per CRT half the RNS sliding-window chain (K2, enter and
+        exit included) or, with mm3 weights, the limb engine's
+        shared-exponent chain (K7); else one fused per-element chain over
+        both halves (K10)."""
         B = base_m.shape[1] // 2
+        halves = (("p", base_m[:, :B], self._sq_p),
+                  ("q", base_m[:, B:], self._sq_q))
         if self.use_rns:
-            return torch.cat(self._rns_exp_halves(base_m), dim=1)
+            keys = {"p": self.rns_p, "q": self.rns_q}
+            return {f"stage2_rns_{w}_half": (
+                lambda w=w, v=v, sq=sq: _rns.rns_crt_exp_sched(
+                    v, self.device_digits("rsched_" + w), self.rns_base,
+                    keys[w], sq, self.rns_sched_window, self.Lh))
+                for w, v, sq in halves}
         if self._sq_p.wmu is not None:
-            return torch.cat(self._limb_exp_halves(base_m), dim=1)
-        return _crt_stage_exp(base_m, self._sq_ctx(B), self.exp_digits_pq,
-                              self.n_win_dec,
-                              self.device_digits("exp_digits_pq", B))
-
-    def _rns_exp_halves(self, base_m: torch.Tensor):
-        """Stage 2 on the RNS engine: per half enter, the sliding-window
-        chain (K2), exit."""
-        B = base_m.shape[1] // 2
-        return (self._rns_exp_half(base_m[:, :B], "p"),
-                self._rns_exp_half(base_m[:, B:], "q"))
-
-    def _rns_exp_half(self, v: torch.Tensor, which: str) -> torch.Tensor:
-        key, sq = ((self.rns_p, self._sq_p) if which == "p" else
-                   (self.rns_q, self._sq_q))
-        sched = self.device_digits("rsched_" + which)
-        return _rns.rns_crt_exp_sched(v, sched, self.rns_base, key, sq,
-                                      self.rns_sched_window, self.Lh)
-
-    def _limb_exp_halves(self, base_m: torch.Tensor):
-        """Stage 2 on the limb engine with mm3 weights: K7 per half."""
-        B = base_m.shape[1] // 2
-        return (_crt_stage_exp_half(base_m[:, :B], self._sq_p,
-                                    self.device_digits("dig_p"),
-                                    self.dec_window),
-                _crt_stage_exp_half(base_m[:, B:], self._sq_q,
-                                    self.device_digits("dig_q"),
-                                    self.dec_window))
+            return {f"stage2_exp_{w}_half": (
+                lambda w=w, v=v, sq=sq: _crt_stage_exp_half(
+                    v, sq, self.device_digits("dig_" + w), self.dec_window))
+                for w, v, sq in halves}
+        return {"stage2_exp": lambda: _crt_stage_exp(
+            base_m, self._sq_ctx(B), self.exp_digits_pq, self.n_win_dec,
+            self.device_digits("exp_digits_pq", B))}
 
     def profile_stages(self, ct_mont: torch.Tensor, b: int) -> dict:
         """Per-stage thunks of the decrypt, each on the inputs the decrypt
         itself would hand it, for callers that time them one by one.  On
         a CUDA context every thunk ends in ``torch.cuda.synchronize()``,
         so its wall time is the stage's."""
-        B = ct_mont.shape[1]
         cuda = ct_mont.is_cuda
 
         def synced(fn):
@@ -986,33 +986,12 @@ class PrivateContext:
         m = _crt_stage_recombine(u, self)
         stages = {
             "stage1_reduce": lambda: _crt_stage_reduce(ct_mont, self),
+            **self._stage2(base_m),
             "stage3_recombine": lambda: _crt_stage_recombine(u, self),
             "stage4_d2h": lambda: m.cpu().numpy(),
             "stage5_to_ints": lambda: limbs_to_ints(m)[:b],
         }
-        if self.use_rns:
-            stages["stage2_rns_p_half"] = lambda: self._rns_exp_half(
-                base_m[:, :B], "p")
-            stages["stage2_rns_q_half"] = lambda: self._rns_exp_half(
-                base_m[:, B:], "q")
-        elif self._sq_p.wmu is not None:
-            stages["stage2_exp_p_half"] = lambda: _crt_stage_exp_half(
-                base_m[:, :B], self._sq_p, self.device_digits("dig_p"),
-                self.dec_window)
-            stages["stage2_exp_q_half"] = lambda: _crt_stage_exp_half(
-                base_m[:, B:], self._sq_q, self.device_digits("dig_q"),
-                self.dec_window)
-        else:
-            stages["stage2_exp"] = lambda: _crt_stage_exp(
-                base_m, self._sq_ctx(B), self.exp_digits_pq, self.n_win_dec,
-                self.device_digits("exp_digits_pq", B))
         return {k: synced(f) for k, f in stages.items()}
-
-    def free(self) -> None:
-        """Retire the key: evict the cached kernel operand bundles of
-        p^2 and q^2."""
-        _rk.pack_evict(self.p * self.p)
-        _rk.pack_evict(self.q * self.q)
 
 
 def _crt_stage_reduce(ct_mont, s: PrivateContext):

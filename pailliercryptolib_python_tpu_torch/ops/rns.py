@@ -290,8 +290,8 @@ def modulus_arrays_np(mbits: int, m: int, L: int) -> dict:
 
 def modulus_vectors(mbits: int, m: int) -> dict:
     """Per-(base, m) channel constant vectors (numpy).  Not memoized: m
-    is key material (p^2, q^2 or n^2); the one bounded cache of per-key
-    constants is ``rns_kernels.pack``'s, emptied by ``pack_evict``."""
+    is key material (p^2, q^2 or n^2); per-key constants live only on
+    the key (``RnsModulus``)."""
     a = base_arrays_np(mbits)
     M, Mp, m_r = a["M"], a["Mp"], a["m_r"]
     mods_B, mods_Bp = a["mods_B_int"], a["mods_Bp_int"]
@@ -492,9 +492,9 @@ def residue_fold_limbs(T, C_lo, C_hi, Lh: int):
     return normalize(arr)
 
 
-@lru_cache(maxsize=16)
 def _residue_planes_np(m: int, Lh: int, K: int):
-    """Byte planes of C[j, l] = limb j of (2^(16l) mod m) (numpy)."""
+    """Byte planes of C[j, l] = limb j of (2^(16l) mod m) (numpy).  Not
+    memoized: m is key material (p^2 or q^2)."""
     C = np.zeros((Lh, K), dtype=np.uint32)
     for l in range(K):
         C[:, l] = int_to_limbs(pow(2, 16 * l, m), Lh)

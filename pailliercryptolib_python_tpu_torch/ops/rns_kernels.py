@@ -20,7 +20,6 @@ for a CUDA tensor it launches the kernel (``csrc/rns.cu``) or raises.
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from functools import lru_cache
 
 import numpy as np
@@ -104,35 +103,10 @@ def _pack_static(mbits: int):
     return dict(vec=vec, skc=skc, E1=E1, E2=E2, CHP=CHP)
 
 
-# Operand bundles keyed by (mbits, m).  m is key material (p^2, q^2 or
-# n^2), so the cache is bounded and a retired key's entries can be
-# dropped at once; 16 entries hold five keys (n^2 and both CRT halves).
-_PACK_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
-_PACK_CACHE_MAX = 16
-
-
-def pack_evict(m: int) -> None:
-    """Drop the cached operand bundles of modulus m (key retirement)."""
-    for ck in [ck for ck in _PACK_CACHE if ck[1] == m]:
-        del _PACK_CACHE[ck]
-
-
 def pack(mbits: int, m: int) -> dict:
-    """Kernel operand bundle for modulus m (numpy; least recently used of
-    more than _PACK_CACHE_MAX bundles is dropped)."""
-    ck = (mbits, m)
-    hit = _PACK_CACHE.get(ck)
-    if hit is not None:
-        _PACK_CACHE.move_to_end(ck)
-        return hit
-    out = _pack(mbits, m)
-    _PACK_CACHE[ck] = out
-    while len(_PACK_CACHE) > _PACK_CACHE_MAX:
-        _PACK_CACHE.popitem(last=False)
-    return out
-
-
-def _pack(mbits: int, m: int) -> dict:
+    """Kernel operand bundle for modulus m (numpy).  m is key material
+    (n^2, p^2 or q^2): the bundle is built once per key, and only its
+    device copy is kept, on the key (``kernel_operands``)."""
     a = rns.base_arrays_np(mbits)
     kv = rns.modulus_vectors(mbits, m)
     k = a["k"]

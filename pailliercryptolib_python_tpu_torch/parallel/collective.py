@@ -4,7 +4,8 @@ all-reduce and the elementwise ops over a batch split across ranks.
 Counterpart of ``pailliercryptolib_python_tpu/parallel/collective.py``.
 Ciphertext addition is a Montgomery product mod n^2, so an encrypted
 all-reduce is a product tree over the batch: each rank folds its own
-block (log2 rounds, each multiplying the upper half into the lower, as
+block (``ops.reduction.tree_fold``, the fold of ``PublicContext``'s sums
+too: log2 rounds, each multiplying the upper half into the lower, as
 the reference's ``_local_tree_reduce``), the (L, 1) partials are
 all-gathered in rank order, and every rank folds them the same way.  The
 reference gathers over ICI, then DCN; that order is the mesh's block
@@ -21,7 +22,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import montgomery as mg
-from ..ops.limb import LIMB_DTYPE
+from ..ops.reduction import tree_fold
 from .distributed import require_group
 from .mesh import mesh_ranks
 
@@ -35,20 +36,10 @@ COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_gather_object",
 
 
 def local_tree_reduce(x: torch.Tensor, ctx: mg.MontCtx) -> torch.Tensor:
-    """The HE sum of a (L, Bloc) block as (L, 1): padded with the
-    Montgomery one to a power of two, then log2 folding rounds, each one
-    product of the upper half into the lower."""
-    L, B = x.shape
-    P = 1 << max(0, (B - 1).bit_length())
-    if P != B:
-        pad = ctx.one.to(LIMB_DTYPE).expand(L, P - B)
-        x = torch.cat([x.to(LIMB_DTYPE), pad], dim=1)
-    width = P
-    while width > 1:
-        half = width // 2
-        x = mg.mont_mul(x[:, :half], x[:, half:], ctx)
-        width = half
-    return x
+    """The HE sum of a (L, Bloc) block as (L, 1) (``ops.reduction.
+    tree_fold``, one segment).  A name of its own so that a rank's
+    partial can be replaced (``portbench/tests/multicard_systems.py``)."""
+    return tree_fold(x, ctx)
 
 
 def fold_partials(parts: list, ctx: mg.MontCtx) -> torch.Tensor:

@@ -19,7 +19,7 @@ no-op context.
 ``COUNTERS`` counts the work of the ct*pt modexp (``mul_pt``), of the
 exponent alignment's squaring chain (K16) and the launch geometry of the
 decrypt chain (K2), only while a profiler is active (``count_exp``,
-``count_digits``, ``count_align``, ``count_sched``).
+``count_align``, ``count_sched``).
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ _OFF = contextlib.nullcontext()
 # ct*pt modexp work, counted only while a profiler is active:
 # exp_columns: columns launched, padding included; exp_windows_run:
 # columns x windows the chosen route runs; exp_windows_needed: the sum over
-# the columns of ceil(bitlen(e) / window), 0 for e <= 1; exp_digits_built:
-# columns x windows of exponent digits built on the host.
+# the columns of ceil(bitlen(e) / window), 0 for e <= 1.
 # K2 (``rns_exp_sched``) launches, counted the same way: sched_launches;
 # sched_ctas: CTAs launched; sched_sm_slots: the SM slots of the waves
 # those CTAs take at one CTA an SM, ceil(ctas / SMs) x SMs.
@@ -48,8 +47,8 @@ _OFF = contextlib.nullcontext()
 # the sum of their shifts d; align_squarings_run: over the warps, the
 # warp's largest d times its columns.
 COUNTERS = {"exp_columns": 0, "exp_windows_run": 0, "exp_windows_needed": 0,
-            "exp_digits_built": 0, "sched_launches": 0, "sched_ctas": 0,
-            "sched_sm_slots": 0, "align_launches": 0, "align_columns": 0,
+            "sched_launches": 0, "sched_ctas": 0, "sched_sm_slots": 0,
+            "align_launches": 0, "align_columns": 0,
             "align_squarings_needed": 0, "align_squarings_run": 0}
 
 
@@ -99,14 +98,6 @@ def count_exp(bits: list, window: int, windows_run: int) -> None:
     COUNTERS["exp_windows_run"] += len(bits) * windows_run
     COUNTERS["exp_windows_needed"] += sum(-(-b // window) for b in bits
                                           if b > 1)
-
-
-def count_digits(digits) -> None:
-    """Count the host exponent digits of one ct*pt launch, `digits` an
-    array of (windows, columns).  Counts only while a profiler is
-    active."""
-    if _profiler_enabled():
-        COUNTERS["exp_digits_built"] += digits.size
 
 
 def count_align(d, L: int) -> None:

@@ -24,6 +24,7 @@ from pailliercryptolib_python_tpu.utils import config as jcfg
 from pailliercryptolib_python_tpu.utils.fixtures import fixed_key_ints
 
 import pailliercryptolib_python_tpu_torch as tpt
+from pailliercryptolib_python_tpu_torch.fixedpoint import encode_vector
 from pailliercryptolib_python_tpu_torch.models import paillier as tsch
 from pailliercryptolib_python_tpu_torch.ops import mont3 as tm3
 from pailliercryptolib_python_tpu_torch.ops import montgomery as tmg
@@ -206,6 +207,32 @@ def test_mul_pt_routes(bits, fixed, top):
 # The API operators.
 # ---------------------------------------------------------------------------
 
+def _signed_mul_by_hand(tpk, tx, w, fixed):
+    """``x * w`` as the API runs it, from the context's own calls:
+    ``mul_pt`` by n - pt where the encoding is >= n - max_int (a negative
+    weight), then ``PublicContext.invert_columns`` of those columns (by
+    gather and scatter, or under fixed_shape_ops over the whole batch
+    with a mask); each inverted column is checked against Python's
+    inverse mod n^2.  Returns the exported ciphertexts."""
+    prev = tcfg.get_config().fixed_shape_ops
+    tcfg.set_config(fixed_shape_ops=fixed)
+    try:
+        n, max_int = tpk.n, tpk.max_int
+        pts, _ = encode_vector(w, n, max_int)
+        flags = np.array([pt >= n - max_int for pt in pts])
+        assert flags.any() and not flags.all()
+        ctx = tpk.pubkey.context
+        pos = ctx.mul_pt(tx.ciphertext().device_array(),
+                         [n - pt if f else pt for pt, f in zip(pts, flags)])
+        got = ctx.export_cts(ctx.invert_columns(pos, flags), len(w))
+    finally:
+        tcfg.set_config(fixed_shape_ops=prev)
+    nsq = n * n
+    for g, p, f in zip(got, ctx.export_cts(pos, len(w)), flags):
+        assert g == (pow(p, -1, nsq) if f else p)
+    return got
+
+
 @pytest.mark.parametrize("chunk", [1 << 15, 8], ids=["whole", "chunk8"])
 def test_api_operators(monkeypatch, chunk):
     jcfg.set_config(matmul_chunk_columns=chunk)
@@ -245,6 +272,9 @@ def test_api_operators(monkeypatch, chunk):
     for i, (op, want) in enumerate(cases):
         jres, tres = op(jx, jy, jv), op(tx, ty, tv)
         assert _cts(tres) == _cts(jres), i
+        if i == 1:                                     # c * w, mixed signs
+            for fixed in (False, True):
+                assert _signed_mul_by_hand(tpk, tx, w, fixed) == _cts(jres)
         assert tres.exponent() == jres.exponent(), i
         td = np.asarray(tsk.decrypt(tres))
         np.testing.assert_allclose(td, np.asarray(jsk.decrypt(jres)),

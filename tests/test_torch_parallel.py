@@ -5,9 +5,10 @@ parallel``) on the CPU, at the fixed 256-bit key.
 * Layout: ``batch_bounds`` gives each rank the columns the JAX batch
   sharding gives the mesh position of the same index, on the 8 CPU
   devices of ``tests/conftest.py`` ((1, 1), (2, 4), (1, 8) meshes).
-* HE sum: the local fold and the fold of the partials over 8 blocks in
-  one process equal JAX ``sharded_he_sum`` on ``make_mesh(2, 4)`` limb
-  for limb.
+* HE sum: the local fold (``ops.reduction.tree_fold``) and the fold of
+  the partials over 8 blocks in one process equal JAX ``sharded_he_sum``
+  on ``make_mesh(2, 4)`` limb for limb; the fold's padding of segments
+  narrower than a power of two.
 * In a world-size-1 gloo group: ``sharded_he_sum`` (one all-gather),
   ``sharded_elementwise`` add, ``federated_aggregate``,
   ``sharded_decrypt`` and ``sharded_mul_pt`` (no collective inside
@@ -37,6 +38,7 @@ from pailliercryptolib_python_tpu.utils.fixtures import fixed_key_ints
 from pailliercryptolib_python_tpu_torch.models import paillier as tsch
 from pailliercryptolib_python_tpu_torch.ops import montgomery as tmg
 from pailliercryptolib_python_tpu_torch.ops.limb import limbs_to_ints
+from pailliercryptolib_python_tpu_torch.ops.reduction import tree_fold
 from pailliercryptolib_python_tpu_torch.parallel import collective as coll
 from pailliercryptolib_python_tpu_torch.parallel import distributed as pdist
 from pailliercryptolib_python_tpu_torch.parallel import entry as pentry
@@ -118,11 +120,13 @@ def test_batch_bounds_match_jax_sharding(shape):
 
 
 def test_he_sum_folds_over_8_blocks_equal_jax(keys):
-    """8 blocks of 8 columns, each folded alone, the partials folded in
-    block order: the reference's program on its (2, 4) mesh."""
+    """8 blocks of 8 columns, each folded alone (``tree_fold``, the one
+    fold of the package), the partials folded in block order: the
+    reference's program on its (2, 4) mesh.  One fold over 8 segments
+    gives the same partials."""
     _, tpub, _, _, ct = keys
-    parts = [coll.local_tree_reduce(ct[:, lo:lo + 8], tpub.ctx)
-             for lo in range(0, B, 8)]
+    parts = [tree_fold(ct[:, lo:lo + 8], tpub.ctx) for lo in range(0, B, 8)]
+    _same(tree_fold(ct, tpub.ctx, 8), torch.cat(parts, dim=1))
     total = coll.fold_partials(parts, tpub.ctx)
     assert total.shape == (tpub.L, 1)
     _same(total, _jax_he_sum(keys, 2, 4))
@@ -132,8 +136,23 @@ def test_local_tree_reduce_pads_with_one(keys):
     """A block whose width is not a power of two is padded with the
     Montgomery one (an encryption of zero)."""
     _, tpub, tpriv, xs, ct = keys
-    total = coll.local_tree_reduce(ct[:, :5], tpub.ctx)
+    total = tree_fold(ct[:, :5], tpub.ctx)
+    _same(coll.local_tree_reduce(ct[:, :5], tpub.ctx), total)
     assert tpriv.decrypt_to_ints(total, 1) == [sum(xs[:5]) % N]
+
+
+@pytest.mark.parametrize("groups,seg", [(3, 5), (4, 8), (1, 6)],
+                         ids=["3x5", "4x8-of-64", "1x6-of-64"])
+def test_tree_fold_pads_each_segment(keys, groups, seg):
+    """Segments narrower than a power of two, or fewer columns than the
+    batch: each segment's HE sum, as ``segment_tree_reduce`` returns them
+    ahead of its padding columns."""
+    _, tpub, tpriv, xs, ct = keys
+    sums = tree_fold(ct, tpub.ctx, groups, seg)
+    assert sums.shape == (tpub.L, groups)
+    _same(tpub.segment_tree_reduce(ct, groups, seg)[:, :groups], sums)
+    assert tpriv.decrypt_to_ints(sums, groups) == [
+        sum(xs[g * seg:(g + 1) * seg]) % N for g in range(groups)]
 
 
 # ---------------------------------------------------------------------------

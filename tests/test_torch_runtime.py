@@ -353,39 +353,49 @@ def test_touch_keeps_hot_keys_resident_and_bytes_are_real(small_combs):
         p.free()
 
 
-def test_pack_cache_bounded_and_evictable():
-    saved = dict(trk._PACK_CACHE)
-    trk._PACK_CACHE.clear()
-    try:
-        psq, qsq = KD["p"] ** 2, KD["q"] ** 2
-        mbits = -(-max(psq.bit_length(), qsq.bit_length()) // 64) * 64
-        first = trk.pack(mbits, psq)
-        assert trk.pack(mbits, psq) is first          # a hit
-        trk.pack(mbits, qsq)
-        for i in range(trk._PACK_CACHE_MAX + 3):
-            trk.pack(mbits, psq + 2 * (i + 1))        # any odd modulus
-        assert len(trk._PACK_CACHE) == trk._PACK_CACHE_MAX
-        assert all(ck[1] != psq for ck in trk._PACK_CACHE)   # LRU went
-        trk.pack(mbits, psq)
-        trk.pack(mbits, qsq)
-        trk.pack_evict(psq)
-        assert all(ck[1] != psq for ck in trk._PACK_CACHE)
-        assert any(ck[1] == qsq for ck in trk._PACK_CACHE)
-        # a private context's free() evicts both halves
-        pub = _mk_pub(0)
-        priv = tsch.PrivateContext(pub, KD["p"], KD["q"])
-        for m in (psq, qsq):        # what a CUDA decrypt would cache
-            trk.pack(priv.rns_base.mbits, m)
-        trk.pack(pub.rns_plan()[0].mbits, pub.nsquare)
-        assert sum(ck[1] in (psq, qsq, pub.nsquare)
-                   for ck in trk._PACK_CACHE) == 3
-        priv.free()
-        pub.free()
-        assert all(ck[1] not in (psq, qsq, KD["n"] ** 2)
-                   for ck in trk._PACK_CACHE)
-    finally:
-        trk._PACK_CACHE.clear()
-        trk._PACK_CACHE.update(saved)
+class _Bundle(dict):
+    """An operand bundle that a weak reference can watch."""
+
+
+def test_kernel_operands_built_once_and_retired_with_the_key(monkeypatch):
+    """Each key's operand bundle (``rns_kernels.pack``) is built once per
+    key and device and memoized on the key (``kernel_operands``); no
+    module-level structure of the port keeps it or its modulus, so the
+    bundles go with the contexts."""
+    import gc
+    import sys
+    import weakref
+    built = []
+    real = trk.pack
+    monkeypatch.setattr(trk, "pack", lambda mbits, m: built.append(
+        _Bundle(real(mbits, m))) or built[-1])
+    pub = _mk_pub(0)
+    priv = tsch.PrivateContext(pub, KD["p"], KD["q"])
+    keys = [(priv.rns_base, priv.rns_p), (priv.rns_base, priv.rns_q),
+            pub.rns_plan()]
+    ops = [trk.kernel_operands(b, k, CPU) for b, k in keys]
+    assert all(trk.kernel_operands(b, k, CPU) is o
+               for (b, k), o in zip(keys, ops))
+    assert all(k._dev_ops is o for (_, k), o in zip(keys, ops))
+    moduli = {KD["p"] ** 2, KD["q"] ** 2, KD["n"] ** 2}
+    assert len(built) == 3 and all(
+        np.array_equal(bd["vec"], real(b.mbits, k.m)["vec"])
+        for bd, (b, k) in zip(built, keys))
+    assert {k.m for _, k in keys} == moduli
+    watch = [weakref.ref(x) for x in built] + [
+        weakref.ref(o["vec"]) for o in ops]
+    pub.free()
+    del pub, priv, keys, ops, built
+    gc.collect()
+    assert not [w for w in watch if w() is not None]
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith("pailliercryptolib_python_tpu_torch"):
+            continue
+        for val in vars(mod).values():
+            if isinstance(val, dict):
+                assert not any(
+                    k in moduli or isinstance(k, tuple) and moduli & set(k)
+                    for k in val if isinstance(k, (int, tuple))), name
 
 
 # -- profiling, baseconverter, profile_stages ----------------------------------

@@ -168,7 +168,7 @@ EXPS = [0, 1, 2, 1 << 9, 1 << 40]
     ("rns", True, 8 * 64),      # fixed_shape_ops: all 64 windows of n
     ("limb", True, 8 * 64),
 ])
-def test_exp_counters_are_exact(route, fixed, run):
+def test_exp_counters_are_exact(monkeypatch, route, fixed, run):
     tcfg.set_config(fixed_shape_ops=fixed)
     if route == "limb":
         tcfg.set_config(decrypt_engine="limb", encrypt_engine="limb")
@@ -180,14 +180,18 @@ def test_exp_counters_are_exact(route, fixed, run):
     cts = [rng.randrange(2, nsq) for _ in EXPS]
     ct = pub.import_cts(cts)
     assert ct.shape[1] == 8
+    built = []
+    digits = tsch.mg.exponent_digits
+    monkeypatch.setattr(tsch.mg, "exponent_digits", lambda *a: built.append(
+        digits(*a)) or built[-1])
     profiling.COUNTERS.update(dict.fromkeys(profiling.COUNTERS, 0))
     with profile(activities=[ProfilerActivity.CPU]):
         out = pub.mul_pt(ct, EXPS)
     # the host builds digits for exactly the windows the route runs; no
     # decrypt chain (K2) is counted
+    assert [d.size for d in built] == [run]
     assert profiling.COUNTERS == {"exp_columns": 8, "exp_windows_run": run,
                                   "exp_windows_needed": 15,
-                                  "exp_digits_built": run,
                                   "sched_launches": 0, "sched_ctas": 0,
                                   "sched_sm_slots": 0, "align_launches": 0,
                                   "align_columns": 0,
