@@ -706,7 +706,7 @@ def check_kernels(dev, kd) -> dict:
                        rns_ops(base.k, 14 + nw * (w + 1), B),
                        headline=B == BATCH)
     # K2 at the decrypt base: a truncated schedule at B=256, then the
-    # whole decrypt chain of p-1 at B=4096
+    # whole decrypt chains of p-1 and q-1 at B=4096 a half
     window = rk.plan_sched(base.CH)
     e = p - 1
     sched = rns.sliding_schedule(e, window, e.bit_length())
@@ -721,9 +721,14 @@ def check_kernels(dev, kd) -> dict:
            ms_of(lambda: rns.rns_exp_sched(X, short, base, key, window), 1),
            nbytes(X, got) + 4 * len(short) + tile_bytes,
            rns_ops(base.k, tbl + len(short), 256))
-    # the whole chain at the main path's width, a ragged batch and one
-    # column
-    for B in (BATCH, 100, 1):
+    # the decrypt's launch at the main path's width (the headline): both
+    # CRT halves in one launch, against the two one-half launches
+    sm = rns_smem(base.k, base.CH)
+    check_sched_pair(dev, rng, record, BATCH, p, kd["q"], base, key, window,
+                     f"W {'shared' if sm['w_shared'] else 'global'}, "
+                     f"{sm['k2']} B", headline=True)
+    # the whole chain one half a launch at a ragged batch and one column
+    for B in (100, 1):
         Xf = random_state(rng, base, B, dev)
         got = rk.rns_exp_sched_p(Xf, sched, base, key, window)
         want, plain_ms = timed(lambda: rns.rns_exp_sched(Xf, sched, base,
@@ -733,7 +738,7 @@ def check_kernels(dev, kd) -> dict:
                ms_of(lambda: rk.rns_exp_sched_p(Xf, sched, base, key,
                                                 window), 3),
                plain_ms, nbytes(Xf, got) + 4 * len(sched) + tile_bytes,
-               rns_ops(base.k, tbl + len(sched), B), headline=B == BATCH)
+               rns_ops(base.k, tbl + len(sched), B))
     # W1, W2 of the n^2 base (CH=521) do not fit beside the states in
     # shared memory: the instantiation that reads them from global memory
     b2 = rns.RnsBase.for_bits(-(-(2 * 2048 + 2) // 16) * 16, dev)
@@ -1279,7 +1284,8 @@ def check_ladder_kernels(dev, rng, record) -> None:
     ``fixed_shape_ops`` asks for; K2 at each p^2 base (CH=133 with W1, W2
     in shared memory, CH=389 and 519 reading them from global memory):
     the whole sliding-window schedule of p-1 at 1024 and 4096 bits, 64
-    ops at B=256 and the whole schedule at 3072 bits; K7 at L=193 (4
+    ops at B=256 and the whole schedule at 3072 bits, and at each both
+    CRT halves in one launch (``check_sched_pair``); K7 at L=193 (4
     windows); K9 and K10 at keygen's per-element shapes, 1536- and
     2048-bit odd candidates (L=97, 129, B=256; K10 over 8 windows)."""
     import random
@@ -1371,6 +1377,7 @@ def check_ladder_kernels(dev, rng, record) -> None:
                    plain_ms, nbytes(Xs, got, po["vec"], po["skc"], po["W1f"],
                                     po["W2f"]) + 4 * len(s),
                    rns_ops(pb.k, (1 << (window - 1)) + len(s), Bc))
+        check_sched_pair(dev, rng, record, B, p, q, pb, pkey, window, where)
     # K9 and K10 at keygen's device Miller-Rabin shapes: odd 1536- and
     # 2048-bit candidates (3072- and 4096-bit keys), digits of
     # (c-1) >> tz, the chain's first 8 windows
@@ -1405,6 +1412,52 @@ def check_ladder_kernels(dev, rng, record) -> None:
                plain_ms, nbytes(ak, dk_dev, got, ck.one, ck.n_limbs,
                                 ck.n0inv), limb_ops(Lk, 14 + 8, 256, 8 * 4))
         coop_note(Lk, 256, 14 + 8, 8 * 4)
+
+
+def check_sched_pair(dev, rng, record, B: int, p: int, q: int, pb, pkey,
+                     window: int, where: str, headline=False) -> None:
+    """K2 over both CRT halves in one launch (``rns_exp_sched_pair``, the
+    decrypt's launch) at a p^2 base and batch B a half (the main path's
+    CH=261, B=2x4096, and each ladder rung's: CH=133, B=2x256; CH=389,
+    B=2x10240; CH=519, B=2x256), the whole schedules of p-1 and q-1:
+    against the two one-half launches and the plain twins, exact; the
+    pair and the two one-half launches back to back each timed with CUDA
+    events.  With `headline` the pair is K2's headline record."""
+    import torch
+    from pailliercryptolib_python_tpu_torch.ops import rns, rns_kernels as rk
+    qkey = rns.RnsModulus.build(pb, q * q,
+                                (q.bit_length() * 2 + 2 + 15) // 16)
+    ebits = max((p - 1).bit_length(), (q - 1).bit_length())
+    sp, sq = (rk.schedule_tensor(rns.sliding_schedule(e, window, ebits),
+                                 window, dev) for e in (p - 1, q - 1))
+    Xp, Xq = random_state(rng, pb, B, dev), random_state(rng, pb, B, dev)
+
+    def pair():
+        return rk.rns_exp_sched_pair(Xp, Xq, sp, sq, pb, pkey, qkey, window)
+
+    def singles():
+        return (rk.rns_exp_sched_p(Xp, sp, pb, pkey, window),
+                rk.rns_exp_sched_p(Xq, sq, pb, qkey, window))
+
+    got, one_half = torch.cat(pair(), dim=1), torch.cat(singles(), dim=1)
+    want_p, plain_p = timed(lambda: rns.rns_exp_sched(Xp, sp, pb, pkey,
+                                                      window))
+    want_q, plain_q = timed(lambda: rns.rns_exp_sched(Xq, sq, pb, qkey,
+                                                      window))
+    want = torch.cat([want_p, want_q], dim=1)
+    po, qo = (rk.kernel_operands(pb, k, dev) for k in (pkey, qkey))
+    n_bytes = nbytes(Xp, Xq, got, po["vec"], qo["vec"], po["skc"],
+                     qo["skc"], po["W1f"], po["W2f"]) + 4 * 2 * len(sp)
+    ops = rns_ops(pb.k, (1 << (window - 1)) + len(sp), 2 * B)
+    pair_ms, singles_ms = ms_of(pair, 2), ms_of(singles, 2)
+    shape = f"CH={pb.CH} B=2x{B} w={window} {len(sp)} ops, {where}"
+    record("rns_exp_sched", got, want, shape + ", pair", pair_ms,
+           plain_p + plain_q, n_bytes, ops, headline=headline)
+    record("rns_exp_sched", one_half, want, shape + ", two one-half",
+           singles_ms, plain_p + plain_q, n_bytes, ops)
+    print(f"  rns_exp_sched pair at CH={pb.CH} B=2x{B}: {pair_ms:.3f} ms "
+          f"against {singles_ms:.3f} ms for the two one-half launches "
+          f"({singles_ms / pair_ms:.2f}x)", flush=True)
 
 
 def random_limbs(gen, m: int, shape: tuple, dev):
@@ -2048,7 +2101,8 @@ def third_slice(dev, kd, tag: str, exps: list) -> dict:
         raise AssertionError("limb engine: decrypt(encrypt(x)) != x")
 
     # stage 2 of the CRT decrypt on the same stage-1 output: the fused
-    # per-element chain (K10), K7's two halves, K2's two halves
+    # per-element chain (K10), K7's two halves, K2 over both halves in
+    # one launch
     priv = lsk.prikey.context
     ct_dev = ct_x.ciphertext().device_array()
     B = ct_dev.shape[1]
@@ -2061,13 +2115,11 @@ def third_slice(dev, kd, tag: str, exps: list) -> dict:
                                 priv.dec_window),
         sch._crt_stage_exp_half(base_m[:, B:], priv._sq_q, priv.dig_q,
                                 priv.dec_window)], dim=1))
-    u2, times["stage2_K2_s"] = wall(lambda: torch.cat([
-        rns.rns_crt_exp_sched(base_m[:, :B], priv.rsched_p, priv.rns_base,
-                              priv.rns_p, priv._sq_p, priv.rns_sched_window,
-                              priv.Lh),
-        rns.rns_crt_exp_sched(base_m[:, B:], priv.rsched_q, priv.rns_base,
-                              priv.rns_q, priv._sq_q, priv.rns_sched_window,
-                              priv.Lh)], dim=1))
+    u2, times["stage2_K2_s"] = wall(lambda: torch.cat(
+        rns.rns_crt_exp_sched_pair(
+            base_m[:, :B], base_m[:, B:], priv.rsched_p, priv.rsched_q,
+            priv.rns_base, priv.rns_p, priv.rns_q, priv._sq_p, priv._sq_q,
+            priv.rns_sched_window, priv.Lh), dim=1))
     if not torch.equal(u10, u7):
         raise AssertionError("fused stage 2 (K10) differs from K7's halves")
     ints10 = limbs_to_ints(sch._crt_stage_recombine(u10, priv))

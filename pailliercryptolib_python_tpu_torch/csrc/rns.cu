@@ -54,6 +54,20 @@
 // table step, 32 times the table traffic; the README records the
 // key-derived index.
 //
+// One K2 launch runs both CRT halves of a decrypt: a grid of
+// halves x ceil(B/32) CTAs, CTA b serving half b / tiles and tile
+// b % tiles, so no tile straddles the halves.  The halves share the RNS
+// base, hence W1, W2, the schedule's length (sched_len depends on the
+// key's size alone) and the window; each brings its own entered state,
+// schedule, output and per-channel constants (vec, skc: p^2 or q^2).  A
+// chain is latency-bound within its CTA (~15.5 us a product at CH=261
+// whatever B), so where one half fills few SMs (8 of 132 at 4096 bits,
+// B=256) the second half ran on idle SMs after the first: side by side
+// the decrypt's K2 takes one chain's time, not two.  The merged grid
+// never takes more waves than the two launches it replaces:
+// ceil(2T / SMs) <= 2 ceil(T / SMs) for T tiles a half.  A one-half
+// launch is the same kernel with one half.
+//
 // K6 (the fixed-window chain of a CRT half): the same CTA layout as K2,
 // W1, W2 resident in shared memory where they fit (CH <= ~280, the
 // 2048-bit key's p^2 base), else read from global memory.  X stays in
@@ -180,15 +194,33 @@ rns_mul_kernel(const uint32_t* x, const uint32_t* y, uint32_t* out,
   store_tile(st, out, op.CH, col0, B);
 }
 
+// One CRT half of a K2 launch: its entered state and output ((CH, B)
+// int32), its schedule and its per-channel constants (TileOps vec, skc).
+struct SchedHalf {
+  const uint32_t* x;
+  const int32_t* sched;
+  uint32_t* out;
+  const uint32_t* vec;
+  const uint32_t* skc;
+};
+
 // K2: the whole chain of a tile.  kSharedW: W1, W2 copied into shared
 // memory once (NTU = 1 balances the 4 MT units over 16 warps); else read
-// from global memory as in K1.
+// from global memory as in K1.  CTAs [0, tiles) serve half h0, the rest
+// h1 (a one-half launch has tiles CTAs); op's vec and skc are the
+// served half's.  tab: (halves x tiles, 2^(w-1), CH, kNC) uint16.
 template <bool kSharedW>
 __global__ void __launch_bounds__(rns_tile::kThreads, 1)
-rns_exp_sched_kernel(const uint32_t* x, const int32_t* sched, int n_ops,
-                     uint32_t* out, u16* tab, TileOps op, int window,
-                     int B) {
+rns_exp_sched_kernel(SchedHalf h0, SchedHalf h1, int n_ops, u16* tab,
+                     TileOps op, int window, int B) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int tiles = (B + kNC - 1) / kNC;
+  const bool second = static_cast<int>(blockIdx.x) >= tiles;
+  const uint32_t* x = second ? h1.x : h0.x;
+  const int32_t* sched = second ? h1.sched : h0.sched;
+  uint32_t* out = second ? h1.out : h0.out;
+  op.vec = second ? h1.vec : h0.vec;
+  op.skc = second ? h1.skc : h0.skc;
   const int CH = op.CH, SZ = CH * kNC;
   const uint4* W1 = op.W1;
   const uint4* W2 = op.W2;
@@ -197,7 +229,7 @@ rns_exp_sched_kernel(const uint32_t* x, const int32_t* sched, int n_ops,
   u16* opb = acc + SZ;
   uint8_t* xs = reinterpret_cast<uint8_t*>(opb + SZ);
   uint32_t* delta = reinterpret_cast<uint32_t*>(xs + kNC * op.XS);
-  const int col0 = blockIdx.x * kNC;
+  const int col0 = (blockIdx.x - (second ? tiles : 0)) * kNC;
   const int tsize = 1 << (window - 1);
   u16* tb = tab + static_cast<size_t>(blockIdx.x) * tsize * SZ;
   constexpr int NTU = kSharedW ? 1 : 4;
@@ -454,17 +486,25 @@ extern "C" int pct_rns_mul(const uint32_t* x, const uint32_t* y,
   return cudaGetLastError();
 }
 
-extern "C" int pct_rns_exp_sched(const uint32_t* x, const int32_t* sched,
-                                 int n_ops, uint32_t* out, uint16_t* tab,
-                                 const uint32_t* vec, const uint32_t* skc,
-                                 const uint8_t* W1, const uint8_t* W2, int k,
-                                 int CH, int KP, int nlev, int window, int B,
+// K2 over `halves` (1 or 2) CRT halves of B columns each, one schedule
+// length n_ops; the second half's pointers are read only when halves = 2.
+extern "C" int pct_rns_exp_sched(const uint32_t* x0, const uint32_t* x1,
+                                 const int32_t* sched0, const int32_t* sched1,
+                                 int n_ops, uint32_t* out0, uint32_t* out1,
+                                 uint16_t* tab, const uint32_t* vec0,
+                                 const uint32_t* vec1, const uint32_t* skc0,
+                                 const uint32_t* skc1, const uint8_t* W1,
+                                 const uint8_t* W2, int k, int CH, int KP,
+                                 int nlev, int window, int halves, int B,
                                  void* stream) {
   if (bad_tile_shape(k, CH, KP, B) || window < 1 || window > 8
-      || n_ops < 0) {
+      || n_ops < 0 || halves < 1 || halves > 2) {
     return cudaErrorInvalidValue;
   }
-  const TileOps op = tile_ops(vec, skc, W1, W2, k, CH, KP, nlev);
+  const TileOps op = tile_ops(vec0, skc0, W1, W2, k, CH, KP, nlev);
+  const SchedHalf h0{x0, sched0, out0, vec0, skc0};
+  const SchedHalf h1 =
+      halves == 2 ? SchedHalf{x1, sched1, out1, vec1, skc1} : h0;
   const size_t smem = 2 * state_bytes(CH) + rns_tile::work_bytes(KP);
   const size_t smem_w = smem + 2 * rns_tile::w_bytes(op.MT, op.KS);
   const bool shared_w = smem_w <= kMaxShared;
@@ -475,8 +515,8 @@ extern "C" int pct_rns_exp_sched(const uint32_t* x, const int32_t* sched,
   const size_t bytes = shared_w ? smem_w : smem;
   const cudaError_t e = rns_tile::allow_max_shared(kernel, raised[shared_w]);
   if (e != cudaSuccess) return e;
-  kernel<<<(B + kNC - 1) / kNC, rns_tile::kThreads, bytes,
-           static_cast<cudaStream_t>(stream)>>>(x, sched, n_ops, out, tab, op,
+  kernel<<<halves * ((B + kNC - 1) / kNC), rns_tile::kThreads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(h0, h1, n_ops, tab, op,
                                                 window, B);
   return cudaGetLastError();
 }

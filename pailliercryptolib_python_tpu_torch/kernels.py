@@ -57,8 +57,8 @@ _SIGS = {
     "mm3_sqr": [_P, _P, _P, _U, _I, _I, _P],
     "mm3_sqr_chain": [_P, _P, _P, _P, _U, _I, _I, _I, _I, _P],
     "rns_mul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rns_exp_sched": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _P],
+    "rns_exp_sched": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rns_exp_elem": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
     "rns_exp_shared": [_P, _P, _I, _P, _P, _P, _P, _P, _P,

@@ -943,20 +943,27 @@ class PrivateContext:
 
     def _stage2(self, base_m: torch.Tensor) -> dict:
         """Stage 2 as named thunks whose results, in order, make its
-        output: per CRT half the RNS sliding-window chain (K2, enter and
-        exit included) or, with mm3 weights, the limb engine's
-        shared-exponent chain (K7); else one fused per-element chain over
-        both halves (K10)."""
+        output: on the RNS route both CRT halves' sliding-window chains
+        in one K2 launch, enter and exit included, which the p half's
+        thunk runs and whose q half the q half's thunk reads; with mm3
+        weights, per CRT half the limb engine's shared-exponent chain
+        (K7); else one fused per-element chain over both halves (K10)."""
         B = base_m.shape[1] // 2
         halves = (("p", base_m[:, :B], self._sq_p),
                   ("q", base_m[:, B:], self._sq_q))
         if self.use_rns:
-            keys = {"p": self.rns_p, "q": self.rns_q}
-            return {f"stage2_rns_{w}_half": (
-                lambda w=w, v=v, sq=sq: _rns.rns_crt_exp_sched(
-                    v, self.device_digits("rsched_" + w), self.rns_base,
-                    keys[w], sq, self.rns_sched_window, self.Lh))
-                for w, v, sq in halves}
+            pair = []
+
+            def both_halves():
+                pair[:] = _rns.rns_crt_exp_sched_pair(
+                    base_m[:, :B], base_m[:, B:],
+                    self.device_digits("rsched_p"),
+                    self.device_digits("rsched_q"), self.rns_base,
+                    self.rns_p, self.rns_q, self._sq_p, self._sq_q,
+                    self.rns_sched_window, self.Lh)
+                return pair[0]
+            return {"stage2_rns_p_half": both_halves,
+                    "stage2_rns_q_half": lambda: pair[1]}
         if self._sq_p.wmu is not None:
             return {f"stage2_exp_{w}_half": (
                 lambda w=w, v=v, sq=sq: _crt_stage_exp_half(

@@ -652,6 +652,19 @@ def rns_crt_exp_sched(v_limbs, sched, base: RnsBase, key: RnsModulus,
     return rns_exit(Z, base, key, sq_ctx, L)
 
 
+def rns_crt_exp_sched_pair(v_p, v_q, sched_p, sched_q, base: RnsBase,
+                           key_p: RnsModulus, key_q: RnsModulus, sq_p, sq_q,
+                           window: int, L: int) -> tuple:
+    """Both CRT halves, each as ``rns_crt_exp_sched`` computes it: enter
+    p, enter q, one K2 launch over both chains, exit p, exit q."""
+    from . import rns_kernels
+    Xp, Xq = rns_enter(v_p, base, key_p), rns_enter(v_q, base, key_q)
+    Zp, Zq = rns_kernels.rns_exp_sched_pair(Xp, Xq, sched_p, sched_q, base,
+                                            key_p, key_q, window)
+    return (rns_exit(Zp, base, key_p, sq_p, L),
+            rns_exit(Zq, base, key_q, sq_q, L))
+
+
 def rns_exp_shared(X, digits, base: RnsBase, key: RnsModulus, window: int):
     """Fixed-window shared-exponent chain: X the entered state (value
     c*M), digits (n_win,) MSB-first base-2^window digits of the one

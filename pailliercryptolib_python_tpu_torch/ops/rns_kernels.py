@@ -1,4 +1,5 @@
-"""Wrappers of the RNS kernels K1 (``rns_mul``), K2 (``rns_exp_sched_p``),
+"""Wrappers of the RNS kernels K1 (``rns_mul``), K2 (``rns_exp_sched_p``;
+``rns_exp_sched_pair`` runs both CRT halves in one launch),
 K5 (``rns_exp_elem_p``) and K6 (``rns_exp_shared_p``) and the packing of
 their operands.
 
@@ -389,7 +390,27 @@ def rns_exp_sched_p(X: torch.Tensor, sched, base: rns.RnsBase,
     sched = schedule_tensor(sched, window, X.device)
     if X.device.type == "cpu":
         return rns.rns_exp_sched(X, sched, base, key, window)
-    return _rns_exp_sched_cuda(X, sched, base, key, window)
+    return _rns_exp_sched_launch((X,), (sched,), base, (key,), window)[0]
+
+
+def rns_exp_sched_pair(Xp: torch.Tensor, Xq: torch.Tensor, sched_p,
+                       sched_q, base: rns.RnsBase, key_p: rns.RnsModulus,
+                       key_q: rns.RnsModulus, window: int) -> tuple:
+    """Both CRT halves' sliding-window chains side by side in one K2
+    launch on CUDA: (Zp, Zq), each as ``rns_exp_sched_p`` gives it.  The
+    halves share the base (hence W1, W2) and the window; the schedules
+    must have one length (``rns.sched_len`` depends on the key's size
+    alone).  Raises on schedules of different lengths."""
+    sched_p = schedule_tensor(sched_p, window, Xp.device)
+    sched_q = schedule_tensor(sched_q, window, Xq.device)
+    if sched_p.shape[0] != sched_q.shape[0]:
+        raise ValueError(f"rns_exp_sched_pair: schedules of {sched_p.shape[0]}"
+                         f" and {sched_q.shape[0]} entries")
+    if Xp.device.type == "cpu":
+        return (rns.rns_exp_sched(Xp, sched_p, base, key_p, window),
+                rns.rns_exp_sched(Xq, sched_q, base, key_q, window))
+    return _rns_exp_sched_launch((Xp, Xq), (sched_p, sched_q), base,
+                                 (key_p, key_q), window)
 
 
 @lru_cache(maxsize=None)
@@ -398,21 +419,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _rns_exp_sched_cuda(X, sched, base, key, window) -> torch.Tensor:
-    kernels.require_cuda(X, sched)
-    CH, B = base.CH, X.shape[1]
-    x = _state(X, CH, B)
-    p = kernel_operands(base, key, x.device)
-    out = torch.empty((CH, B), dtype=LIMB_DTYPE, device=x.device)
-    # the odd powers, tile by tile: (tiles, 2^(window-1), CH, TILE_COLS)
-    # uint16 states (int16 storage)
-    tab = torch.empty((-(-B // TILE_COLS), 1 << (window - 1), CH,
-                       TILE_COLS), dtype=torch.int16, device=x.device)
-    kernels.launch("rns_exp_sched", x, sched, sched.shape[0], out, tab,
-                   p["vec"], p["skc"], p["W1f"], p["W2f"], base.k, CH,
-                   p["KP"], rns.combine_levels(base.mbits), window, B)
-    profiling.count_sched(B, _sm_count(x.device.index))
-    return out
+def _rns_exp_sched_launch(Xs, scheds, base, keys, window) -> tuple:
+    """One K2 launch over one or two halves (``csrc/rns.cu``
+    ``pct_rns_exp_sched``) of B columns each: the second half's pointers
+    repeat the first's in a one-half launch, which never reads them."""
+    kernels.require_cuda(*Xs, *scheds)
+    CH, B = base.CH, Xs[0].shape[1]
+    xs = [_state(X, CH, B) for X in Xs]
+    ps = [kernel_operands(base, key, xs[0].device) for key in keys]
+    outs = [torch.empty((CH, B), dtype=LIMB_DTYPE, device=xs[0].device)
+            for _ in xs]
+    # the odd powers, tile by tile, the halves one after the other:
+    # (halves x tiles, 2^(window-1), CH, TILE_COLS) uint16 states (int16
+    # storage)
+    tab = torch.empty((len(xs) * -(-B // TILE_COLS), 1 << (window - 1), CH,
+                       TILE_COLS), dtype=torch.int16, device=xs[0].device)
+    kernels.launch("rns_exp_sched", xs[0], xs[-1], scheds[0], scheds[-1],
+                   scheds[0].shape[0], outs[0], outs[-1], tab,
+                   ps[0]["vec"], ps[-1]["vec"], ps[0]["skc"], ps[-1]["skc"],
+                   ps[0]["W1f"], ps[0]["W2f"], base.k, CH, ps[0]["KP"],
+                   rns.combine_levels(base.mbits), window, len(xs), B)
+    profiling.count_sched(B, _sm_count(xs[0].device.index), len(xs))
+    return tuple(outs)
 
 
 def rns_exp_elem_p(X: torch.Tensor, digits, base: rns.RnsBase,

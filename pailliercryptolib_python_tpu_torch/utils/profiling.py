@@ -39,8 +39,9 @@ _OFF = contextlib.nullcontext()
 # exp_columns: columns launched, padding included; exp_windows_run:
 # columns x windows the chosen route runs; exp_windows_needed: the sum over
 # the columns of ceil(bitlen(e) / window), 0 for e <= 1.
-# K2 (``rns_exp_sched``) launches, counted the same way: sched_launches;
-# sched_ctas: CTAs launched; sched_sm_slots: the SM slots of the waves
+# K2 (``rns_exp_sched``) launches, counted the same way: sched_launches
+# (a launch over both CRT halves counts once); sched_ctas: CTAs launched,
+# halves x ceil(columns / 32); sched_sm_slots: the SM slots of the waves
 # those CTAs take at one CTA an SM, ceil(ctas / SMs) x SMs.
 # The alignment's squaring chain (K16, ``PublicContext.scale_pow2``):
 # align_launches; align_columns: the shifted columns; align_squarings_needed:
@@ -120,14 +121,15 @@ def count_align(d, L: int) -> None:
         (np.maximum.reduceat(d, starts) * widths).sum())
 
 
-def count_sched(columns: int, sms: int) -> None:
-    """Count one K2 launch over `columns` columns on a card of `sms` SMs:
-    one CTA a tile of ``rns_kernels.TILE_COLS`` columns, one CTA an SM
-    (K2's launch bounds).  Counts only while a profiler is active."""
+def count_sched(columns: int, sms: int, halves: int = 1) -> None:
+    """Count one K2 launch over `halves` CRT halves of `columns` columns
+    each on a card of `sms` SMs: one CTA a tile of
+    ``rns_kernels.TILE_COLS`` columns of one half, one CTA an SM (K2's
+    launch bounds).  Counts only while a profiler is active."""
     if not _profiler_enabled():
         return
     from ..ops.rns_kernels import TILE_COLS
-    ctas = -(-columns // TILE_COLS)
+    ctas = halves * -(-columns // TILE_COLS)
     COUNTERS["sched_launches"] += 1
     COUNTERS["sched_ctas"] += ctas
     COUNTERS["sched_sm_slots"] += -(-ctas // sms) * sms

@@ -1,6 +1,7 @@
 """The 4096-bit decrypt's plan on the CPU, in seconds: K2's SM-fill
 counter (``profiling.count_sched``: its arithmetic, its profiler gate,
-its call at each launch of K2's CUDA wrapper), the CRT decrypt at the
+its call at each launch of K2's CUDA wrapper, one- or two-half, and the
+cell's reader over it), the two-half launch's operands, the CRT decrypt at the
 256-bit test key under the 4096-bit key's chain window against the
 default window and the plain reference's floats, and the host constants
 of a 4096-bit key: the chain's window and the comb's shrink.
@@ -10,6 +11,7 @@ constants are computed on the host only."""
 
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -79,8 +81,8 @@ def test_count_sched_counts_nothing_without_a_profiler():
 
 
 def test_k2_wrapper_counts_each_launch(key256, monkeypatch):
-    """``_rns_exp_sched_cuda`` counts its launch with the card's SM count,
-    here with the launch itself replaced (no card)."""
+    """``_rns_exp_sched_launch`` counts each one-half launch with the
+    card's SM count, here with the launch itself replaced (no card)."""
     launched = []
     monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
     monkeypatch.setattr(kernels, "launch",
@@ -93,14 +95,86 @@ def test_k2_wrapper_counts_each_launch(key256, monkeypatch):
     sched = tr.sliding_schedule(77, 3, 7)
     X = torch.zeros((base.CH, 256), dtype=torch.int32)
     _zero_sched()
-    trk._rns_exp_sched_cuda(X, torch.from_numpy(sched), base, key, 3)
+    sched = torch.from_numpy(sched)
+    trk._rns_exp_sched_launch((X,), (sched,), base, (key,), 3)
     assert _sched_counts() == (0, 0, 0)         # no profiler: no count
     with profile(activities=[ProfilerActivity.CPU]):
-        trk._rns_exp_sched_cuda(X, torch.from_numpy(sched), base, key, 3)
-        trk._rns_exp_sched_cuda(X[:, :33], torch.from_numpy(sched), base,
-                                key, 3)
+        trk._rns_exp_sched_launch((X,), (sched,), base, (key,), 3)
+        trk._rns_exp_sched_launch((X[:, :33],), (sched,), base, (key,), 3)
     assert launched == [("rns_exp_sched", 256)] * 2 + [("rns_exp_sched", 33)]
     assert _sched_counts() == (2, 8 + 2, 132 + 132)
+
+
+def test_count_sched_for_a_pair_launch():
+    """One launch over both CRT halves counts once, with 2 x ceil(B/32)
+    CTAs: at B=256 a half, 16 CTAs in one wave of 132 slots."""
+    _zero_sched()
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count_sched(256, 132, 2)
+    assert _sched_counts() == (1, 16, 132)
+    _zero_sched()
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count_sched(10240, 132, 2)   # the 3072-bit cell: 5 waves
+        profiling.count_sched(33, 132, 2)      # a ragged tile in each half
+    assert _sched_counts() == (2, 640 + 4, 660 + 132)
+
+
+def test_sm_fill_reader_reads_pair_launches():
+    """The cell's reader (``portbench/metrics/decrypt_sm_fill_pct.py``,
+    loaded as the harness loads it) over 16 pair launches of 16 CTAs:
+    12.12% of the SM slots, twice the one-half launches' 6.06%."""
+    from portbench import run as R
+    read = R.load_reader("decrypt_sm_fill_pct")
+    _zero_sched()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(16):
+            profiling.count_sched(256, 132, 2)
+    assert _sched_counts() == (16, 16 * 16, 16 * 132)
+    traced = types.SimpleNamespace(trace=object())
+    assert read(traced) == pytest.approx(100 * 16 / 132)
+    assert round(read(traced), 2) == 12.12
+
+
+def test_k2_pair_launch_hands_each_half_its_operands(key256, monkeypatch):
+    """``_rns_exp_sched_launch`` over both halves, with the launch
+    replaced by the plain twin of each half read from the argument list
+    in ``pct_rns_exp_sched``'s order (no card): each half gets its own
+    state, schedule, output and constants, the scratch table holds
+    halves x tiles tiles, and the counter sees one launch of 2 x 2
+    CTAs at B=33."""
+    launched = []
+    p2, q2 = key256["p"] ** 2, key256["q"] ** 2
+    base = tr.RnsBase.for_bits(tsch._rns_mbits(p2.bit_length()), CPU)
+    L = tsch.limbs_for_bits(max(p2, q2).bit_length() + 2)
+    kp, kq = (tr.RnsModulus.build(base, m, L) for m in (p2, q2))
+    by_vec = {id(trk.kernel_operands(base, k, CPU)["vec"]): k
+              for k in (kp, kq)}
+
+    def fake_launch(name, *a):
+        (x0, x1, s0, s1, n_ops, o0, o1, tab, v0, v1, c0, c1, W1, W2, k, CH,
+         KP, nlev, window, halves, B) = a
+        launched.append((name, n_ops, halves, B, tab.shape[0]))
+        for x, s, o, v in ((x0, s0, o0, v0), (x1, s1, o1, v1))[:halves]:
+            o.copy_(tr.rns_exp_sched(x, s, base, by_vec[id(v)], window))
+
+    monkeypatch.setattr(kernels, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(kernels, "launch", fake_launch)
+    monkeypatch.setattr(trk, "_sm_count", lambda index: 132)
+    rng = np.random.default_rng(24)
+    mods = base.mods.numpy().reshape(-1, 1)
+    Xp, Xq = (torch.from_numpy((rng.integers(0, 1 << 16, (base.CH, 33))
+                                % mods).astype(np.int32)) for _ in range(2))
+    sp, sq = (torch.from_numpy(tr.sliding_schedule(e, 3, 7))
+              for e in (77, 100))
+    _zero_sched()
+    with profile(activities=[ProfilerActivity.CPU]):
+        Zp, Zq = trk._rns_exp_sched_launch((Xp, Xq), (sp, sq), base,
+                                           (kp, kq), 3)
+    assert launched == [("rns_exp_sched", len(sp), 2, 33, 2 * 2)]
+    assert _sched_counts() == (1, 2 * 2, 132)
+    assert torch.equal(Zp, tr.rns_exp_sched(Xp, sp, base, kp, 3))
+    assert torch.equal(Zq, tr.rns_exp_sched(Xq, sq, base, kq, 3))
+    assert not torch.equal(Zp, Zq)
 
 
 def _decrypt(k, monkeypatch, window):

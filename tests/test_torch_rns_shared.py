@@ -4,7 +4,8 @@ kernel K6: ``ops/rns.rns_exp_shared``, ``rns_crt_exp_half``,
 its jnp chain, its Pallas kernel ``rns_exp_shared_p`` in interpret mode,
 and Python ``pow``.  Every comparison is exact (states and limbs equal).
 Also the host-side contract of the schedule / digit operands of K2 and
-K6: a tensor that is typed as lying on a device raises."""
+K6: a tensor that is typed as lying on a device raises; and K2's
+two-half entry (``rns_exp_sched_pair``) against its one-half twins."""
 
 import random
 
@@ -113,6 +114,58 @@ def test_crt_exp_half_matches_reference_pow_and_sched(setup):
     sched = tr.sliding_schedule(e, sw, e.bit_length())
     _same(tr.rns_crt_exp_sched(_t(s["v"]), sched, s["tb"], s["tk"], s["tsq"],
                                sw, s["L"]), want)
+
+
+def _q_half(setup):
+    """The q^2 key at the setup's base, B entered states of ciphertext
+    residues mod q^2 and their residues."""
+    s = setup
+    Q = KD["q"] ** 2
+    assert Q.bit_length() <= MBITS
+    tq = tr.RnsModulus.build(s["tb"], Q, s["L"])
+    rng = random.Random(43)
+    R = 1 << (LIMB_BITS * s["L"])
+    cs = [rng.randrange(Q) for _ in range(B)]
+    X = tr.rns_enter(_t(ints_to_limbs([c * R % Q for c in cs], s["L"])),
+                     s["tb"], tq)
+    return tq, X, cs
+
+
+def test_sched_pair_equals_two_one_half_twins(setup):
+    """Both CRT halves through the pair entry (its plain twins on the
+    CPU) equal the one-half chain of each, state for state, and exit to
+    c^(p-1) mod p^2 and c^(q-1) mod q^2."""
+    s = setup
+    tq, Xq, cq = _q_half(s)
+    Xp = _t(s["X"])
+    w = 4
+    ebits = max((KD["p"] - 1).bit_length(), (KD["q"] - 1).bit_length())
+    sp = tr.sliding_schedule(KD["p"] - 1, w, ebits)
+    sq = tr.sliding_schedule(KD["q"] - 1, w, ebits)
+    assert len(sp) == len(sq) and not np.array_equal(sp, sq)
+    Zp, Zq = trk.rns_exp_sched_pair(Xp, Xq, sp, sq, s["tb"], s["tk"], tq, w)
+    _same(Zp, tr.rns_exp_sched(Xp, sp, s["tb"], s["tk"], w))
+    _same(Zq, tr.rns_exp_sched(Xq, sq, s["tb"], tq, w))
+    _same(Zp, trk.rns_exp_sched_p(Xp, sp, s["tb"], s["tk"], w))
+    Q = KD["q"] ** 2
+    tqsq = tmg.MontCtx.for_modulus(Q, min_bits=LIMB_BITS * s["L"], mxu=True,
+                                   device=CPU)
+    up = tr.rns_exit(Zp, s["tb"], s["tk"], s["tsq"], s["L"])
+    uq = tr.rns_exit(Zq, s["tb"], tq, tqsq, s["L"])
+    assert limbs_to_ints(up) == [pow(c, KD["p"] - 1, M) for c in s["cs"]]
+    assert limbs_to_ints(uq) == [pow(c, KD["q"] - 1, Q) for c in cq]
+
+
+def test_sched_pair_raises_on_schedules_of_different_lengths(setup):
+    s = setup
+    tq, Xq, _ = _q_half(s)
+    X = _t(s["X"])
+    short, long_ = tr.sliding_schedule(77, 4, 7), tr.sliding_schedule(77, 4, 8)
+    with pytest.raises(ValueError, match="schedules of 9 and 10 entries"):
+        trk.rns_exp_sched_pair(X, Xq, short, long_, s["tb"], s["tk"], tq, 4)
+    with pytest.raises(ValueError, match="out of range"):
+        trk.rns_exp_sched_pair(X, Xq, short, np.full(9, 9, np.int32),
+                               s["tb"], s["tk"], tq, 4)
 
 
 class _OnDevice(torch.Tensor):

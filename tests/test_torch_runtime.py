@@ -473,6 +473,39 @@ def test_profile_stages_and_rns_digits_match_the_reference(keys, ref_priv):
         max((KD["p"] - 1).bit_length(), (KD["q"] - 1).bit_length())) // 4)
 
 
+def test_decrypt_device_equals_the_per_half_stages_and_the_reference(
+        keys, ref_priv):
+    """On the RNS route ``decrypt_device`` runs stage 2's CRT halves in
+    one K2 launch (``rns_crt_exp_sched_pair``; its twins on the CPU).
+    Its limbs equal those of ``profile_stages``' per-half stage-2 thunks
+    chained through stage 3 (the p half's runs the launch, the q half's
+    reads it), each half that of the one-half route
+    (``rns_crt_exp_sched``), and the reference's decrypt."""
+    pk, sk = keys
+    tpriv = sk.prikey.context
+    assert tpriv.use_rns
+    msgs = [7, 1 << 50, KD["n"] - 1, 0, 5, 6, 1 << 100, 42]
+    tct = pk.pubkey.context.encrypt(msgs)
+    got = tpriv.decrypt_device(tct)
+    base_m = tsch._crt_stage_reduce(tct, tpriv)
+    st = tpriv._stage2(base_m)
+    assert list(st) == ["stage2_rns_p_half", "stage2_rns_q_half"]
+    u = torch.cat([st["stage2_rns_p_half"](), st["stage2_rns_q_half"]()],
+                  dim=1)
+    assert torch.equal(got, tsch._crt_stage_recombine(u, tpriv))
+    for h, v, key, sq in ((0, base_m[:, :8], tpriv.rns_p, tpriv._sq_p),
+                          (1, base_m[:, 8:], tpriv.rns_q, tpriv._sq_q)):
+        one_half = tsch._rns.rns_crt_exp_sched(
+            v, tpriv.rsched_q if h else tpriv.rsched_p, tpriv.rns_base, key,
+            sq, tpriv.rns_sched_window, tpriv.Lh)
+        assert torch.equal(u[:, 8 * h:8 * (h + 1)], one_half)
+    jct = ref_priv.pub.import_cts(pk.pubkey.context.export_cts(tct, 8))
+    assert np.array_equal(got.numpy().astype(np.int64),
+                          np.asarray(ref_priv.decrypt_device(jct))
+                          .astype(np.int64))
+    assert tpriv.decrypt_to_ints(tct, 8) == msgs
+
+
 def test_from_jax_state_takes_the_fixed_window_digits(ref_priv):
     jcfg_saved = jcfg.get_config().encrypt_engine
     jcfg.set_config(encrypt_engine="rns")
